@@ -1,0 +1,48 @@
+"""The OffloadEngine API: one decision-stack object, loaded from the
+artifact the JAX package fits and saves."""
+from repro_torch.api.engine import DecisionBatch, OffloadEngine
+from repro_torch.api.features import (
+    DetectionBoxFeatures,
+    FeatureExtractor,
+    list_feature_extractors,
+    make_feature_extractor,
+    register_feature_extractor,
+)
+from repro_torch.api.policies import (
+    Policy,
+    QuantileThresholdPolicy,
+    TokenBucketPolicy,
+    TopKPolicy,
+    list_policies,
+    make_policy,
+    policy_context_params,
+    quantile_threshold,
+    register_policy,
+)
+from repro_torch.api.reward_model import (
+    MLPRewardModel,
+    RewardModel,
+    reward_model_from_state,
+)
+
+__all__ = [
+    "OffloadEngine",
+    "DecisionBatch",
+    "FeatureExtractor",
+    "DetectionBoxFeatures",
+    "list_feature_extractors",
+    "make_feature_extractor",
+    "register_feature_extractor",
+    "Policy",
+    "QuantileThresholdPolicy",
+    "TopKPolicy",
+    "TokenBucketPolicy",
+    "list_policies",
+    "make_policy",
+    "policy_context_params",
+    "quantile_threshold",
+    "register_policy",
+    "RewardModel",
+    "MLPRewardModel",
+    "reward_model_from_state",
+]

@@ -1,0 +1,59 @@
+"""Device and kernel-path resolution for the port.
+
+Two paths, chosen by where the data lies (there is no interpreter path):
+
+``"compiled"``
+    The hand-written Hopper kernel (``kernels/csrc``), for CUDA tensors.
+``"reference"``
+    The plain PyTorch version beside each kernel, for CPU tensors.
+
+A CUDA tensor never takes the plain version and a CPU tensor never takes the
+kernel: asking for either raises instead of falling back.
+
+``resolve_device`` is the rule every entry point of the port follows: it
+runs on ``cuda`` unless the caller asks for the CPU, and asking for ``cuda``
+on a host without a GPU raises.
+"""
+from __future__ import annotations
+
+from typing import Optional, Union
+
+import torch
+
+KERNEL_PATHS = ("compiled", "reference")
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+    """``torch.device`` for ``device`` (``None`` means ``"cuda"``); raises
+    when CUDA is asked for and no GPU is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain PyTorch versions"
+        )
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
+    return dev
+
+
+def resolve_path(x: torch.Tensor, path: Optional[str] = None) -> str:
+    """The kernel path for tensor ``x``: ``"compiled"`` on CUDA,
+    ``"reference"`` on CPU.  An explicit ``path`` must agree with the
+    tensor's device."""
+    if path is not None and path not in KERNEL_PATHS:
+        raise ValueError(f"unknown kernel path {path!r}; use one of {KERNEL_PATHS}")
+    if x.device.type == "cuda":
+        resolved = "compiled"
+    elif x.device.type == "cpu":
+        resolved = "reference"
+    else:
+        raise ValueError(f"unsupported device {x.device}")
+    if path is not None and path != resolved:
+        raise ValueError(
+            f"path {path!r} requested for a tensor on {x.device}; "
+            f"{x.device.type} tensors take the {resolved!r} path"
+        )
+    return resolved

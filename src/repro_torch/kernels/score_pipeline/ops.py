@@ -1,0 +1,143 @@
+"""Wrapper for the fused score-pipeline kernel
+(``kernels/csrc/score_pipeline.cu``), which replaces
+``repro/kernels/score_pipeline/kernel.py:92`` (``score_pipeline_pallas``)
+and the top-k gather its wrapper ran outside it.
+
+One launch takes a padded detection block to reward estimates: the stable
+confidence top-k, the feature row, the standardize step and the MLP head all
+run inside the kernel, with no intermediate in device memory.  A CUDA block
+launches the kernel, a CPU block takes ``score_pipeline_ref``.  Launches are
+counted in ``score_pipeline.launches``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple, Union
+
+import torch
+
+from repro_torch.core.features import feature_dim
+from repro_torch.detection.batch import DetectionsBatch
+from repro_torch.kernels import _build
+from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.estimator_mlp.ops import check_mlp_params
+from repro_torch.kernels.score_pipeline.ref import score_pipeline_ref
+
+__all__ = ["pipeline_params", "score_pipeline"]
+
+_LIB = "score_pipeline"
+_ARGTYPES = (
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+)
+
+
+def pipeline_params(model) -> Dict[str, torch.Tensor]:
+    """The param bundle ``score_pipeline`` consumes, from a *fused*
+    ``MLPRewardModel`` (one hidden layer + sigmoid head), on the model's
+    device.  This is the uncached builder; ``MLPRewardModel.pipeline_params``
+    caches it by the identity of the source arrays."""
+    if not getattr(model, "fused", False):
+        raise ValueError(
+            "score_pipeline needs a fused reward model (single hidden "
+            "layer + sigmoid head); score through the composed path instead"
+        )
+    est = model.estimator
+    p = est.params
+    w1 = p["layer0"]["w"].contiguous()
+    dev = w1.device
+    if model.config.standardize:
+        mu = torch.as_tensor(est._mu, dtype=torch.float32).to(dev)
+        sigma = torch.as_tensor(est._sigma, dtype=torch.float32).to(dev)
+    else:
+        # (x - 0) / 1 is exact in IEEE float32
+        mu = torch.zeros((w1.shape[0],), dtype=torch.float32, device=dev)
+        sigma = torch.ones((w1.shape[0],), dtype=torch.float32, device=dev)
+    return {
+        "w1": w1,
+        "b1": p["layer0"]["b"].contiguous(),
+        "w2": p["layer1"]["w"][:, 0].contiguous(),
+        "b2": p["layer1"]["b"][0].contiguous(),
+        "mu": mu,
+        "sigma": sigma,
+    }
+
+
+def _check_block(boxes, scores, classes, mask) -> Tuple[int, int]:
+    if boxes.ndim != 3 or boxes.shape[-1] != 4:
+        raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
+    B, K = boxes.shape[:2]
+    for name, t, dtype in (
+        ("boxes", boxes, torch.float32),
+        ("scores", scores, torch.float32),
+        ("classes", classes, torch.int32),
+        ("mask", mask, torch.bool),
+    ):
+        if name != "boxes" and tuple(t.shape) != (B, K):
+            raise ValueError(f"{name} must be ({B}, {K}), got {tuple(t.shape)}")
+        if t.dtype != dtype:
+            raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+        if t.device != boxes.device:
+            raise ValueError(f"{name} is on {t.device}, boxes on {boxes.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return B, K
+
+
+def score_pipeline(
+    batch: Union[DetectionsBatch, Tuple],
+    params: Dict[str, torch.Tensor],
+    *,
+    num_classes: int,
+    top_k: int = 25,
+    image_size: float = 1.0,
+) -> torch.Tensor:
+    """(B,) float32 reward estimates for a padded detection block, on the
+    block's device.
+
+    ``batch`` is a :class:`DetectionsBatch` or a ``(boxes, scores, classes,
+    mask)`` tuple of tensors; ``params`` comes from :func:`pipeline_params`
+    and must lie on the same device.  Callers leave the device once, at the
+    policy boundary.
+    """
+    if isinstance(batch, DetectionsBatch):
+        arrays = (batch.boxes, batch.scores, batch.classes, batch.mask)
+    else:
+        arrays = tuple(batch)
+    boxes, scores, classes, mask = arrays
+    B, K = _check_block(boxes, scores, classes, mask)
+    p = params
+    F, H = check_mlp_params(boxes.device, p["w1"], p["b1"], p["w2"], p["b2"])
+    expect = feature_dim(int(num_classes), int(top_k))
+    if F != expect:
+        raise ValueError(
+            f"reward model expects {F} features but the detection extractor "
+            f"produces {expect} (num_classes={num_classes}, top_k={top_k})"
+        )
+    for name in ("mu", "sigma"):
+        t = p[name]
+        if tuple(t.shape) != (F,) or t.dtype != torch.float32 or t.device != boxes.device:
+            raise ValueError(f"{name} must be float32 ({F},) on {boxes.device}")
+    if B == 0:  # a zero-sized grid is refused by CUDA
+        return torch.zeros((0,), dtype=torch.float32, device=boxes.device)
+    if resolve_path(boxes) == "reference":
+        return score_pipeline_ref(
+            boxes, scores, classes, mask,
+            p["w1"], p["b1"], p["w2"], p["b2"], p["mu"], p["sigma"],
+            float(image_size), int(num_classes), int(top_k),
+        )
+    out = torch.empty((B,), dtype=torch.float32, device=boxes.device)
+    fn = _build.function(_LIB, "score_pipeline_f32", _ARGTYPES, boxes.device)
+    with torch.cuda.device(boxes.device):
+        rc = fn(
+            boxes.data_ptr(), scores.data_ptr(), classes.data_ptr(), mask.data_ptr(),
+            p["w1"].data_ptr(), p["b1"].data_ptr(), p["w2"].data_ptr(),
+            p["b2"].data_ptr(), p["mu"].data_ptr(), p["sigma"].data_ptr(),
+            out.data_ptr(), B, K, int(top_k), int(num_classes), F, H,
+            float(image_size), _build.stream_ptr(boxes.device),
+        )
+    _build.check(rc, _LIB, "score_pipeline")
+    score_pipeline.launches += 1
+    return out
+
+
+score_pipeline.launches = 0

@@ -1,0 +1,22 @@
+"""The weak/strong grid detectors."""
+from repro_torch.models.detector import (
+    STRONG,
+    WEAK,
+    Detector,
+    DetectorConfig,
+    decode_batch,
+    decode_detections,
+    detector_apply,
+    detector_forward,
+)
+
+__all__ = [
+    "STRONG",
+    "WEAK",
+    "Detector",
+    "DetectorConfig",
+    "decode_batch",
+    "decode_detections",
+    "detector_apply",
+    "detector_forward",
+]

@@ -1,0 +1,108 @@
+"""The port's CUDA kernels against their plain PyTorch versions on the card.
+
+Marked ``gpu``: on a host without CUDA every test here skips.  Run on the
+card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``
+(this file imports neither ``jax`` nor ``repro``, so it runs where only the
+port is installed)."""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.detection.batch import DetectionsBatch
+from repro_torch.detection.nms import nms_batch
+from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+from repro_torch.kernels.iou_matrix import (
+    iou_matrix,
+    iou_matrix_batch,
+    iou_matrix_batch_ref,
+    iou_matrix_ref,
+)
+from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+
+NUM_CLASSES, TOP_K = 8, 25
+F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU (Hopper, sm_90a)")
+    return torch.device("cuda")
+
+
+def boxes(rng, shape):
+    b = rng.uniform(0, 50, shape + (2,))
+    return np.concatenate([b, b + rng.uniform(1, 20, shape + (2,))], -1).astype(np.float32)
+
+
+def mlp(rng, f, h, dev):
+    return [torch.tensor(v, device=dev) for v in (
+        rng.normal(0, 0.1, (f, h)).astype(np.float32), rng.normal(0, 0.1, h).astype(np.float32),
+        rng.normal(0, 0.1, h).astype(np.float32), np.float32(0.05))]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("B,K,M", [(1, 1, 1), (512, 64, 8), (3, 70, 33)])
+def test_iou_kernels(dev, dtype, tol, B, K, M):
+    rng = np.random.default_rng(B + K + M)
+    a = torch.tensor(boxes(rng, (B, K)), device=dev).to(dtype)
+    g = torch.tensor(boxes(rng, (B, M)), device=dev).to(dtype)
+    before = iou_matrix_batch.launches
+    got = iou_matrix_batch(a, g)
+    assert iou_matrix_batch.launches == before + 1 and got.dtype == dtype
+    torch.testing.assert_close(got.float(), iou_matrix_batch_ref(a, g).float(), atol=tol, rtol=0)
+    torch.testing.assert_close(iou_matrix(a[0], g[0]).float(),
+                               iou_matrix_ref(a[0], g[0]).float(), atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_nms_on_card_equals_cpu(dev, B):
+    # a request's NMS (iou_matrix_batch) and a single frame's (iou_matrix)
+    rng = np.random.default_rng(B)
+    b = torch.tensor(boxes(rng, (B, 64)))
+    s = torch.tensor((np.round(rng.uniform(0, 1, (B, 64)) * 8) / 8).astype(np.float32))
+    c = torch.tensor(rng.integers(0, 3, (B, 64)).astype(np.int32))
+    wrapper = iou_matrix if B == 1 else iou_matrix_batch
+    before = wrapper.launches
+    got = nms_batch(b.to(dev), s.to(dev), c.to(dev), 0.45, 0.25)
+    assert wrapper.launches == before + 1
+    want = nms_batch(b, s, c, 0.45, 0.25)
+    assert torch.equal(got.cpu(), want) and want.any() and not want.all()
+
+
+@pytest.mark.parametrize("B,f,h", [(1, F, 128), (37, F, 128), (4096, F, 128), (9, 33, 17), (5, 700, 300)])
+def test_estimator_mlp_kernel(dev, B, f, h):
+    rng = np.random.default_rng(B)
+    x = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
+    w = mlp(rng, f, h, dev)
+    torch.testing.assert_close(estimator_mlp(x, *w), estimator_mlp_ref(x, *w), atol=1e-5, rtol=0)
+    assert estimator_mlp(x[:0], *w).shape == (0,)
+
+
+@pytest.mark.parametrize("B,K,ties,empty", [(64, 64, 4, 0.2), (512, 24, None, 0.1), (8, 8, 2, 1.0), (3, 70, 3, 0.0)])
+def test_score_pipeline_kernel(dev, B, K, ties, empty):
+    """Tied scores check the in-kernel stable rank against the plain
+    version's stable argsort; K < top_k and all-masked rows too."""
+    rng = np.random.default_rng(B * K)
+    scores = rng.uniform(0, 1, (B, K))
+    if ties:
+        scores = np.round(scores * ties) / ties
+    counts = rng.integers(1, K + 1, B)
+    counts[: int(empty * B)] = 0
+    mask = np.arange(K)[None] < counts[:, None]
+    batch = DetectionsBatch(
+        boxes=torch.tensor(boxes(rng, (B, K)), device=dev),
+        scores=torch.tensor(scores.astype(np.float32), device=dev),
+        classes=torch.tensor(np.where(mask, rng.integers(0, NUM_CLASSES, (B, K)), -1), device=dev),
+        mask=torch.tensor(mask, device=dev),
+    )
+    w1, b1, w2, b2 = mlp(rng, F, 128, dev)
+    mu = torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev)
+    sigma = torch.tensor(rng.uniform(0.5, 2, F).astype(np.float32), device=dev)
+    params = dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=mu, sigma=sigma)
+    got = score_pipeline(batch, params, num_classes=NUM_CLASSES, top_k=TOP_K, image_size=64.0)
+    want = score_pipeline_ref(batch.boxes, batch.scores, batch.classes, batch.mask,
+                              *params.values(), 64.0, NUM_CLASSES, TOP_K)
+    torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
