@@ -1,5 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's detection serve path once on one NVIDIA H100.
+"""Drive the PyTorch port's serve paths once on one NVIDIA H100: the
+detection path and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b at
+full width).
 
     python3 chip_smoke.py
 
@@ -10,9 +12,11 @@ first use.  Phases, each printing one line of its own:
 1. ``probe``   versions, the device (capability must be 9.0), nvidia-smi's
                name and power limit, the TF32 flags (both set False).
 2. ``build``   nvcc for every kernel source, all at once, and its seconds.
-3. ``check``   every kernel against its plain PyTorch version on the card at
-               main-path and edge shapes, with the tolerance stated; the
-               kernel's and the plain version's time at the main-path shape.
+3. ``check``, ``check_lm``   every kernel against its plain PyTorch
+               version on the card at main-path and edge shapes, with the
+               tolerance stated; the kernel's, the plain version's and (for
+               flash_sdpa) ``scaled_dot_product_attention``'s time at the
+               main-path shape, and the bound.
 4. ``serve``   the serve path with every launch count set to 0 first:
                1024 seeded shapes images; the WEAK detector + NMS and the
                reward model calibrate on the first 512; an engine artifact
@@ -24,15 +28,29 @@ first use.  Phases, each printing one line of its own:
                camera sends one frame at a time.  The first request is also
                decided through ``features=``; it and the single frames are
                held against the same detections decided on the CPU.
-5. ``{"kernels": [...]}`` each kernel's launches on that run, its error
+5. ``lm``      the LM early-exit cascade, once per family at full width
+               (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
+               launch count set to 0 first and read right after: seeded
+               weights on the card; the exit layer at num_layers // 2; one
+               8 x 512 calibration batch through the weak stack, the
+               ``lm_logits`` features and a seeded MLP head; an engine
+               artifact -> ``LMCascade.load``; 4 served batches of 8 x 512
+               through ``serve_batch``; 16 greedy tokens a row through the
+               stack its decision chose.  Then, outside the count: decode
+               against the forward, the weak logits against the plain
+               versions (bf16 as served, and float32), and the decisions
+               against the CPU engine on the same features.
+6. ``{"kernels": [...]}`` each kernel's launches on its paths, its error
                against the plain version, its times and its bound.
 
-The last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or outside
+The run's seconds are printed on the line before the card's line, and the
+last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or outside
 a checkout, it exits non-zero and prints no result.  Weights are seeded, not
-trained, so the mAPs check the plumbing, not accuracy.
+trained, so the mAPs and NLLs check the plumbing, not accuracy.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import statistics
@@ -41,15 +59,18 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Dict
 
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
-# H100 SXM data-sheet peaks (dense): HBM bytes/s and float32 CUDA-core FLOP/s
+# H100 SXM data-sheet peaks (dense): HBM bytes/s, float32 CUDA-core FLOP/s,
+# bf16 tensor-core FLOP/s
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 NUM_CLASSES, TOP_K, IMAGE_SIZE, HIDDEN = 8, 25, 64.0, 128
 N_IMAGES, N_CAL, REQUEST = 1024, 512, 64
@@ -121,11 +142,11 @@ class Timer:
         return statistics.median(times)
 
 
-def bound(bytes_moved: float, ops: float):
+def bound(bytes_moved: float, ops: float, peak_ops: float = PEAK_F32_OPS_PER_S):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and
-    float32 operations over the CUDA-core rate."""
+    operations over ``peak_ops`` (float32 CUDA cores unless given)."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -382,13 +403,14 @@ def serve(torch, smi, dev):
     from repro_torch.data.shapes import ShapesDataset
     from repro_torch.detection.batch import DetectionsBatch, GroundTruthBatch, match_batch
     from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
     from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
     from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models.detector import (
         STRONG, WEAK, Detector, decode_batch, decode_detections, detector_apply,
     )
     from repro_torch.train.checkpoint import save_flat
-    import dataclasses
 
     sync = _sync(torch, dev)
     stage = {}
@@ -415,7 +437,8 @@ def serve(torch, smi, dev):
     detector_apply(weak, cal_images[:REQUEST])
     detector_apply(strong, cal_images[:REQUEST])
 
-    for wrapper in (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline):
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    for wrapper in counters:
         wrapper.launches = 0
 
     # -- calibration: weak detector + batched NMS, features, estimates
@@ -499,7 +522,7 @@ def serve(torch, smi, dev):
     weak_map = cascade_map(matched_all, np.zeros_like(offload), (0.5,))
     strong_map = cascade_map(matched_all, np.ones_like(offload), (0.5,))
     sync()
-    launches = {w.__name__: w.launches for w in (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline)}
+    launches = {w.__name__: w.launches for w in counters}
 
     # -- checks by the repo's own means
     if estimates.shape != (len(srv_images),) or not np.isfinite(estimates).all():
@@ -554,15 +577,394 @@ def serve(torch, smi, dev):
     return launches
 
 
+
+# --------------------------------------------------------------- the LM slice
+
+LM_ARCHS = ("qwen2_7b", "rwkv6_1b6")
+LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
+LM_HIDDEN, LM_TOP_K = 64, 8
+# bf16 keeps 8 significant bits: one rounding moves a value by up to 2^-8 of
+# itself, and a rounding that falls differently in one layer (another matmul
+# shape, another attention order) travels through every later layer of
+# seeded weights; the LM checks hold the largest logit difference to 5% of
+# the largest logit
+LM_BF16_REL_TOL = 0.05
+# float32: the kernels and their plain versions differ only in summation
+# order (~1e-7 of each output); a wrong mask, head or state would move the
+# logits by their own size
+LM_F32_REL_TOL = 1e-3
+
+
+def hold_rel(name, got, want, tol):
+    """max |got - want| / max |want| <= tol; returns the relative and the
+    absolute difference and the share of rows whose argmax agrees."""
+    got, want = got.float(), want.float()
+    err = float((got - want).abs().max())
+    rel = err / max(float(want.abs().max()), 1e-30)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not np.isfinite(rel) or rel > tol:
+        fail(f"{name}: max |diff| {err} is {rel:.4g} of the largest logit (tolerance {tol})")
+    return {"rel": rel, "abs": err, "argmax_agree": agree}
+
+
+def check_lm_kernels(torch, timer, dev):
+    """flash_sdpa and wkv6 against their plain versions on the card, at the
+    reference tests' cases and at the LM path's shapes; times and bounds at
+    the prefill shapes."""
+    import torch.nn.functional as Fn
+    from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    rng = np.random.default_rng(4321)
+    cases, err = [], {}
+
+    def normal(shape, dtype=torch.float32, scale=1.0):
+        return torch.tensor(rng.normal(0, scale, shape).astype(np.float32), device=dev).to(dtype)
+
+    def hold(kernel, case, got, want, atol, rtol=0.0, **extra):
+        _sync(torch, dev)()
+        got, want = got.float(), want.float()
+        e = float((got - want).abs().max())
+        excess = float(((got - want).abs() - (atol + rtol * want.abs())).max())
+        if got.shape != want.shape or not np.isfinite(e) or excess > 0:
+            fail(f"{kernel} {case}: max abs error {e} against atol {atol} + rtol {rtol} {extra}")
+        err[kernel] = max(err.get(kernel, 0.0), e)
+        cases.append({"kernel": kernel, "case": case, "max_abs_err": e, "atol": atol, "rtol": rtol,
+                      **extra})
+
+    # flash_sdpa: tests/test_kernels.py's five cases in float32 (2e-6 as
+    # there), then qwen2-7b's prefill and decode shapes in bf16, where kernel
+    # and plain version both compute in float32 and round the output to bf16
+    # once, so they may differ by one rounding: rtol 2^-7
+    for B, S, T, H, K, D, window, off in [
+        (1, 128, 128, 2, 1, 32, 0, 0), (2, 256, 256, 4, 2, 64, 0, 0),
+        (1, 100, 300, 4, 4, 32, 0, 200), (2, 256, 256, 4, 2, 64, 64, 0),
+        (1, 64, 512, 8, 2, 128, 128, 448),
+    ]:
+        q, k, v = normal((B, S, H, D)), normal((B, T, K, D)), normal((B, T, K, D))
+        hold("flash_sdpa", f"B={B} S={S} T={T} H={H} K={K} D={D} window={window} q_offset={off} f32",
+             flash_sdpa(q, k, v, window=window, q_offset=off),
+             flash_sdpa_ref(q, k, v, window=window, q_offset=off), 2e-6)
+    B, S, H, K, D = LM_BATCH, LM_SEQ, 28, 4, 128
+    C = LM_SEQ + LM_TOKENS
+    bf = torch.bfloat16
+    q, k, v = normal((B, S, H, D), bf), normal((B, S, K, D), bf), normal((B, S, K, D), bf)
+    hold("flash_sdpa", f"prefill B={B} S=T={S} H={H} K={K} D={D} bf16",
+         flash_sdpa(q, k, v), flash_sdpa_ref(q, k, v), 1e-6, 2 ** -7)
+    qd, kd, vd = normal((B, 1, H, D), bf), normal((B, C, K, D), bf), normal((B, C, K, D), bf)
+    hold("flash_sdpa", f"decode B={B} S=1 T={C} q_offset={S} bf16",
+         flash_sdpa(qd, kd, vd, q_offset=S), flash_sdpa_ref(qd, kd, vd, q_offset=S), 1e-6, 2 ** -7)
+
+    # wkv6: tests/test_kernels.py's cases (1e-5 in float32, 5e-2 in bf16, as
+    # there), then rwkv6-1.6b's prefill and decode shapes with the layer's
+    # types (r/k/v bf16, w float32).  There both sides read the same values
+    # and differ only in float32 summation order, but over 512 steps the
+    # state holds sums of ~100 decayed terms and each output is a 64-term
+    # dot product of them, so the rounding scales with the outputs' largest
+    # magnitude, not with each output: 1e-5 of max |out| (and of max |state|).
+    # Both are also held against a float64 run of the plain version.
+    def wkv_inputs(B, T, H, K, V, xdt, wdt):
+        w = torch.tensor(rng.uniform(0.5, 0.99, (B, T, H, K)).astype(np.float32), device=dev)
+        return (normal((B, T, H, K), xdt), normal((B, T, H, K), xdt), normal((B, T, H, V), xdt),
+                w.to(wdt), normal((H, K), scale=0.2), normal((B, H, K, V), scale=0.1))
+
+    for B_, T, H_, K_, V in [(1, 8, 1, 8, 8), (2, 64, 3, 16, 16), (2, 33, 2, 64, 64)]:
+        for dt, tol in ((torch.float32, 1e-5), (bf, 5e-2)):
+            args = wkv_inputs(B_, T, H_, K_, V, dt, dt)
+            for part, g, w in zip(("out", "state"), wkv6(*args), wkv6_ref(*args)):
+                hold("wkv6", f"B={B_} T={T} H={H_} K={K_} V={V} {str(dt)[6:]} {part}", g, w, tol, tol)
+    for T in (LM_SEQ, 1):
+        args = wkv_inputs(LM_BATCH, T, 32, 64, 64, bf, torch.float32)
+        exact = wkv6_ref(*(a.double() for a in args))
+        for part, g, w, x in zip(("out", "state"), wkv6(*args), wkv6_ref(*args), exact):
+            hold("wkv6", f"{'prefill' if T > 1 else 'decode'} B={LM_BATCH} T={T} H=32 K=V=64 "
+                 f"r/k/v bf16 w f32 {part}", g, w, 1e-5 * float(w.abs().max()),
+                 kernel_vs_f64=float((g.double() - x).abs().max()),
+                 plain_vs_f64=float((w.double() - x).abs().max()))
+
+    # times and bounds at the prefill shapes (and flash_sdpa's decode step)
+    records = {}
+    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs the kernel needs
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D) views
+    records["flash_sdpa"] = dict(
+        shape=f"B={B} S=T={S} H={H} K={K} D={D} bf16 causal (qwen2-7b prefill)",
+        ms=timer(lambda: flash_sdpa(q, k, v)),
+        plain_ms=timer(lambda: flash_sdpa_ref(q, k, v), reps=5, windows=11),
+        library_ms=timer(lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                                 enable_gqa=True)),
+        bytes=2 * (2 * B * S * H * D + 2 * B * S * K * D), ops=4 * D * pairs,
+        peak_ops=PEAK_BF16_OPS_PER_S,
+    )
+    dec_keys = S + 1  # slots 0..q_offset are read; the rest of the cache is masked
+    extra = {"flash_sdpa (decode)": dict(
+        shape=f"B={B} S=1 T={C} q_offset={S} bf16 (qwen2-7b decode step)",
+        ms=timer(lambda: flash_sdpa(qd, kd, vd, q_offset=S)),
+        plain_ms=timer(lambda: flash_sdpa_ref(qd, kd, vd, q_offset=S)),
+        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+            qd.transpose(1, 2), kd[:, :dec_keys].transpose(1, 2), vd[:, :dec_keys].transpose(1, 2),
+            enable_gqa=True)),
+        bytes=2 * (2 * B * H * D + 2 * B * dec_keys * K * D), ops=4 * D * B * H * dec_keys,
+        peak_ops=PEAK_BF16_OPS_PER_S,
+    )}
+    B, T, H, K, V = LM_BATCH, LM_SEQ, 32, 64, 64
+    args = wkv_inputs(B, T, H, K, V, bf, torch.float32)
+    n = B * T * H
+    records["wkv6"] = dict(
+        shape=f"B={B} T={T} H={H} K=V={K} r/k/v bf16 w f32 (rwkv6-1.6b prefill)",
+        ms=timer(lambda: wkv6(*args)),
+        plain_ms=timer(lambda: wkv6_ref(*args), reps=2, windows=5),
+        library_ms=None,
+        # r, k, v (bf16), w (f32), u, s0 read once; out, sT written once
+        bytes=n * K * (2 + 2 + 4) + n * V * 2 + H * K * 4 + 2 * B * H * K * V * 4 + n * V * 4,
+        # out_t = sum_k r_k S_kv + v_v sum_k r_k u_k k_k: r.S is one multiply-add
+        # per state element (2), the update w S + k v is 3; the bonus term is
+        # 3 K + 2 V per step, not per element
+        ops=5 * n * K * V + n * (3 * K + 2 * V),
+    )
+    for name, r in {**records, **extra}.items():
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"), r.pop("peak_ops", PEAK_F32_OPS_PER_S))
+        r["max_abs_err"] = err[name.split()[0]]
+    times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
+             for k, r in {**records, **extra}.items()}
+    emit("check_lm", {"cases": len(cases), "max_abs_err": err, "times": times, "detail": cases})
+    return records
+
+
+def lm_engine_artifact(path, x_cal, scores_fn, exit_layer, cfg_name, rng):
+    """Write an engine artifact in the layout ``repro``'s ``LMCascade.save``
+    writes: a seeded MLP head (F -> 64 -> 1) standardized on the calibration
+    features, its estimates on them as the calibration scores, and the
+    ``lm_logits`` extractor."""
+    from repro_torch.core.estimator import EstimatorConfig
+    from repro_torch.train.checkpoint import save_flat
+
+    F = x_cal.shape[1]
+    model_arrays = {
+        "params": {
+            "layer0": {"w": (rng.standard_normal((F, LM_HIDDEN)) * np.sqrt(2.0 / F)).astype(np.float32),
+                       "b": np.zeros(LM_HIDDEN, np.float32)},
+            "layer1": {"w": (rng.standard_normal((LM_HIDDEN, 1)) * np.sqrt(2.0 / LM_HIDDEN)).astype(np.float32),
+                       "b": np.zeros(1, np.float32)},
+        },
+        "mu": x_cal.mean(dim=0).cpu().numpy().astype(np.float32),
+        "sigma": (x_cal.std(dim=0, unbiased=False) + 1e-6).cpu().numpy().astype(np.float32),
+    }
+    model_meta = {"kind": "mlp", "in_dim": F, "use_fused": True,
+                  "config": dataclasses.asdict(EstimatorConfig(hidden=(LM_HIDDEN,)))}
+    calibration = scores_fn(model_arrays, model_meta)
+    meta = {
+        "kind": "offload_engine", "version": 1, "ratio": LM_RATIO, "transform": "cdf",
+        "policy": {"name": "threshold", "kwargs": {}},
+        "feature_extractor": {"name": "lm_logits", "spec": {"top_k": LM_TOP_K}},
+        "reward_model": model_meta,
+        "extra": {"exit_layer": exit_layer, "cfg_name": cfg_name},
+    }
+    arrays = {"model": model_arrays, "calibration": calibration.astype(np.float64),
+              "transform_sorted": np.sort(rng.normal(0, 1, len(calibration)))}
+    save_flat(path, arrays, meta)
+
+
+def lm_serve_family(torch, dev, cfg, seed, counters):
+    """One family's LM cascade at the width of ``cfg``: the counted main
+    path, then the checks.  Returns (report, launches of the main path)."""
+    from repro_torch.api.features import LMLogitsFeatures
+    from repro_torch.api.reward_model import MLPRewardModel
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.serving.cascade_serving import LMCascade, truncate_params, truncated_config
+    from repro_torch.serving.decode_loop import generate
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = timed("init_params_ms", lambda: lm.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(seed), device=dev))
+    n_params = sum(t.numel() for t in lm.tree_leaves(params))
+    exit_layer = max(cfg.num_layers // 2, 1)
+    wparams, wcfg = truncate_params(params, cfg, exit_layer), truncated_config(cfg, exit_layer)
+    rng = np.random.default_rng(seed)
+
+    def lm_batch():
+        toks, labels = synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)
+        return {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+
+    cal, served = lm_batch(), [lm_batch() for _ in range(LM_SERVED)]
+    # the library's first calls (cuBLAS handles) outside the counted, timed run
+    lm.forward(wparams, wcfg, {"tokens": cal["tokens"][:1, :8]})
+    for c in counters:
+        c.launches = 0
+
+    # -- calibration: weak forward -> lm_logits features -> the MLP head
+    wlogits, _ = timed("cal_weak_forward_ms", lambda: lm.forward(wparams, wcfg, cal))
+    x_cal = timed("cal_features_ms",
+                  lambda: LMLogitsFeatures(LM_TOP_K, device=dev)((wlogits, cal["labels"])))
+    del wlogits
+
+    def scores_fn(arrays, meta):
+        return MLPRewardModel.from_state(arrays, meta, device=dev).predict(x_cal)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "lm_engine.npz")
+        timed("cal_estimates_ms", lambda: lm_engine_artifact(
+            path, x_cal, scores_fn, exit_layer, cfg.name, np.random.default_rng(seed + 1)))
+        cascade = timed("engine_load_ms", lambda: LMCascade.load(path, cfg, device=dev))
+        cpu_cascade = LMCascade.load(path, cfg, device="cpu")
+
+    # -- serve: 4 batches of 8 x 512, then 16 greedy tokens a row through the
+    # stack its decision chose
+    results, tokens = [], []
+    gen_ms = {"weak": {}, "strong": {}}
+    gen_tokens = {"weak": 0, "strong": 0}
+    gen_calls = {"weak": 0, "strong": 0}
+    for batch in served:
+        out = cascade.serve_batch(params, batch, stage_ms=stage)
+        results.append(out)
+        toks = torch.zeros((LM_BATCH, LM_TOKENS), dtype=torch.int32, device=dev)
+        for which, (p, c), rows in (("weak", (wparams, wcfg), np.flatnonzero(~out["offload"])),
+                                    ("strong", (params, cfg), np.flatnonzero(out["offload"]))):
+            if rows.size:
+                idx = torch.from_numpy(rows).to(dev)
+                toks[idx] = generate(p, c, {"tokens": batch["tokens"][idx]}, LM_TOKENS,
+                                     stage_ms=gen_ms[which])
+                gen_tokens[which] += int(rows.size) * LM_TOKENS
+                gen_calls[which] += 1
+        tokens.append(toks)
+    sync()
+    launches = {c.__name__: c.launches for c in counters}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+
+    # -- checks, outside the count
+    offload = np.concatenate([r["offload"] for r in results])
+    estimates = np.concatenate([r["estimates"] for r in results])
+    if estimates.shape != (LM_SERVED * LM_BATCH,) or not np.isfinite(estimates).all():
+        fail(f"{cfg.name}: served estimates are not finite of shape ({LM_SERVED * LM_BATCH},)")
+    if not ((estimates >= 0) & (estimates <= 1)).all():
+        fail(f"{cfg.name}: served estimates fall outside [0, 1]")
+    for r in results:
+        for key in ("nll_weak", "nll_strong", "nll_final"):
+            if not np.isfinite(r[key]).all():
+                fail(f"{cfg.name}: {key} is not finite")
+    all_toks = torch.cat(tokens)
+    if int(all_toks.min()) < 0 or int(all_toks.max()) >= cfg.vocab_size:
+        fail(f"{cfg.name}: generated token ids outside [0, {cfg.vocab_size})")
+
+    b0 = served[0]
+    checks = {}
+    # decode at position S against the forward on S + 1 tokens (full depth)
+    last, cache = lm.prefill(params, cfg, {"tokens": b0["tokens"]}, capacity=LM_SEQ + 1)
+    nxt = last.argmax(-1)
+    dl, _ = lm.decode_step(params, cfg, cache, nxt, LM_SEQ)
+    del cache
+    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([b0["tokens"], nxt[:, None]], 1)})
+    checks["decode_vs_forward"] = hold_rel(f"{cfg.name} decode vs forward", dl, full[:, -1],
+                                           LM_BF16_REL_TOL)
+    checks["prefill_vs_forward"] = hold_rel(f"{cfg.name} prefill vs forward", last, full[:, -2],
+                                            LM_BF16_REL_TOL)
+    del full
+    # the served batch 0's weak logits: kernels against the plain versions,
+    # in bf16 as served, and in float32 (the weak stack's weights widened),
+    # where only the kernels' float32 summation order differs
+    wk, _ = lm.forward(wparams, wcfg, b0)
+    wp, _ = lm.forward(wparams, wcfg, b0, plain=True)
+    checks["weak_logits_kernels_vs_plain"] = hold_rel(
+        f"{cfg.name} weak logits, kernels vs plain", wk, wp, LM_BF16_REL_TOL)
+    del wp
+    w32 = lm.tree_map(lambda t: t.float(), wparams)
+    c32 = dataclasses.replace(wcfg, dtype="float32")
+    checks["weak_logits_kernels_vs_plain_f32"] = hold_rel(
+        f"{cfg.name} float32 weak logits, kernels vs plain", lm.forward(w32, c32, b0)[0],
+        lm.forward(w32, c32, b0, plain=True)[0], LM_F32_REL_TOL)
+    del w32
+    # decisions on the card against the CPU engine on the same features
+    feats = cascade.engine.features((wk, b0["labels"]))
+    del wk
+    card, cpu = cascade.engine.decide(features=feats), cpu_cascade.engine.decide(features=feats.cpu())
+    e = float(np.abs(card.estimates - cpu.estimates).max())
+    if not np.array_equal(card.offload, cpu.offload) or e > 2e-6:
+        fail(f"{cfg.name}: decisions on the card vs the CPU: masks equal "
+             f"{np.array_equal(card.offload, cpu.offload)}, estimates differ by {e}")
+    checks["card_vs_cpu_estimates_max_abs_err"] = e
+    # the same batch decided again: the weak forward repeats bit for bit
+    checks["served_vs_recomputed_masks_equal"] = bool(np.array_equal(card.offload, results[0]["offload"]))
+    checks["served_vs_recomputed_estimates_max_abs_err"] = float(
+        np.abs(card.estimates - results[0]["estimates"]).max())
+
+    gen_total_ms = sum(sum(d.values()) for d in gen_ms.values())
+    report = {
+        "arch": cfg.name, "params": n_params, "layers": cfg.num_layers, "exit_layer": exit_layer,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "batch": LM_BATCH, "seq": LM_SEQ, "served_batches": LM_SERVED, "tokens_per_row": LM_TOKENS,
+        "realized_ratio": float(offload.mean()), "target_ratio": LM_RATIO,
+        "nll_weak": float(np.mean([r["nll_weak"].mean() for r in results])),
+        "nll_strong": float(np.mean([r["nll_strong"].mean() for r in results])),
+        "nll_final": float(np.mean([r["nll_final"].mean() for r in results])),
+        "stage_ms_per_batch": {
+            "weak_prefill_ms": stage["weak_forward_ms"] / LM_SERVED,
+            "strong_prefill_ms": stage["strong_forward_ms"] / LM_SERVED,
+            "decide_ms": stage["decide_ms"] / LM_SERVED,
+            "nll_ms": stage["nll_ms"] / LM_SERVED,
+        },
+        # one decode step makes a token for every row of its stack's sub-batch
+        "decode_ms_per_step": {w: d["decode_ms"] / (gen_calls[w] * (LM_TOKENS - 1)) if d else None
+                               for w, d in gen_ms.items()},
+        "generate_ms": gen_ms,
+        "generated_tokens": gen_tokens,
+        "generated_tokens_per_s": sum(gen_tokens.values()) / (gen_total_ms / 1e3),
+        "setup_ms": {k: v for k, v in stage.items() if k.startswith(("init", "cal", "engine"))},
+        "peak_memory_gib": peak_gib,
+        "checks": checks, "launches": launches,
+    }
+    return report, launches
+
+
+def lm_serve(torch, smi, dev):
+    """The LM phase: each family in turn, its model freed before the next.
+    Returns the launches of the two main-path runs, summed."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    total = {c.__name__: 0 for c in counters}
+    for i, cfg in enumerate(get_config(a) for a in LM_ARCHS):
+        t0 = time.perf_counter()
+        report, launches = lm_serve_family(torch, dev, cfg, seed=10 + i, counters=counters)
+        report["seconds"] = time.perf_counter() - t0
+        report["card"] = smi
+        emit("lm", report)
+        for k, n in launches.items():
+            total[k] += n
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return total
+
+
 KERNELS = {
     "iou_matrix": ("src/repro_torch/kernels/csrc/iou_matrix.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
     "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_matrix.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
     "estimator_mlp": ("src/repro_torch/kernels/csrc/estimator_mlp.cu", "src/repro/kernels/estimator_mlp/kernel.py:19"),
     "score_pipeline": ("src/repro_torch/kernels/csrc/score_pipeline.cu", "src/repro/kernels/score_pipeline/kernel.py:32"),
+    "flash_sdpa": ("src/repro_torch/kernels/csrc/flash_sdpa.cu", "src/repro/kernels/flash_sdpa/kernel.py:24"),
+    "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6/kernel.py:22"),
 }
+LM_PATH_KERNELS = ("flash_sdpa", "wkv6", "estimator_mlp")  # each must launch in the lm phase
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout of the repo")
     sys.path.insert(0, str(SRC))
@@ -571,21 +973,28 @@ def main() -> None:
     smi = probe(torch)
     build()
     dev = torch.device("cuda")
-    records = check_kernels(torch, Timer(torch), dev)
-    launches = serve(torch, smi, dev)
+    timer = Timer(torch)
+    records = check_kernels(torch, timer, dev)
+    records.update(check_lm_kernels(torch, timer, dev))
+    paths = {"detection": serve(torch, smi, dev), "lm": lm_serve(torch, smi, dev)}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": launches[name], "max_abs_err": r["max_abs_err"],
+            "launches": sum(p[name] for p in paths.values()), "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": None,
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "launches_by_path": {p: n[name] for p, n in paths.items()},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     missing = [k["name"] for k in kernels if k["launches"] == 0]
     if missing:
-        fail(f"kernels never launched on the serve path: {missing}")
+        fail(f"kernels never launched on their serve paths: {missing}")
+    missing = [k for k in LM_PATH_KERNELS if paths["lm"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the LM path: {missing}")
+    print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@ from repro_torch.api.engine import DecisionBatch, OffloadEngine
 from repro_torch.api.features import (
     DetectionBoxFeatures,
     FeatureExtractor,
+    LMLogitsFeatures,
     list_feature_extractors,
+    logits_features,
     make_feature_extractor,
     register_feature_extractor,
 )
@@ -30,6 +32,8 @@ __all__ = [
     "DecisionBatch",
     "FeatureExtractor",
     "DetectionBoxFeatures",
+    "LMLogitsFeatures",
+    "logits_features",
     "list_feature_extractors",
     "make_feature_extractor",
     "register_feature_extractor",

@@ -17,31 +17,8 @@
 // Arithmetic is float32 for float32 and bfloat16 inputs (stored in the input
 // type), with the _rn intrinsics so that nvcc does not contract into FMAs: the
 // result is the same rounding, op for op, as the plain PyTorch version.
-#include <cuda_bf16.h>
-
 #include "common.cuh"
-
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p) {
-  return *p;
-}
-template <>
-__device__ __forceinline__ float load_f<__nv_bfloat16>(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T store_f(float v);
-template <>
-__device__ __forceinline__ float store_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 store_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+#include "dtype.cuh"
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
   return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f), fmaxf(__fsub_rn(y2, y1), 0.0f));

@@ -1,0 +1,361 @@
+"""Transformer and RWKV6 layers for the LM serve path (the dense and RWKV
+families of ``repro.models.layers``).
+
+Everything is functional, as in the JAX package: parameters are nested dicts
+of tensors under ``repro``'s keys, and ``*_apply(params, x, ...)`` computes in
+the activation type of ``x``, casting each weight to it where it is used
+(a no-op for weights that ``convert.lm_params_from_jax`` or
+``lm.init_params`` already store in that type).
+
+Attention runs on the ``flash_sdpa`` kernel and the RWKV6 time-mix on the
+``wkv6`` kernel.  ``attention_apply`` and ``rwkv6_time_mix`` take ``plain``:
+``True`` calls the kernel's plain PyTorch version instead, whatever the
+device, so that a forward on the card can be held against the same forward
+without the kernels.  (The wrappers themselves only take the plain version
+for CPU tensors.)
+
+The JAX package's sharding hints (``constrain``, ``seq_shard``), query
+chunking (``attn_chunk``) and remat/chunked scans (``jax.checkpoint``,
+``chunked_scan``) bound memory or place data on a TPU mesh without changing
+any value of the forward; the flash kernel never forms the (S, T) logits, so
+they have no counterpart here.  MoE, MLA, Mamba2, M-RoPE, the int8 KV cache
+and the sliding-window ring cache come with ROADMAP queue A item 9 and raise
+until then.
+"""
+from __future__ import annotations
+
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
+from repro_torch.kernels.flash_sdpa.ref import sdpa_mask
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+PyTree = Dict[str, object]
+
+_LATER = "comes with the port's LM stack (ROADMAP.md queue A item 9)"
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} {_LATER}")
+
+
+# ---------------------------------------------------------------------------
+# init helpers (explicit torch.Generator; shapes and scales of repro's)
+# ---------------------------------------------------------------------------
+
+def dense_init(generator: torch.Generator, shape: Tuple[int, ...], dtype=torch.float32,
+               scale: Optional[float] = None, *, stack: int = 0,
+               device=None) -> torch.Tensor:
+    """Normal weights scaled by ``scale`` (default ``fan_in ** -0.5`` with
+    ``fan_in = shape[0]``); ``stack > 0`` draws ``(stack, *shape)`` at once,
+    the layout of a stacked layer parameter."""
+    fan_in = shape[0] if len(shape) >= 2 else 1
+    scale = scale if scale is not None else (1.0 / fan_in) ** 0.5
+    full = (stack, *shape) if stack else tuple(shape)
+    w = torch.randn(full, generator=generator, dtype=dtype, device=device)
+    return w.mul_(scale)
+
+
+def uniform_init(generator: torch.Generator, shape: Tuple[int, ...], dtype=torch.float32,
+                 *, stack: int = 0, device=None) -> torch.Tensor:
+    full = (stack, *shape) if stack else tuple(shape)
+    return torch.rand(full, generator=generator, dtype=dtype, device=device)
+
+
+def _const(shape, value: float, dtype, stack: int, device) -> torch.Tensor:
+    full = (stack, *shape) if stack else tuple(shape)
+    return torch.full(full, value, dtype=dtype, device=device)
+
+
+def rmsnorm_init(dim: int, dtype=torch.float32, *, stack: int = 0, device=None) -> PyTree:
+    return {"scale": _const((dim,), 1.0, dtype, stack, device)}
+
+
+def layernorm_init(dim: int, dtype=torch.float32, *, stack: int = 0, device=None) -> PyTree:
+    return {"scale": _const((dim,), 1.0, dtype, stack, device),
+            "bias": _const((dim,), 0.0, dtype, stack, device)}
+
+
+# ---------------------------------------------------------------------------
+# norms and rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rmsnorm(params: PyTree, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    var = x.float().square().mean(dim=-1, keepdim=True)
+    y = x * torch.rsqrt(var + eps).to(x.dtype)
+    return y * params["scale"].to(x.dtype)
+
+
+def layernorm(params: PyTree, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    xf = x.float()
+    mu = xf.mean(dim=-1, keepdim=True)
+    var = (xf - mu).square().mean(dim=-1, keepdim=True)
+    y = ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
+    return y * params["scale"].to(x.dtype) + params["bias"].to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float = 1e6, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S).  The angles
+    are float32 and cast to x's type, as in the JAX package."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
+    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
+    x1, x2 = x.chunk(2, dim=-1)
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# GQA attention
+# ---------------------------------------------------------------------------
+
+class AttnConfig(NamedTuple):
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    window: int = 0  # 0 = full causal; >0 = sliding window
+    rope_theta: float = 1e6
+    use_rope: bool = True
+    mrope_sections: Optional[Tuple[int, int, int]] = None
+
+
+def attention_init(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32, *,
+                   stack: int = 0, device=None) -> PyTree:
+    H, K, D, M = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.d_model
+    kw = dict(stack=stack, device=device)
+    p: PyTree = {
+        "wq": dense_init(generator, (M, H * D), dtype, **kw),
+        "wk": dense_init(generator, (M, K * D), dtype, **kw),
+        "wv": dense_init(generator, (M, K * D), dtype, **kw),
+        "wo": dense_init(generator, (H * D, M), dtype, **kw),
+    }
+    if cfg.qkv_bias:
+        p["bq"] = _const((H * D,), 0.0, dtype, stack, device)
+        p["bk"] = _const((K * D,), 0.0, dtype, stack, device)
+        p["bv"] = _const((K * D,), 0.0, dtype, stack, device)
+    if cfg.qk_norm:
+        p["q_norm"] = rmsnorm_init(D, dtype, **kw)
+        p["k_norm"] = rmsnorm_init(D, dtype, **kw)
+    return p
+
+
+def _project_qkv(params, cfg: AttnConfig, x, positions):
+    B, S, _ = x.shape
+    H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if cfg.mrope_sections is not None:
+        raise _not_ported("M-RoPE (the VLM family)")
+    q = x @ params["wq"].to(x.dtype)
+    k = x @ params["wk"].to(x.dtype)
+    v = x @ params["wv"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + params["bq"].to(x.dtype)
+        k = k + params["bk"].to(x.dtype)
+        v = v + params["bv"].to(x.dtype)
+    q = q.reshape(B, S, H, D)
+    k = k.reshape(B, S, K, D)
+    v = v.reshape(B, S, K, D)
+    if cfg.qk_norm:
+        q = rmsnorm(params["q_norm"], q)
+        k = rmsnorm(params["k_norm"], k)
+    if cfg.use_rope and positions is not None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    return q.contiguous(), k.contiguous(), v.contiguous()
+
+
+def causal_mask(S: int, T: int, offset: int, window: int = 0, device=None) -> torch.Tensor:
+    """(1, S, T) bool; query i (global pos offset+i) sees key j iff
+    j <= offset+i and (window == 0 or j > offset+i-window)."""
+    return sdpa_mask(S, T, True, window, offset, device=device)[None]
+
+
+def _sdpa(q, k, v, *, window: int, q_offset: int, plain: bool = False) -> torch.Tensor:
+    """Causal GQA attention (B, S, H, D) x (B, T, K, D) -> (B, S, H * D)."""
+    fn = flash_sdpa_ref if plain else flash_sdpa
+    out = fn(q, k, v, causal=True, window=window, q_offset=q_offset)
+    return out.reshape(q.shape[0], q.shape[1], -1)
+
+
+def attention_apply(
+    params: PyTree,
+    cfg: AttnConfig,
+    x: torch.Tensor,
+    positions: torch.Tensor,
+    return_kv: bool = False,
+    *,
+    plain: bool = False,
+):
+    """Causal self-attention over the whole sequence (prefill).
+    ``return_kv`` also returns the rotated (k, v) for the decode cache."""
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    out = _sdpa(q, k, v, window=cfg.window, q_offset=0, plain=plain)
+    out = out @ params["wo"].to(x.dtype)
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def attention_decode(
+    params: PyTree,
+    cfg: AttnConfig,
+    x: torch.Tensor,  # (B, 1, M)
+    cache_k: torch.Tensor,  # (B, C, K, D), C = cache capacity
+    cache_v: torch.Tensor,
+    pos: int,  # global position of this token
+):
+    """One-token decode against a KV cache.  This token's k/v are written
+    into slot ``pos`` of ``cache_k``/``cache_v`` IN PLACE (the JAX package's
+    ``dynamic_update_slice`` returns new arrays; here the preallocated cache
+    is updated), then the kernel attends over slots 0..pos through its
+    causal mask at ``q_offset = pos``.  Returns (out, cache_k, cache_v)."""
+    if cfg.window > 0:
+        raise _not_ported("the sliding-window ring cache")
+    B = x.shape[0]
+    C = cache_k.shape[1]
+    if not 0 <= pos < C:
+        raise ValueError(f"position {pos} outside the cache's {C} slots")
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q, k, v = _project_qkv(params, cfg, x, positions)
+    cache_k[:, pos] = k[:, 0]
+    cache_v[:, pos] = v[:, 0]
+    out = _sdpa(q, cache_k, cache_v, window=0, q_offset=pos)
+    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+def swiglu_init(generator: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32, *,
+                stack: int = 0, device=None) -> PyTree:
+    kw = dict(stack=stack, device=device)
+    return {
+        "gate": dense_init(generator, (d_model, d_ff), dtype, **kw),
+        "up": dense_init(generator, (d_model, d_ff), dtype, **kw),
+        "down": dense_init(generator, (d_ff, d_model), dtype, **kw),
+    }
+
+
+def swiglu(params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    g = F.silu(x @ params["gate"].to(x.dtype))
+    u = x @ params["up"].to(x.dtype)
+    return (g * u) @ params["down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 ("Finch") — data-dependent decay linear attention
+# ---------------------------------------------------------------------------
+
+class RWKV6Config(NamedTuple):
+    d_model: int
+    head_size: int = 64
+    lora_rank: int = 32
+    ffn_mult: float = 3.5  # d_ff = 7168 for d=2048
+
+    @property
+    def num_heads(self) -> int:
+        return self.d_model // self.head_size
+
+
+def rwkv6_init(generator: torch.Generator, cfg: RWKV6Config, dtype=torch.float32, *,
+               stack: int = 0, device=None) -> PyTree:
+    """The keys, shapes and scales of ``repro.models.layers.rwkv6_init``;
+    ``bonus`` is float32 whatever ``dtype`` is, as the layer uses it."""
+    M, Hd, H, r = cfg.d_model, cfg.head_size, cfg.num_heads, cfg.lora_rank
+    d_ff = int(cfg.ffn_mult * M)
+    kw = dict(stack=stack, device=device)
+    return {
+        "mix_base": uniform_init(generator, (5, M), dtype, **kw),
+        "mix_lora_a": dense_init(generator, (M, 5 * r), dtype, **kw),
+        "mix_lora_b": dense_init(generator, (5 * r, 5 * M), dtype, scale=0.01, **kw),
+        "wr": dense_init(generator, (M, M), dtype, **kw),
+        "wk": dense_init(generator, (M, M), dtype, **kw),
+        "wv": dense_init(generator, (M, M), dtype, **kw),
+        "wg": dense_init(generator, (M, M), dtype, **kw),
+        "wo": dense_init(generator, (M, M), dtype, **kw),
+        "decay_base": _const((M,), 0.0, dtype, stack, device),
+        "decay_lora_a": dense_init(generator, (M, 2 * r), dtype, **kw),
+        "decay_lora_b": dense_init(generator, (2 * r, M), dtype, scale=0.01, **kw),
+        "bonus": _const((H, Hd), 0.0, torch.float32, stack, device),
+        "ln_x": layernorm_init(M, dtype, **kw),
+        "cm_mix": uniform_init(generator, (M,), dtype, **kw),
+        "cm_k": dense_init(generator, (M, d_ff), dtype, **kw),
+        "cm_v": dense_init(generator, (d_ff, M), dtype, **kw),
+        "cm_r": dense_init(generator, (M, M), dtype, **kw),
+    }
+
+
+def _shift(x: torch.Tensor, x_last: Optional[torch.Tensor]) -> torch.Tensor:
+    """x shifted right by one token, ``x_last`` (or zeros) in front."""
+    B, _, M = x.shape
+    if x_last is None:
+        x_last = torch.zeros((B, M), dtype=x.dtype, device=x.device)
+    return torch.cat([x_last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _rwkv6_mix(params, x, x_prev):
+    """Data-dependent token-shift lerp producing the 5 mixed streams
+    (r, k, v, g, w).  x: (B,S,M); x_prev: x shifted right by one."""
+    B, S, M = x.shape
+    dx = x_prev - x
+    base = params["mix_base"].to(x.dtype)  # (5, M)
+    lora = torch.tanh(x @ params["mix_lora_a"].to(x.dtype))  # (B,S,5r)
+    lora = (lora @ params["mix_lora_b"].to(x.dtype)).reshape(B, S, 5, M)
+    mix = base[None, None] + lora  # (B,S,5,M)
+    return x[:, :, None, :] + dx[:, :, None, :] * mix  # (B,S,5,M)
+
+
+def rwkv6_time_mix(
+    params: PyTree,
+    cfg: RWKV6Config,
+    x: torch.Tensor,
+    state: Optional[torch.Tensor] = None,  # (B, H, Hd, Hd) float32 wkv state
+    x_last: Optional[torch.Tensor] = None,  # (B, M) last token (decode)
+    *,
+    plain: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (out, new_state, new_x_last) for S >= 1 tokens; the
+    recurrence is one ``wkv6`` launch over the whole sequence."""
+    B, S, M = x.shape
+    H, Hd = cfg.num_heads, cfg.head_size
+    mixed = _rwkv6_mix(params, x, _shift(x, x_last))  # (B,S,5,M)
+    xr, xk, xv, xg, xw = mixed.unbind(dim=2)
+    r = (xr @ params["wr"].to(x.dtype)).reshape(B, S, H, Hd)
+    k = (xk @ params["wk"].to(x.dtype)).reshape(B, S, H, Hd)
+    v = (xv @ params["wv"].to(x.dtype)).reshape(B, S, H, Hd)
+    g = F.silu(xg @ params["wg"].to(x.dtype))
+    # data-dependent decay w_t = exp(-exp(base + lora(xw))), in float32
+    dl = torch.tanh(xw @ params["decay_lora_a"].to(x.dtype))
+    dl = dl @ params["decay_lora_b"].to(x.dtype)
+    w = torch.exp(-torch.exp((params["decay_base"].to(x.dtype) + dl).to(torch.float32)))
+    w = w.reshape(B, S, H, Hd)
+    u = params["bonus"].to(torch.float32)  # (H, Hd)
+    if state is None:
+        state = torch.zeros((B, H, Hd, Hd), dtype=torch.float32, device=x.device)
+    fn = wkv6_ref if plain else wkv6
+    out, state = fn(r, k, v, w, u, state)
+    out = out.reshape(B, S, M).to(x.dtype)
+    out = layernorm(params["ln_x"], out) * g
+    out = out @ params["wo"].to(x.dtype)
+    return out, state, x[:, -1, :]
+
+
+def rwkv6_channel_mix(
+    params: PyTree, x: torch.Tensor, x_last: Optional[torch.Tensor] = None
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    xk = x + (_shift(x, x_last) - x) * params["cm_mix"].to(x.dtype)
+    k = torch.square(F.relu(xk @ params["cm_k"].to(x.dtype)))
+    rgate = torch.sigmoid(xk @ params["cm_r"].to(x.dtype))
+    return rgate * (k @ params["cm_v"].to(x.dtype)), x[:, -1, :]

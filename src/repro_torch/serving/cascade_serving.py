@@ -1,0 +1,156 @@
+"""ORIC-gated cascade serving for LMs (paper §V-A transfer): the early-exit
+cascade of ``repro.serving.cascade_serving``.
+
+The "weak detector" is the model truncated at layer k with the shared LM
+head; the "strong detector" is the full depth.  One
+:class:`repro_torch.api.OffloadEngine` owns the decision: ``lm_logits``
+features of the weak logits -> the one-hidden-layer MLP (the
+``estimator_mlp`` kernel) -> quantile threshold.
+
+The engine is fitted by the JAX package (``repro``'s ``LMCascade.fit``) and
+crosses over as the artifact ``save`` writes; ``fit`` comes with the port's
+training slice (ROADMAP.md queue A item 1) and ``serve_stream`` with
+``runtime.session.OffloadSession`` (queue A item 2).  The port runs the dense
+and RWKV stacks (single layer stacks); MoE's two-stack split waits with MoE.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.api import OffloadEngine
+from repro_torch.api.features import logits_features  # re-export, as in repro
+from repro_torch.kernels.dispatch import DeviceLike
+from repro_torch.models.lm import LMConfig, check_arch, forward, tree_map
+from repro_torch.serving import timing
+
+PyTree = dict
+
+__all__ = [
+    "LMCascade",
+    "logits_features",
+    "sequence_nll",
+    "truncate_params",
+    "truncated_config",
+]
+
+
+def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:
+    """Early-exit params: the first ``exit_layer`` layers + the shared head.
+    Every tensor is a view of ``params`` (no weight is copied)."""
+    check_arch(cfg)
+    p = {k: v for k, v in params.items() if k != "layers"}
+    p["layers"] = tree_map(lambda a: a[:exit_layer], params["layers"])
+    return p
+
+
+def truncated_config(cfg: LMConfig, exit_layer: int) -> LMConfig:
+    check_arch(cfg)
+    return dataclasses.replace(cfg, num_layers=exit_layer)
+
+
+def sequence_nll(logits: torch.Tensor, labels) -> torch.Tensor:
+    """Per-sequence mean NLL (B,) float32.  logits (B,S,V), labels (B,S)
+    with -1 pad."""
+    if not isinstance(labels, torch.Tensor):
+        labels = torch.from_numpy(np.asarray(labels))
+    labels = labels.to(device=logits.device, dtype=torch.int64)
+    valid = labels >= 0
+    lf = logits.float()
+    lse = torch.logsumexp(lf, dim=-1)
+    gold = torch.gather(lf, -1, labels.clamp(min=0)[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    return nll.sum(-1) / valid.sum(-1).clamp(min=1)
+
+
+@dataclass
+class LMCascade:
+    """ORIC-style cascade for an LM: truncation point + the decision engine
+    (features -> estimator -> rank transform -> policy)."""
+
+    cfg: LMConfig
+    exit_layer: int
+    engine: OffloadEngine
+
+    # -- views of the engine's stack --------------------------------------
+    @property
+    def estimator(self):
+        return self.engine.reward_model.estimator
+
+    @property
+    def cdf(self):
+        return self.engine.transform
+
+    @property
+    def policy(self):
+        return self.engine.policy
+
+    @classmethod
+    def fit(cls, *args, **kwargs) -> "LMCascade":
+        raise NotImplementedError(
+            "LMCascade.fit comes with the port's training slice (ROADMAP.md queue A "
+            "item 1); fit with repro.serving.cascade_serving.LMCascade, save, and "
+            "load the artifact with LMCascade.load"
+        )
+
+    @torch.no_grad()
+    def serve_batch(self, params: PyTree, batch: Dict, *,
+                    stage_ms: Optional[Dict[str, float]] = None) -> Dict:
+        """Weak pass for everyone; decisions from the weak logits; the strong
+        pass over the whole batch, whose rows the decisions then select (the
+        reference's semantics: in a deployment only offloaded rows would
+        cross to the strong model).  Returns per-request NLLs (host numpy),
+        decisions and the blended quality.  ``stage_ms`` accumulates
+        ``weak_forward_ms``, ``decide_ms``, ``strong_forward_ms`` and
+        ``nll_ms`` when given."""
+        dev = params["embed"].device
+        t0 = timing.now(stage_ms, dev)
+        wparams = truncate_params(params, self.cfg, self.exit_layer)
+        wlogits, _ = forward(wparams, truncated_config(self.cfg, self.exit_layer), batch)
+        t0 = timing.add(stage_ms, "weak_forward_ms", t0, dev)
+        decision = self.engine.decide((wlogits, batch["labels"]))
+        offload = decision.offload
+        t0 = timing.add(stage_ms, "decide_ms", t0, dev)
+        nll_w = sequence_nll(wlogits, batch["labels"]).cpu().numpy()
+        del wlogits
+        t0 = timing.add(stage_ms, "nll_ms", t0, dev)
+        slogits, _ = forward(params, self.cfg, batch)
+        t0 = timing.add(stage_ms, "strong_forward_ms", t0, dev)
+        nll_s = sequence_nll(slogits, batch["labels"]).cpu().numpy()
+        del slogits
+        timing.add(stage_ms, "nll_ms", t0, dev)
+        return {
+            "estimates": decision.estimates,
+            "offload": offload,
+            "nll_weak": nll_w,
+            "nll_strong": nll_s,
+            "nll_final": np.where(offload, nll_s, nll_w),
+            "offload_ratio": decision.ratio,
+        }
+
+    def serve_stream(self, *args, **kwargs) -> Dict:
+        raise NotImplementedError(
+            "serve_stream needs runtime.session.OffloadSession, which comes with "
+            "ROADMAP.md queue A item 2; use serve_batch per batch until then"
+        )
+
+    def set_ratio(self, ratio: float) -> None:
+        """Runtime offload-budget adjustment (delegates to the engine)."""
+        self.engine.set_ratio(ratio)
+
+    def save(self, path: str) -> None:
+        """Persist the decision stack (not the LM weights) as one artifact."""
+        self.engine.save(
+            path, extra_meta={"exit_layer": self.exit_layer, "cfg_name": self.cfg.name}
+        )
+
+    @classmethod
+    def load(cls, path: str, cfg: LMConfig, *, device: DeviceLike = "cuda") -> "LMCascade":
+        """Rebuild from a saved engine on ``device``; the LM config and params
+        are the caller's (the artifact carries only the decision stack)."""
+        engine = OffloadEngine.load(path, device=device)
+        return cls(cfg=cfg, exit_layer=int(engine.extra_meta["exit_layer"]), engine=engine)

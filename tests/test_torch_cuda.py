@@ -11,6 +11,7 @@ import torch
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.detection.nms import nms_batch
 from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
 from repro_torch.kernels.iou_matrix import (
     iou_matrix,
     iou_matrix_batch,
@@ -18,6 +19,7 @@ from repro_torch.kernels.iou_matrix import (
     iou_matrix_ref,
 )
 from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
 NUM_CLASSES, TOP_K = 8, 25
 F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
@@ -106,3 +108,71 @@ def test_score_pipeline_kernel(dev, B, K, ties, empty):
     want = score_pipeline_ref(batch.boxes, batch.scores, batch.classes, batch.mask,
                               *params.values(), 64.0, NUM_CLASSES, TOP_K)
     torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,window,off", [
+    (1, 128, 128, 2, 1, 32, 0, 0),
+    (2, 256, 256, 4, 2, 64, 0, 0),
+    (1, 100, 300, 4, 4, 32, 0, 200),
+    (2, 256, 256, 4, 2, 64, 64, 0),
+    (1, 64, 512, 8, 2, 128, 128, 448),
+    (2, 1, 40, 28, 4, 128, 0, 33),  # a decode step: one query at pos 33
+    (1, 3, 4, 2, 1, 32, 2, 10),  # every row fully masked -> 0
+])
+def test_flash_sdpa_kernel(dev, B, S, T, H, K, D, window, off):
+    rng = np.random.default_rng(S * T + D)
+    q, k, v = (torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev)
+               for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    before = flash_sdpa.launches
+    got = flash_sdpa(q, k, v, window=window, q_offset=off)
+    assert flash_sdpa.launches == before + 1
+    torch.testing.assert_close(got, flash_sdpa_ref(q, k, v, window=window, q_offset=off),
+                               atol=2e-6, rtol=0)
+    # bf16 in and out, float32 inside: at most one bf16 rounding apart
+    qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
+    torch.testing.assert_close(flash_sdpa(qb, kb, vb, window=window, q_offset=off).float(),
+                               flash_sdpa_ref(qb, kb, vb, window=window, q_offset=off).float(),
+                               atol=1e-6, rtol=2 ** -7)
+
+
+@pytest.mark.parametrize("B,T,H,K,V", [(1, 8, 1, 8, 8), (2, 64, 3, 16, 16), (2, 33, 2, 64, 64),
+                                        (3, 1, 4, 32, 32), (2, 70, 2, 64, 64)])
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16)])
+def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
+    rng = np.random.default_rng(B * T + K)
+
+    def arr(shape, lo=None, hi=None, scale=1.0):
+        a = rng.uniform(lo, hi, shape) if lo is not None else rng.normal(0, scale, shape)
+        return torch.tensor(a.astype(np.float32), device=dev)
+
+    r, k, v = arr((B, T, H, K)).to(xdt), arr((B, T, H, K)).to(xdt), arr((B, T, H, V)).to(xdt)
+    w, u, s0 = arr((B, T, H, K), 0.5, 0.99).to(wdt), arr((H, K), scale=0.2), arr((B, H, K, V), scale=0.1)
+    before = wkv6.launches
+    out, sT = wkv6(r, k, v, w, u, s0)
+    assert wkv6.launches == before + 1 and out.dtype == sT.dtype == torch.float32
+    want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
+    # the same float32 inputs on both sides: only the summation order differs
+    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(sT, want_s, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+def test_lm_decode_matches_forward_on_card(dev, arch):
+    """A reduced float32 model on the card: kernels against the plain
+    versions, and decode at position S against the forward on S + 1 tokens
+    (the contract of tests/test_archs_smoke.py)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = lm.reduced(get_config(arch))
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)), device=dev)
+    logits, _ = lm.forward(params, cfg, {"tokens": toks})
+    plain, _ = lm.forward(params, cfg, {"tokens": toks}, plain=True)
+    torch.testing.assert_close(logits, plain, atol=1e-5, rtol=0)
+    last, cache = lm.prefill(params, cfg, {"tokens": toks}, capacity=20)
+    nxt = last.argmax(-1)
+    dl, _ = lm.decode_step(params, cfg, cache, nxt, 16)
+    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([toks, nxt[:, None]], 1)})
+    torch.testing.assert_close(dl, full[:, -1], atol=5e-4, rtol=0)

@@ -1,0 +1,290 @@
+"""The port's LM layers and models against the JAX package's, on the CPU.
+
+Weights are drawn by ``repro`` (then perturbed from numpy, so that biases,
+norm scales, qk-norm, the RWKV6 bonus and decay base are not trivially 0 or
+1), and carried into the port by ``lm_params_from_jax``.  Float32 layers
+compare at 1e-5, the reference's own kernel tolerance; greedy tokens must be
+equal."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
+import jax
+import jax.numpy as jnp
+from repro.configs import get_config as j_get_config
+from repro.models import layers as jl
+from repro.models import lm as jlm
+from repro.serving.decode_loop import generate as j_generate
+
+from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.models import layers as tl
+from repro_torch.models import lm as tlm
+from repro_torch.serving.cascade_serving import truncate_params, truncated_config
+from repro_torch.serving.decode_loop import generate
+
+ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "rwkv6_1b6"]
+B, S = 2, 16
+
+
+def perturbed(tree, seed, scale=0.05):
+    """numpy copy of a JAX pytree with N(0, scale) added to every leaf."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: (np.asarray(a, np.float32) + rng.normal(0, scale, a.shape)).astype(np.float32),
+        tree,
+    )
+
+
+def t(a, dtype=torch.float32):
+    return torch.from_numpy(np.array(a, np.float32)).to(dtype)
+
+
+def close(got, want, atol=1e-5):
+    np.testing.assert_allclose(got.detach().float().numpy(), np.asarray(want, np.float32), atol=atol)
+
+
+# ------------------------------------------------------------------ layers
+
+
+def test_rmsnorm_and_layernorm():
+    rng = np.random.default_rng(0)
+    x = rng.normal(0, 2, (2, 5, 64)).astype(np.float32)
+    p = {"scale": rng.normal(1, 0.1, 64).astype(np.float32)}
+    close(tl.rmsnorm({"scale": t(p["scale"])}, t(x)), jl.rmsnorm(p, jnp.asarray(x)))
+    p["bias"] = rng.normal(0, 0.1, 64).astype(np.float32)
+    close(tl.layernorm({k: t(v) for k, v in p.items()}, t(x)), jl.layernorm(p, jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("theta", [1e6, 5e6, 1e4])
+def test_apply_rope(theta):
+    rng = np.random.default_rng(1)
+    x = rng.normal(0, 1, (2, 24, 3, 32)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(24)[None], (2, 24))
+    close(tl.rope_freqs(32, theta), jl.rope_freqs(32, theta), atol=1e-7)
+    close(tl.apply_rope(t(x), torch.from_numpy(pos.copy()), theta),
+          jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+
+
+ATTN = {  # (qkv_bias, qk_norm, num_kv_heads): qwen2 / yi / qwen3 attention
+    "qwen2": (True, False, 2),
+    "yi": (False, False, 2),
+    "qwen3": (False, True, 2),
+    "mha": (True, True, 4),
+}
+
+
+def _attn(kind, seed=0):
+    bias, qk_norm, kv = ATTN[kind]
+    jcfg = jl.AttnConfig(d_model=64, num_heads=4, num_kv_heads=kv, head_dim=32,
+                         qkv_bias=bias, qk_norm=qk_norm, rope_theta=1e4)
+    tcfg = tl.AttnConfig(**{f: getattr(jcfg, f) for f in tl.AttnConfig._fields})
+    tree = perturbed(jl.attention_init(jax.random.PRNGKey(seed), jcfg), seed)
+    tparams = jax.tree.map(t, tree)
+    return jcfg, tcfg, tree, tparams
+
+
+@pytest.mark.parametrize("kind", list(ATTN))
+def test_attention_apply(kind):
+    jcfg, tcfg, tree, tparams = _attn(kind)
+    x = np.random.default_rng(2).normal(0, 1, (B, S, 64)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S)[None], (B, S)).copy()
+    want, (wk, wv) = jl.attention_apply(tree, jcfg, jnp.asarray(x), jnp.asarray(pos), return_kv=True)
+    got, (gk, gv) = tl.attention_apply(tparams, tcfg, t(x), torch.from_numpy(pos), return_kv=True)
+    close(got, want)
+    close(gk, wk)
+    close(gv, wv)
+    close(tl.attention_apply(tparams, tcfg, t(x), torch.from_numpy(pos), plain=True), want)
+
+
+@pytest.mark.parametrize("kind", list(ATTN))
+@pytest.mark.parametrize("pos", [0, 9])
+def test_attention_decode(kind, pos):
+    """Against repro's ``attention_decode``, whose finfo.min mask sees the
+    same slots 0..pos: at pos = 0 only the token itself."""
+    jcfg, tcfg, tree, tparams = _attn(kind, seed=3)
+    rng = np.random.default_rng(4 + pos)
+    C = 12
+    x = rng.normal(0, 1, (B, 1, 64)).astype(np.float32)
+    ck = rng.normal(0, 1, (B, C, jcfg.num_kv_heads, 32)).astype(np.float32)
+    cv = rng.normal(0, 1, (B, C, jcfg.num_kv_heads, 32)).astype(np.float32)
+    want, wk, wv = jl.attention_decode(tree, jcfg, jnp.asarray(x), jnp.asarray(ck),
+                                       jnp.asarray(cv), jnp.asarray(pos, jnp.int32))
+    tk, tv = t(ck), t(cv)
+    got, gk, gv = tl.attention_decode(tparams, tcfg, t(x), tk, tv, pos)
+    assert gk is tk and gv is tv  # the preallocated cache, written in place
+    close(got, want)
+    close(gk, wk)
+    close(gv, wv)
+
+
+def test_swiglu():
+    tree = perturbed(jl.swiglu_init(jax.random.PRNGKey(5), 64, 96), 5)
+    x = np.random.default_rng(6).normal(0, 1, (B, S, 64)).astype(np.float32)
+    close(tl.swiglu(jax.tree.map(t, tree), t(x)), jl.swiglu(tree, jnp.asarray(x)))
+
+
+def _rwkv(seed=7):
+    jcfg = jl.RWKV6Config(d_model=64, head_size=16)
+    tcfg = tl.RWKV6Config(d_model=64, head_size=16)
+    tree = perturbed(jl.rwkv6_init(jax.random.PRNGKey(seed), jcfg), seed)
+    return jcfg, tcfg, tree, jax.tree.map(t, tree)
+
+
+@pytest.mark.parametrize("steps", [S, 1])
+def test_rwkv6_time_mix_with_state(steps):
+    """Prefill (S tokens) and decode (1 token), from a carried state and last
+    token."""
+    jcfg, tcfg, tree, tparams = _rwkv()
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (B, steps, 64)).astype(np.float32)
+    st = rng.normal(0, 0.1, (B, 4, 16, 16)).astype(np.float32)
+    xl = rng.normal(0, 1, (B, 64)).astype(np.float32)
+    want = jl.rwkv6_time_mix(tree, jcfg, jnp.asarray(x), jnp.asarray(st), jnp.asarray(xl))
+    got = tl.rwkv6_time_mix(tparams, tcfg, t(x), t(st), t(xl))
+    for g, w in zip(got, want):
+        close(g, w)
+    plain = tl.rwkv6_time_mix(tparams, tcfg, t(x), t(st), t(xl), plain=True)
+    close(plain[0], want[0])
+
+
+def test_rwkv6_channel_mix():
+    _, _, tree, tparams = _rwkv(9)
+    rng = np.random.default_rng(10)
+    x = rng.normal(0, 1, (B, S, 64)).astype(np.float32)
+    xl = rng.normal(0, 1, (B, 64)).astype(np.float32)
+    want = jl.rwkv6_channel_mix(tree, jnp.asarray(x), jnp.asarray(xl))
+    got = tl.rwkv6_channel_mix(tparams, t(x), t(xl))
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+# ------------------------------------------------------------------ models
+
+
+@pytest.fixture(scope="module")
+def models():
+    """Per arch: (repro cfg, repro params, port cfg, port params, tokens)."""
+    out = {}
+    for i, arch in enumerate(ARCHS):
+        jcfg = jlm.reduced(j_get_config(arch))
+        tcfg = tlm.reduced(get_config(arch))
+        assert dataclasses.asdict(jcfg) == dataclasses.asdict(tcfg)
+        tree = perturbed(jax.jit(jlm.init_params, static_argnums=0)(jcfg, jax.random.PRNGKey(i)),
+                         seed=100 + i, scale=0.02)
+        jparams = jax.tree.map(jnp.asarray, tree)
+        tparams = lm_params_from_jax(tree, tcfg, device="cpu")
+        toks = np.random.default_rng(i).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+        out[arch] = (jcfg, jparams, tcfg, tparams, toks)
+    return out
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_forward(models, arch):
+    jcfg, jparams, tcfg, tparams, toks = models[arch]
+    want, _ = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    got, aux = tlm.forward(tparams, tcfg, {"tokens": toks})
+    assert got.shape == (B, S, tcfg.vocab_size) and float(aux) == 0.0
+    close(got, want)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_prefill_and_decode_step(models, arch):
+    jcfg, jparams, tcfg, tparams, toks = models[arch]
+    C = S + 4
+    jl_last, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=C)
+    tl_last, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=C)
+    close(tl_last, jl_last)
+    assert sorted(tcache) == sorted(jcache)
+    for name in jcache:
+        close(tcache[name], jcache[name])
+    nxt = np.asarray(jnp.argmax(jl_last, -1)).astype(np.int32)
+    jd, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), jnp.asarray(S, jnp.int32))
+    td, tcache2 = tlm.decode_step(tparams, tcfg, tcache, torch.from_numpy(nxt), S)
+    assert tcache2 is tcache
+    close(td, jd)
+    for name in jcache:
+        close(tcache[name], jcache[name])
+    # decode at S against the port's own forward on S + 1 tokens
+    full, _ = tlm.forward(tparams, tcfg, {"tokens": np.concatenate([toks, nxt[:, None]], 1)})
+    close(td, full[:, -1].numpy(), atol=5e-4)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_greedy_generate_tokens_equal(models, arch):
+    jcfg, jparams, tcfg, tparams, toks = models[arch]
+    want = np.asarray(j_generate(jparams, jcfg, {"tokens": jnp.asarray(toks)}, steps=6))
+    got = generate(tparams, tcfg, {"tokens": torch.from_numpy(toks)}, steps=6)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_sampled_generate_draws_from_the_distribution(models):
+    jcfg, jparams, tcfg, tparams, toks = models["yi_6b"]
+    g = torch.Generator().manual_seed(0)
+    a = generate(tparams, tcfg, {"tokens": toks}, steps=4, greedy=False, generator=g)
+    assert a.shape == (B, 4) and int(a.min()) >= 0 and int(a.max()) < tcfg.vocab_size
+    b = generate(tparams, tcfg, {"tokens": toks}, steps=4, greedy=False,
+                 generator=torch.Generator().manual_seed(0))
+    assert torch.equal(a, b)  # the same generator state gives the same draws
+
+
+def test_bfloat16_forward():
+    """At bfloat16 the reference rounds attention probabilities to bf16
+    before P.V (``layers.py:212``) while the port's attention keeps them in
+    float32, and the two frameworks round matmuls differently; logits of
+    magnitude ~1 then agree to a few bf16 ulps (2^-8 = 0.0039 each): the
+    tolerance is 0.05, and greedy tokens must still agree on most rows."""
+    arch = "qwen2_7b"
+    jcfg = dataclasses.replace(jlm.reduced(j_get_config(arch)), dtype="bfloat16")
+    tcfg = dataclasses.replace(tlm.reduced(get_config(arch)), dtype="bfloat16")
+    tree = perturbed(jlm.init_params(jcfg, jax.random.PRNGKey(11)), seed=11, scale=0.02)
+    tparams = lm_params_from_jax(tree, tcfg, device="cpu")
+    assert tparams["embed"].dtype == torch.bfloat16
+    toks = np.random.default_rng(11).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    want, _ = jlm.forward(jax.tree.map(jnp.asarray, tree), jcfg, {"tokens": jnp.asarray(toks)})
+    got, _ = tlm.forward(tparams, tcfg, {"tokens": toks})
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
+
+
+def test_bonus_stays_float32_in_bfloat16():
+    cfg = dataclasses.replace(tlm.reduced(get_config("rwkv6_1b6")), dtype="bfloat16")
+    params = tlm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert params["layers"]["tm"]["bonus"].dtype == torch.float32
+    assert params["layers"]["tm"]["wr"].dtype == torch.bfloat16
+    assert params["layers"]["tm"]["wr"].shape == (2, 128, 128)
+
+
+def test_init_params_shapes_match_repro():
+    for arch in ARCHS:
+        jcfg, tcfg = jlm.reduced(j_get_config(arch)), tlm.reduced(get_config(arch))
+        shapes = jax.eval_shape(lambda k: jlm.init_params(jcfg, k), jax.random.PRNGKey(0))
+        params = tlm.init_params(tcfg, torch.Generator().manual_seed(0), device="cpu")
+        want = jax.tree.map(lambda s: tuple(s.shape), shapes)
+        got = jax.tree.map(lambda p: tuple(p.shape), params)
+        assert got == want, arch
+
+
+def test_truncate_params_shares_storage(models):
+    _, _, tcfg, tparams, toks = models["qwen2_7b"]
+    weak = truncate_params(tparams, tcfg, 1)
+    for name in ("embed", "unembed"):
+        assert weak[name] is tparams[name]
+    wq, full = weak["layers"]["attn"]["wq"], tparams["layers"]["attn"]["wq"]
+    assert wq.shape[0] == 1 and wq.data_ptr() == full.data_ptr()
+    assert wq.untyped_storage().data_ptr() == full.untyped_storage().data_ptr()
+    wcfg = truncated_config(tcfg, 1)
+    assert wcfg.num_layers == 1
+    logits, _ = tlm.forward(weak, wcfg, {"tokens": toks})
+    assert logits.shape == (B, S, tcfg.vocab_size)
+
+
+@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(ARCHS) - {"qwen1_5_32b"}))
+def test_unported_families_raise(arch):
+    cfg = tlm.reduced(get_config(arch))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tlm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")

@@ -1,0 +1,165 @@
+"""The port's LM cascade serve path against the JAX package's, on the CPU:
+``lm_logits`` features, ``sequence_nll``, and an engine fitted and saved by
+``repro``'s ``LMCascade`` served by the port's ``LMCascade.load`` on the same
+weights and batch (offload masks exactly equal), plus the launcher."""
+import numpy as np
+import pytest
+import torch
+
+import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
+import jax
+import jax.numpy as jnp
+from repro.api.features import logits_features as j_logits_features
+from repro.configs import get_config as j_get_config
+from repro.models import lm as jlm
+from repro.serving.cascade_serving import LMCascade as JLMCascade
+from repro.serving.cascade_serving import sequence_nll as j_sequence_nll
+from repro.serving.cascade_serving import truncate_params as j_truncate_params
+from repro.serving.cascade_serving import truncated_config as j_truncated_config
+
+from repro_torch.api import LMLogitsFeatures, OffloadEngine, make_feature_extractor
+from repro_torch.api.features import logits_features
+from repro_torch.configs import get_config
+from repro_torch.convert import lm_params_from_jax
+from repro_torch.data.lm_synth import synth_lm_batch
+from repro_torch.launch import serve as launcher
+from repro_torch.models import lm as tlm
+from repro_torch.serving.cascade_serving import LMCascade, sequence_nll
+from repro_torch.serving.decode_loop import cascade_generate
+
+
+def _logits_and_labels(seed, B=4, S=12, V=300, pad=3):
+    rng = np.random.default_rng(seed)
+    logits = (rng.normal(0, 3, (B, S, V))).astype(np.float32)
+    labels = rng.integers(0, V, (B, S)).astype(np.int32)
+    labels[:, S - pad:] = -1
+    labels[0] = -1  # a row with no valid position
+    return logits, labels
+
+
+@pytest.mark.parametrize("top_k", [8, 3])
+@pytest.mark.parametrize("with_labels", [True, False])
+def test_logits_features(top_k, with_labels):
+    logits, labels = _logits_and_labels(top_k)
+    lab = labels if with_labels else None
+    want = j_logits_features(jnp.asarray(logits), None if lab is None else jnp.asarray(lab), top_k)
+    got = logits_features(torch.from_numpy(logits), lab, top_k)
+    assert got.shape == (4, 4 + top_k) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    fx = make_feature_extractor("lm_logits", top_k=top_k, device="cpu")
+    assert isinstance(fx, LMLogitsFeatures) and fx.feature_dim == 4 + top_k
+    np.testing.assert_allclose(fx({"logits": torch.from_numpy(logits), "labels": lab}).numpy(),
+                               want, atol=1e-5)
+
+
+def test_sequence_nll():
+    logits, labels = _logits_and_labels(5)
+    want = j_sequence_nll(jnp.asarray(logits), jnp.asarray(labels))
+    got = sequence_nll(torch.from_numpy(logits), labels)
+    assert got.shape == (4,) and float(got[0]) == 0.0  # no valid position
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def _batch(seed, cfg, B=8, S=16):
+    toks, labels = synth_lm_batch(np.random.default_rng(seed), B, S, cfg.vocab_size)
+    return {"tokens": toks, "labels": labels}
+
+
+@pytest.fixture(scope="module", params=["qwen2_7b", "rwkv6_1b6"])
+def fitted(request, tmp_path_factory):
+    """repro fits and saves an LMCascade; the port loads it and the weights."""
+    arch = request.param
+    jcfg = jlm.reduced(j_get_config(arch), num_layers=2)
+    tcfg = tlm.reduced(get_config(arch), num_layers=2)
+    tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    cal = {k: jnp.asarray(v) for k, v in _batch(1, jcfg, B=16).items()}
+    jcascade = JLMCascade.fit(jparams, jcfg, exit_layer=1, calib_batches=[cal],
+                              ratio=0.25, epochs=3)
+    path = str(tmp_path_factory.mktemp(arch) / "lm_engine")
+    jcascade.save(path)
+    tcascade = LMCascade.load(path, tcfg, device="cpu")
+    return jcascade, jparams, tcascade, lm_params_from_jax(tree, tcfg, device="cpu"), tcfg
+
+
+def test_loaded_cascade_serves_like_repro(fitted):
+    """Masks exactly equal, NLLs at 1e-5, and the decision stack isolated:
+    the port's engine on repro's own weak-logit features gives repro's
+    estimates at 1e-5.  End to end, the estimates are held at 1e-3: with
+    untrained weights the logits are near uniform, the engine standardizes
+    each feature by a sigma as small as ~3e-5, and the ~1e-6 float32
+    difference of the two packages' log-softmax over the vocabulary (the
+    features themselves agree at 1e-5, ``test_logits_features``) moves the
+    MLP's input by up to ~4e-2."""
+    jcascade, jparams, tcascade, tparams, tcfg = fitted
+    assert tcascade.exit_layer == jcascade.exit_layer == 1
+    assert tcascade.engine.reward_model.fused  # one hidden layer -> estimator_mlp
+    for seed in (5, 6):
+        batch = _batch(seed, tcfg)
+        jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
+        want = jcascade.serve_batch(jparams, jbatch)
+        stage_ms = {}
+        got = tcascade.serve_batch(tparams, batch, stage_ms=stage_ms)
+        np.testing.assert_array_equal(got["offload"], want["offload"])
+        for key in ("nll_weak", "nll_strong", "nll_final"):
+            np.testing.assert_allclose(got[key], want[key], atol=1e-5, err_msg=key)
+        np.testing.assert_allclose(got["estimates"], want["estimates"], atol=1e-3)
+        assert got["offload_ratio"] == pytest.approx(want["offload_ratio"])
+        assert set(stage_ms) == {"weak_forward_ms", "decide_ms", "nll_ms", "strong_forward_ms"}
+        # the decision stack alone, on repro's features of repro's weak logits
+        wlogits, _ = jlm.forward(j_truncate_params(jparams, jcascade.cfg, 1),
+                                 j_truncated_config(jcascade.cfg, 1), jbatch)
+        feats = np.asarray(j_logits_features(wlogits, jbatch["labels"]))
+        jd = jcascade.engine.decide(features=feats)
+        td = tcascade.engine.decide(features=feats)
+        np.testing.assert_array_equal(td.offload, jd.offload)
+        np.testing.assert_allclose(td.estimates, jd.estimates, atol=1e-5)
+
+
+def test_cascade_views_and_ratio(fitted, tmp_path):
+    jcascade, jparams, tcascade, tparams, tcfg = fitted
+    assert tcascade.policy is tcascade.engine.policy
+    assert tcascade.cdf is tcascade.engine.transform
+    assert tcascade.estimator is tcascade.engine.reward_model.estimator
+    batch = _batch(7, tcfg)
+    tcascade.set_ratio(0.0)
+    assert not tcascade.serve_batch(tparams, batch)["offload"].any()
+    jcascade.set_ratio(1.0)
+    tcascade.set_ratio(1.0)
+    want = jcascade.serve_batch(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_array_equal(tcascade.serve_batch(tparams, batch)["offload"], want["offload"])
+    # save from the port, load back: same decision stack
+    tcascade.set_ratio(0.25)
+    path = str(tmp_path / "again")
+    tcascade.save(path)
+    again = LMCascade.load(path, tcfg, device="cpu")
+    np.testing.assert_array_equal(again.serve_batch(tparams, batch)["offload"],
+                                  tcascade.serve_batch(tparams, batch)["offload"])
+    assert isinstance(again.engine, OffloadEngine) and again.engine.extra_meta["exit_layer"] == 1
+
+
+def test_unported_entry_points_raise(fitted):
+    _, _, tcascade, tparams, tcfg = fitted
+    with pytest.raises(NotImplementedError, match="queue A item 1"):
+        LMCascade.fit(tparams, tcfg, 1, [])
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        tcascade.serve_stream(tparams, [])
+    with pytest.raises(NotImplementedError, match="queue A item 2"):
+        cascade_generate(tparams, tcfg, {}, 4, exit_layer=1)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+def test_launcher_on_cpu(arch, capsys):
+    out = launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                         "--prompt-len", "8", "--tokens", "4"])
+    assert out.shape == (2, 4)
+    assert "generated (2, 4) on cpu" in capsys.readouterr().out
+    with pytest.raises(NotImplementedError, match="queue A item 1"):
+        launcher.main(["--arch", arch, "--device", "cpu", "--cascade"])
+
+
+def test_launcher_defaults_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device works here")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        launcher.main(["--arch", "qwen2_7b"])
