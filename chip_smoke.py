@@ -14,9 +14,13 @@ first use.  Phases, each printing one line of its own:
 2. ``build``   nvcc for every kernel source, all at once, and its seconds.
 3. ``check``, ``check_lm``   every kernel against its plain PyTorch
                version on the card at main-path and edge shapes, with the
-               tolerance stated; the kernel's, the plain version's and (for
-               flash_sdpa) ``scaled_dot_product_attention``'s time at the
-               main-path shape, and the bound.
+               tolerance stated (flash_sdpa's tensor-core route, which
+               rounds P to bf16, at 2^-8 max |v| + 2^-7 of each output); the kernel's,
+               the plain version's and (for flash_sdpa)
+               ``scaled_dot_product_attention``'s time at the main-path
+               prefill and decode shapes, and the bound.  Fails if
+               flash_sdpa's qwen2-7b prefill / decode shapes miss the
+               ``wgmma`` / ``decode`` routes.
 4. ``serve``   the serve path with every launch count set to 0 first:
                1024 seeded shapes images; the WEAK detector + NMS and the
                reward model calibrate on the first 512; an engine artifact
@@ -39,9 +43,15 @@ first use.  Phases, each printing one line of its own:
                stack its decision chose.  Then, outside the count: decode
                against the forward, the weak logits against the plain
                versions (bf16 as served, and float32), and the decisions
-               against the CPU engine on the same features.
-6. ``{"kernels": [...]}`` each kernel's launches on its paths, its error
-               against the plain version, its times and its bound.
+               against the CPU engine on the same features.  Launches are
+               also split by route and shape; the run fails if qwen2-7b's
+               prefill missed flash_sdpa's ``wgmma`` route or its decode
+               steps the ``decode`` route, or RWKV's prefill or decode
+               missed ``wkv6``.
+6. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+               flash_sdpa and wkv6, by route and shape), its error against
+               the plain version, its times and its bound (and the same at
+               the decode step).
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or outside
@@ -593,6 +603,9 @@ LM_BF16_REL_TOL = 0.05
 # order (~1e-7 of each output); a wrong mask, head or state would move the
 # logits by their own size
 LM_F32_REL_TOL = 1e-3
+# flash_sdpa's tensor-core route against the float32 plain version: atol of
+# this times max |v| (the bound of rounding P to bf16), rtol 2^-7
+BF16_P_ATOL = 2 ** -8
 
 
 def hold_rel(name, got, want, tol):
@@ -633,9 +646,13 @@ def check_lm_kernels(torch, timer, dev):
                       **extra})
 
     # flash_sdpa: tests/test_kernels.py's five cases in float32 (2e-6 as
-    # there), then qwen2-7b's prefill and decode shapes in bf16, where kernel
-    # and plain version both compute in float32 and round the output to bf16
-    # once, so they may differ by one rounding: rtol 2^-7
+    # there; the simt route), then qwen2-7b's prefill (wgmma route) and decode
+    # (decode route) shapes in bf16.  The decode route computes in float32 and
+    # rounds the output to bf16 once, as the plain version does: one rounding
+    # apart, rtol 2^-7.  The wgmma route also rounds P to bf16 before P V,
+    # which moves a row by at most 2^-8 sum_j p_j |v_j| / l <= 2^-8 max |v|
+    # (checked on the CPU in tests/test_torch_flash_routes.py): atol 2^-8 max
+    # |v|, rtol 2^-7
     for B, S, T, H, K, D, window, off in [
         (1, 128, 128, 2, 1, 32, 0, 0), (2, 256, 256, 4, 2, 64, 0, 0),
         (1, 100, 300, 4, 4, 32, 0, 200), (2, 256, 256, 4, 2, 64, 64, 0),
@@ -649,11 +666,16 @@ def check_lm_kernels(torch, timer, dev):
     C = LM_SEQ + LM_TOKENS
     bf = torch.bfloat16
     q, k, v = normal((B, S, H, D), bf), normal((B, S, K, D), bf), normal((B, S, K, D), bf)
+    routes = dict(flash_sdpa.launches_by_route)
     hold("flash_sdpa", f"prefill B={B} S=T={S} H={H} K={K} D={D} bf16",
-         flash_sdpa(q, k, v), flash_sdpa_ref(q, k, v), 1e-6, 2 ** -7)
+         flash_sdpa(q, k, v), flash_sdpa_ref(q, k, v), BF16_P_ATOL * float(v.float().abs().max()),
+         2 ** -7)
     qd, kd, vd = normal((B, 1, H, D), bf), normal((B, C, K, D), bf), normal((B, C, K, D), bf)
     hold("flash_sdpa", f"decode B={B} S=1 T={C} q_offset={S} bf16",
          flash_sdpa(qd, kd, vd, q_offset=S), flash_sdpa_ref(qd, kd, vd, q_offset=S), 1e-6, 2 ** -7)
+    taken = {r: flash_sdpa.launches_by_route[r] - n for r, n in routes.items()}
+    if taken != {"wgmma": 1, "decode": 1, "decode_combine": 1, "simt": 0}:
+        fail(f"flash_sdpa at qwen2-7b's prefill and decode shapes took the routes {taken}")
 
     # wkv6: tests/test_kernels.py's cases (1e-5 in float32, 5e-2 in bf16, as
     # there), then rwkv6-1.6b's prefill and decode shapes with the layer's
@@ -721,12 +743,26 @@ def check_lm_kernels(torch, timer, dev):
         # 3 K + 2 V per step, not per element
         ops=5 * n * K * V + n * (3 * K + 2 * V),
     )
+    # the decode step (T = 1): the 8.4 MB state is read and written once
+    args = wkv_inputs(B, 1, H, K, V, bf, torch.float32)
+    extra["wkv6 (decode)"] = dict(
+        shape=f"B={B} T=1 H={H} K=V={K} r/k/v bf16 w f32 (rwkv6-1.6b decode step)",
+        ms=timer(lambda: wkv6(*args)),
+        plain_ms=timer(lambda: wkv6_ref(*args)),
+        library_ms=None,
+        bytes=B * H * K * (2 + 2 + 4) + B * H * V * 2 + H * K * 4 + 2 * B * H * K * V * 4
+        + B * H * V * 4,
+        ops=5 * B * H * K * V + B * H * (3 * K + 2 * V),
+    )
     for name, r in {**records, **extra}.items():
         r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"), r.pop("peak_ops", PEAK_F32_OPS_PER_S))
         r["max_abs_err"] = err[name.split()[0]]
     times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
              for k, r in {**records, **extra}.items()}
     emit("check_lm", {"cases": len(cases), "max_abs_err": err, "times": times, "detail": cases})
+    for name, r in extra.items():  # the decode step's numbers ride on the kernel's record
+        records[name.split()[0]]["decode"] = {
+            kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     return records
 
 
@@ -762,6 +798,26 @@ def lm_engine_artifact(path, x_cal, scores_fn, exit_layer, cfg_name, rng):
     arrays = {"model": model_arrays, "calibration": calibration.astype(np.float64),
               "transform_sorted": np.sort(rng.normal(0, 1, len(calibration)))}
     save_flat(path, arrays, meta)
+
+
+def reset_counts(counters):
+    """Every launch count of ``counters`` (and its by-route / by-shape split) to 0."""
+    for c in counters:
+        c.launches = 0
+        for split in (getattr(c, "launches_by_route", {}), getattr(c, "launches_by_shape", {})):
+            for key in split:
+                split[key] = 0
+
+
+def split_counts(counters):
+    """The by-route and by-shape launch counts of the wrappers that keep them."""
+    out = {}
+    for c in counters:
+        parts = {name: dict(getattr(c, f"launches_{name}")) for name in ("by_route", "by_shape")
+                 if hasattr(c, f"launches_{name}")}
+        if parts:
+            out[c.__name__] = parts
+    return out
 
 
 def lm_serve_family(torch, dev, cfg, seed, counters):
@@ -801,8 +857,7 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     cal, served = lm_batch(), [lm_batch() for _ in range(LM_SERVED)]
     # the library's first calls (cuBLAS handles) outside the counted, timed run
     lm.forward(wparams, wcfg, {"tokens": cal["tokens"][:1, :8]})
-    for c in counters:
-        c.launches = 0
+    reset_counts(counters)
 
     # -- calibration: weak forward -> lm_logits features -> the MLP head
     wlogits, _ = timed("cal_weak_forward_ms", lambda: lm.forward(wparams, wcfg, cal))
@@ -841,6 +896,16 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         tokens.append(toks)
     sync()
     launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    if cfg.arch_type == "dense":
+        # bf16 prefill must take the tensor-core route, decode steps split-K
+        routes = split["flash_sdpa"]["by_route"]
+        if routes["wgmma"] == 0 or routes["decode"] == 0 or routes["simt"] != 0:
+            fail(f"{cfg.name}: flash_sdpa's routes on the LM path: {routes}")
+    else:
+        shapes = split["wkv6"]["by_shape"]
+        if shapes["prefill"] == 0 or shapes["decode"] == 0:
+            fail(f"{cfg.name}: wkv6 launches by shape on the LM path: {shapes}")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
 
     # -- checks, outside the count
@@ -922,14 +987,15 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         "generated_tokens_per_s": sum(gen_tokens.values()) / (gen_total_ms / 1e3),
         "setup_ms": {k: v for k, v in stage.items() if k.startswith(("init", "cal", "engine"))},
         "peak_memory_gib": peak_gib,
-        "checks": checks, "launches": launches,
+        "checks": checks, "launches": launches, "launches_split": split,
     }
     return report, launches
 
 
 def lm_serve(torch, smi, dev):
     """The LM phase: each family in turn, its model freed before the next.
-    Returns the launches of the two main-path runs, summed."""
+    Returns the launches of the two main-path runs, summed, and their
+    by-route / by-shape split."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.estimator_mlp import estimator_mlp
     from repro_torch.kernels.flash_sdpa import flash_sdpa
@@ -939,6 +1005,7 @@ def lm_serve(torch, smi, dev):
 
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
     total = {c.__name__: 0 for c in counters}
+    split_total = {}
     for i, cfg in enumerate(get_config(a) for a in LM_ARCHS):
         t0 = time.perf_counter()
         report, launches = lm_serve_family(torch, dev, cfg, seed=10 + i, counters=counters)
@@ -947,9 +1014,14 @@ def lm_serve(torch, smi, dev):
         emit("lm", report)
         for k, n in launches.items():
             total[k] += n
+        for k, parts in report["launches_split"].items():
+            for part, counts in parts.items():
+                into = split_total.setdefault(k, {}).setdefault(part, {})
+                for key, n in counts.items():
+                    into[key] = into.get(key, 0) + n
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return total
+    return total, split_total
 
 
 KERNELS = {
@@ -957,8 +1029,15 @@ KERNELS = {
     "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_matrix.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
     "estimator_mlp": ("src/repro_torch/kernels/csrc/estimator_mlp.cu", "src/repro/kernels/estimator_mlp/kernel.py:19"),
     "score_pipeline": ("src/repro_torch/kernels/csrc/score_pipeline.cu", "src/repro/kernels/score_pipeline/kernel.py:32"),
-    "flash_sdpa": ("src/repro_torch/kernels/csrc/flash_sdpa.cu", "src/repro/kernels/flash_sdpa/kernel.py:24"),
+    "flash_sdpa": ("src/repro_torch/kernels/csrc/flash_sdpa_wgmma.cu", "src/repro/kernels/flash_sdpa/kernel.py:24"),
     "wkv6": ("src/repro_torch/kernels/csrc/wkv6.cu", "src/repro/kernels/wkv6/kernel.py:22"),
+}
+# flash_sdpa's three routes, one source each: prefill (the "source" above),
+# decode (split-K + merge), and float32 / D = 32
+FLASH_SOURCES = {
+    "wgmma": "src/repro_torch/kernels/csrc/flash_sdpa_wgmma.cu",
+    "decode": "src/repro_torch/kernels/csrc/flash_sdpa_decode.cu",
+    "simt": "src/repro_torch/kernels/csrc/flash_sdpa.cu",
 }
 LM_PATH_KERNELS = ("flash_sdpa", "wkv6", "estimator_mlp")  # each must launch in the lm phase
 
@@ -976,7 +1055,9 @@ def main() -> None:
     timer = Timer(torch)
     records = check_kernels(torch, timer, dev)
     records.update(check_lm_kernels(torch, timer, dev))
-    paths = {"detection": serve(torch, smi, dev), "lm": lm_serve(torch, smi, dev)}
+    detection = serve(torch, smi, dev)
+    lm_launches, lm_split = lm_serve(torch, smi, dev)
+    paths = {"detection": detection, "lm": lm_launches}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
@@ -986,6 +1067,9 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "launches_by_path": {p: n[name] for p, n in paths.items()},
+            **({"launches_split": lm_split[name]} if name in lm_split else {}),
+            **({"decode": r["decode"]} if "decode" in r else {}),
+            **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     missing = [k["name"] for k in kernels if k["launches"] == 0]

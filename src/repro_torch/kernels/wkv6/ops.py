@@ -5,7 +5,8 @@
 A CUDA tensor launches the kernel, a CPU tensor takes ``wkv6_ref``.  r/k/v
 may be float32 or bfloat16 and w float32 or bfloat16 (the RWKV6 layer passes
 its bfloat16 projections and its float32 decay as they are); u and s0 are
-taken as float32.  Launches are counted in ``wkv6.launches``.
+taken as float32.  Launches are counted in ``wkv6.launches``, and by shape
+(``"prefill"``: T > 1, ``"decode"``: T = 1) in ``wkv6.launches_by_shape``.
 """
 from __future__ import annotations
 
@@ -76,7 +77,9 @@ def wkv6(
                 int(w.dtype == torch.bfloat16), B, T, H, K, V, _build.stream_ptr(r.device))
     _build.check(rc, _LIB, "wkv6")
     wkv6.launches += 1
+    wkv6.launches_by_shape["prefill" if T > 1 else "decode"] += 1
     return out, sT
 
 
 wkv6.launches = 0
+wkv6.launches_by_shape = {"prefill": 0, "decode": 0}

@@ -110,6 +110,33 @@ def test_score_pipeline_kernel(dev, B, K, ties, empty):
     torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
 
 
+def _bf16_tol(v, route):
+    """A bf16 route's tolerance against the float32 plain version.  The
+    simt and decode routes compute in float32 and round the output once:
+    one bf16 rounding apart.  The tensor-core route also rounds P to bf16
+    before P V, which moves a row by at most 2^-8 sum_j p_j |v_j| / l <=
+    2^-8 max |v| (tests/test_torch_flash_routes.py checks the bound on the
+    CPU)."""
+    if route == "wgmma":
+        return dict(atol=2 ** -8 * float(v.float().abs().max()), rtol=2 ** -7)
+    return dict(atol=1e-6, rtol=2 ** -7)
+
+
+def _flash_inputs(rng, B, S, T, H, K, D, dev, dtype=torch.float32):
+    return (torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev).to(dtype)
+            for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+
+
+def _route_launches(route, call):
+    """Runs ``call`` and asserts it launched exactly the kernels of ``route``."""
+    before = dict(flash_sdpa.launches_by_route)
+    got = call()
+    want = {"decode": ("decode", "decode_combine")}.get(route, (route,))
+    after = flash_sdpa.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {r: int(r in want) for r in after}
+    return got
+
+
 @pytest.mark.parametrize("B,S,T,H,K,D,window,off", [
     (1, 128, 128, 2, 1, 32, 0, 0),
     (2, 256, 256, 4, 2, 64, 0, 0),
@@ -120,23 +147,70 @@ def test_score_pipeline_kernel(dev, B, K, ties, empty):
     (1, 3, 4, 2, 1, 32, 2, 10),  # every row fully masked -> 0
 ])
 def test_flash_sdpa_kernel(dev, B, S, T, H, K, D, window, off):
+    from repro_torch.kernels.flash_sdpa.ops import flash_route
+
     rng = np.random.default_rng(S * T + D)
-    q, k, v = (torch.tensor(rng.normal(0, 1, shape).astype(np.float32), device=dev)
-               for shape in ((B, S, H, D), (B, T, K, D), (B, T, K, D)))
+    q, k, v = _flash_inputs(rng, B, S, T, H, K, D, dev)
     before = flash_sdpa.launches
-    got = flash_sdpa(q, k, v, window=window, q_offset=off)
+    got = _route_launches("simt", lambda: flash_sdpa(q, k, v, window=window, q_offset=off))
     assert flash_sdpa.launches == before + 1
     torch.testing.assert_close(got, flash_sdpa_ref(q, k, v, window=window, q_offset=off),
                                atol=2e-6, rtol=0)
-    # bf16 in and out, float32 inside: at most one bf16 rounding apart
+    # bf16 in and out: the route of its shape (wgmma, decode or simt)
     qb, kb, vb = q.bfloat16(), k.bfloat16(), v.bfloat16()
-    torch.testing.assert_close(flash_sdpa(qb, kb, vb, window=window, q_offset=off).float(),
+    route = flash_route(qb.dtype, S, D, H // K)
+    got = _route_launches(route, lambda: flash_sdpa(qb, kb, vb, window=window, q_offset=off))
+    torch.testing.assert_close(got.float(),
                                flash_sdpa_ref(qb, kb, vb, window=window, q_offset=off).float(),
-                               atol=1e-6, rtol=2 ** -7)
+                               **_bf16_tol(vb, route))
+
+
+@pytest.mark.parametrize("B,S,T,H,K,D,window,off,causal", [
+    (8, 512, 512, 28, 4, 128, 0, 0, True),  # qwen2-7b prefill
+    (2, 200, 200, 8, 2, 64, 0, 0, True),  # S not a multiple of 128
+    (1, 130, 300, 4, 1, 128, 0, 170, True),  # offset queries, ragged T
+    (2, 256, 256, 4, 2, 64, 64, 0, True),  # sliding window
+    (1, 77, 333, 6, 3, 128, 100, 256, True),  # window + offset, ragged
+    (2, 100, 150, 4, 4, 64, 0, 0, False),  # no causal mask
+    (1, 9, 20, 4, 2, 128, 3, 30, True),  # rows that see no key -> 0
+])
+def test_flash_sdpa_wgmma_route(dev, B, S, T, H, K, D, window, off, causal):
+    rng = np.random.default_rng(B * S + T + D)
+    q, k, v = _flash_inputs(rng, B, S, T, H, K, D, dev, torch.bfloat16)
+    got = _route_launches("wgmma", lambda: flash_sdpa(q, k, v, causal=causal, window=window,
+                                                      q_offset=off))
+    want = flash_sdpa_ref(q, k, v, causal=causal, window=window, q_offset=off)
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "wgmma"))
+
+
+@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("T", [1, 40, 528])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_sdpa_decode_route(dev, G, T, D):
+    """One query a head at the cache's last filled slot (T = 528: qwen2-7b's
+    decode step at position 512 of a 528-slot cache), through the split-K
+    route; the slots past the position hold garbage the mask must hide."""
+    B, K = 8, 4
+    off = min(T - 1, 512)
+    rng = np.random.default_rng(G * T + D)
+    q, k, v = _flash_inputs(rng, B, 1, T, G * K, K, D, dev, torch.bfloat16)
+    k[:, off + 1:] = float("nan")
+    v[:, off + 1:] = float("nan")
+    got = _route_launches("decode", lambda: flash_sdpa(q, k, v, q_offset=off))
+    want = flash_sdpa_ref(q, k[:, :off + 1], v[:, :off + 1], q_offset=off)
+    torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "decode"))
+    # two queries a head (S <= G) and a window: rows with fewer keys
+    if G >= 2 and T > 1:
+        q2 = q.repeat(1, 2, 1, 1)[:, :2].contiguous()
+        got = _route_launches("decode", lambda: flash_sdpa(q2, k, v, window=9, q_offset=off - 1))
+        want = flash_sdpa_ref(q2, k[:, :off + 1], v[:, :off + 1], window=9, q_offset=off - 1)
+        torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "decode"))
 
 
 @pytest.mark.parametrize("B,T,H,K,V", [(1, 8, 1, 8, 8), (2, 64, 3, 16, 16), (2, 33, 2, 64, 64),
-                                        (3, 1, 4, 32, 32), (2, 70, 2, 64, 64)])
+                                        (3, 1, 4, 32, 32), (2, 70, 2, 64, 64), (8, 512, 32, 64, 64),
+                                        (2, 45, 3, 64, 33), (1, 17, 2, 32, 128)])
 @pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32), (torch.bfloat16, torch.float32),
                                      (torch.bfloat16, torch.bfloat16)])
 def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
@@ -148,13 +222,22 @@ def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
 
     r, k, v = arr((B, T, H, K)).to(xdt), arr((B, T, H, K)).to(xdt), arr((B, T, H, V)).to(xdt)
     w, u, s0 = arr((B, T, H, K), 0.5, 0.99).to(wdt), arr((H, K), scale=0.2), arr((B, H, K, V), scale=0.1)
-    before = wkv6.launches
+    before, shape = wkv6.launches, "prefill" if T > 1 else "decode"
+    by_shape = wkv6.launches_by_shape[shape]
     out, sT = wkv6(r, k, v, w, u, s0)
-    assert wkv6.launches == before + 1 and out.dtype == sT.dtype == torch.float32
+    assert wkv6.launches == before + 1 and wkv6.launches_by_shape[shape] == by_shape + 1
+    assert out.dtype == sT.dtype == torch.float32
     want_out, want_s = wkv6_ref(r, k, v, w, u, s0)
-    # the same float32 inputs on both sides: only the summation order differs
-    torch.testing.assert_close(out, want_out, atol=1e-5, rtol=1e-5)
-    torch.testing.assert_close(sT, want_s, atol=1e-5, rtol=1e-5)
+    # the same float32 inputs on both sides: only the summation order differs.
+    # At rwkv6-1.6b's prefill shape the state sums ~100 decayed terms over 512
+    # steps and each output is a 64-long dot product of them, so the rounding
+    # scales with the largest output: there 1e-5 of max |out| (and of max
+    # |state|), as chip_smoke.py holds that shape
+    big = (B, T, H, K, V) == (8, 512, 32, 64, 64)
+    tol_out = 1e-5 * float(want_out.abs().max()) if big else 1e-5
+    tol_s = 1e-5 * float(want_s.abs().max()) if big else 1e-5
+    torch.testing.assert_close(out, want_out, atol=tol_out, rtol=0 if big else 1e-5)
+    torch.testing.assert_close(sT, want_s, atol=tol_s, rtol=0 if big else 1e-5)
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
