@@ -11,14 +11,23 @@ first use.  Phases, each printing one line of its own:
 
 1. ``probe``   versions, the device (capability must be 9.0), nvidia-smi's
                name and power limit, the TF32 flags (both set False).
-2. ``build``   nvcc for every kernel source, all at once, and its seconds.
+2. ``build``   nvcc for every kernel source, all at once, and its seconds;
+               ptxas's registers and spills of every kernel; the reward
+               head's SASS opcodes (bulk copies, mbarriers, cluster
+               barriers, distributed shared memory).
 3. ``check``, ``check_lm``   every kernel against its plain PyTorch
                version on the card at main-path and edge shapes, with the
                tolerance stated (flash_sdpa's tensor-core route, which
                rounds P to bf16, at 2^-8 max |v| + 2^-7 of each output); the kernel's,
                the plain version's and (for flash_sdpa)
                ``scaled_dot_product_attention``'s time at the main-path
-               prefill and decode shapes, and the bound.  Fails if
+               prefill and decode shapes, and the bound; ``estimator_mlp``
+               and ``score_pipeline`` at each of the five shapes the main
+               paths launch them (``time_head``), back to back and right
+               after the PyTorch op that precedes them on the path, with
+               the host's microseconds a call and the launch plan (cluster
+               size, tile, grid, shared memory).
+               Fails if
                flash_sdpa's qwen2-7b prefill / decode shapes miss the
                ``wgmma`` / ``decode`` routes.
 4. ``serve``   the serve path with every launch count set to 0 first:
@@ -51,17 +60,22 @@ first use.  Phases, each printing one line of its own:
 6. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
-               the decode step).
+               the decode step; for the reward head's two kernels, at each
+               timed shape with its launches, which must account for every
+               launch of the main paths).
 
 The run's seconds are printed on the line before the card's line, and the
-last line is ``{"ok": true, "device": {...}}``.  Without a GPU, or outside
-a checkout, it exits non-zero and prints no result.  Weights are seeded, not
+last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
+--head-times [--src DIR]`` runs only ``time_head``, for the port in ``DIR``
+(an A/B of two versions: once with each, in turns, in one call).  Without a
+GPU, or outside a checkout, it exits non-zero and prints no result.  Weights are seeded, not
 trained, so the mAPs and NLLs check the plumbing, not accuracy.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -115,8 +129,11 @@ class Timer:
     """Median per-call device time of ``fn`` over windows of ``reps`` calls,
     from CUDA events.  Before each window the stream is held busy with
     ``torch.cuda._sleep`` long enough for the host to queue the whole
-    window, so the events see back-to-back device work and not the host's
-    launch gaps (where the host is slower than the window, they see both)."""
+    window (four times the host's time for it), so the events see
+    back-to-back device work and not the host's launch gaps (where the host
+    is slower than that, they see both).
+    ``host_us`` is the host's time a call in the last timing (``reps`` calls
+    queued back to back, no sync): the wrapper's own cost a call."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -136,8 +153,9 @@ class Timer:
         for _ in range(reps):
             fn()
         host_ms = (time.perf_counter() - t0) * 1e3
+        self.host_us = host_ms * 1e3 / reps
         torch.cuda.synchronize()
-        sleep = int(min(2.0 * host_ms + 0.05, 200.0) * self.cycles_per_ms)
+        sleep = int(min(4.0 * host_ms + 0.1, 200.0) * self.cycles_per_ms)
         times = []
         for _ in range(windows):
             s = torch.cuda.Event(enable_timing=True)
@@ -268,27 +286,134 @@ def probe(torch):
     return smi
 
 
+# SASS opcodes that show how the reward head's kernels work: bulk async copies
+# (UBLKCP), mbarrier operations (SYNCS), cluster barriers (UCGABAR), cp.async
+# (LDGSTS), and generic loads (LD.E), as which the reads of another CTA's
+# shared memory compile (cluster.map_shared_rank gives a generic address)
+HEAD_OPCODES = ("UBLKCP", "SYNCS", "UCGABAR", "LDGSTS", "LD.E")
+
+
+def sass_opcodes(library: Path):
+    """How often each of HEAD_OPCODES appears in ``library``'s SASS (from
+    cuobjdump beside nvcc), or None where cuobjdump is missing."""
+    from repro_torch.kernels import _build
+
+    exe = Path(_build.nvcc()).parent / "cuobjdump"
+    if not exe.is_file():
+        return None
+    sass = subprocess.run([str(exe), "-sass", str(library)], capture_output=True, text=True,
+                          timeout=120).stdout
+    # "/*0a10*/  @!P0 SYNCS.ARRIVE.TRANS64 ... ;": the opcode after the address and any predicate
+    ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)", sass)
+    return {code: sum(op.startswith(code) for op in ops) for code in HEAD_OPCODES}
+
+
 def build():
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
     logs = _build.build_all()
     seconds = time.perf_counter() - t0
-    ptxas = {
-        name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    ptxas = {  # registers, barriers, stack and spills of every kernel
+        name: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         for name, log in logs.items()
     }
-    emit("build", {"seconds": round(seconds, 3), "built": sorted(logs), "ptxas": ptxas})
+    sass = {name: sass_opcodes(_build.library_path(name)) for name in HEAD_KERNELS}
+    emit("build", {"seconds": round(seconds, 3), "built": sorted(logs), "ptxas": ptxas,
+                   "head_sass_opcodes": sass})
+
+
+def time_head(torch, timer, dev):
+    """``estimator_mlp`` and ``score_pipeline`` at each shape the main paths
+    launch them.  ``ms``: device ms a call, calls back to back; ``path_ms``:
+    as the path launches them, right after a PyTorch op that writes their
+    input (``(x - mu) / sigma`` before ``estimator_mlp``, as
+    ``predict_device`` does; an elementwise op on the scores before
+    ``score_pipeline``), timed as (op, kernel) pairs less the op alone;
+    ``host_us``: the wrapper's host time a call; ``plain_ms``: the plain
+    version back to back.  Returns {kernel: [row, ...]}, each row with the
+    bytes and operations of its bound."""
+    from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+    from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+
+    rng = np.random.default_rng(7)
+    f32 = 4
+
+    def after(op, kernel):
+        return timer(lambda: kernel(op())) - timer(op)
+
+    F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+    shapes = {"estimator_mlp": [], "score_pipeline": []}
+    for B, f, h, where in ((N_CAL, F, HIDDEN, "calibration estimates"),
+                           (REQUEST, F, HIDDEN, "decide(features=...)"),
+                           (LM_BATCH, 12, LM_HIDDEN, "LM cascade decide")):
+        x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
+        mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
+        sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
+        w = seeded_mlp(torch, rng, f, h, dev)
+        path_ms = after(lambda: (x0 - mu) / sigma, lambda x: estimator_mlp(x, *w))
+        ms = timer(lambda: estimator_mlp(x0, *w))
+        shapes["estimator_mlp"].append(dict(
+            key=f"B={B} F={f} H={h}", where=where, B=B, F=f, H=h, ms=ms, path_ms=path_ms,
+            host_us=timer.host_us, plain_ms=timer(lambda: estimator_mlp_ref(x0, *w)),
+            bytes=f32 * (B * f + f * h + 2 * h + 1 + B), ops=2 * B * f * h + 12 * B * h + 4 * B,
+        ))
+    w1, b1, w2, b2 = seeded_mlp(torch, rng, F, HIDDEN, dev)
+    params = dict(w1=w1, b1=b1, w2=w2, b2=b2,
+                  mu=torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev),
+                  sigma=torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev))
+    kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
+    for B, K, where in ((REQUEST, 64, "a request"), (1, 64, "a single frame")):
+        block = seeded_block(torch, rng, B, K, dev, empty_rows=B // 16)
+        scores0 = block[1].clone()
+        path_ms = after(lambda: torch.mul(scores0, 1.0, out=block[1]),
+                        lambda _: score_pipeline(block, params, **kw))
+        ms = timer(lambda: score_pipeline(block, params, **kw))
+        shapes["score_pipeline"].append(dict(
+            key=f"B={B} K={K}", where=where, B=B, K=K, ms=ms, path_ms=path_ms,
+            host_us=timer.host_us,
+            plain_ms=timer(lambda: score_pipeline_ref(*block, *params.values(), IMAGE_SIZE,
+                                                      NUM_CLASSES, TOP_K)),
+            bytes=B * K * (16 + 4 + 4 + 1) + f32 * (F * HIDDEN + 2 * HIDDEN + 1 + 2 * F + B),
+            # per image: a comparison sort's K log2 K for the stable top-k, the
+            # feature row, the standardize step, the MLP, gelu and sigmoid
+            ops=B * (K * int(np.ceil(np.log2(K))) + 30 * TOP_K + 3 * F + 2 * F * HIDDEN
+                     + 12 * HIDDEN + 4),
+        ))
+    return shapes
+
+
+def head_times(src: Path) -> None:
+    """``--head-times [--src DIR]``: only ``time_head``, for the port in
+    ``src`` (default: this checkout's), as one JSON line after the card's
+    line.  An A/B of two versions runs this once with each ``src``, in turns,
+    in one call on one card."""
+    sys.path.insert(0, str(src))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: no CUDA device")
+    from repro_torch.kernels import _build
+
+    _build.build_all(HEAD_KERNELS)
+    shapes = time_head(torch, Timer(torch), torch.device("cuda"))
+    for rows in shapes.values():
+        for r in rows:
+            r["bound_ms"], _ = bound(r.pop("bytes"), r.pop("ops"))
+    print(nvidia_smi_line(), flush=True)
+    print(json.dumps({"src": str(src), "shapes": shapes}), flush=True)
 
 
 def check_kernels(torch, timer, dev):
     """Every kernel against its plain version on the card.  Returns per-kernel
     records with max error, times and bound at the main-path shape."""
     from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+    from repro_torch.kernels.estimator_mlp.ops import device_clusters, mlp_plan
     from repro_torch.kernels.iou_matrix import (
         iou_matrix, iou_matrix_batch, iou_matrix_batch_ref, iou_matrix_ref,
     )
     from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+    from repro_torch.kernels.score_pipeline.ops import pipeline_scratch
 
     sync = _sync(torch, dev)
     rng = np.random.default_rng(1234)
@@ -373,32 +498,31 @@ def check_kernels(torch, timer, dev):
         ms=timer(lambda: iou_matrix_batch(a, g)), plain_ms=timer(lambda: iou_matrix_batch_ref(a, g)),
         **iou_cost(B, K, M),
     )
-    B = N_CAL  # the calibration estimates
-    x = torch.tensor(rng.normal(0, 1, (B, F)).astype(np.float32), device=dev)
-    records["estimator_mlp"] = dict(
-        shape=f"B={B} F={F} H={HIDDEN}",
-        ms=timer(lambda: estimator_mlp(x, w1, b1, w2, b2)),
-        plain_ms=timer(lambda: estimator_mlp_ref(x, w1, b1, w2, b2)),
-        bytes=f32 * (B * F + F * HIDDEN + 2 * HIDDEN + 1 + B),
-        ops=2 * B * F * HIDDEN + 12 * B * HIDDEN + 4 * B,
-    )
-    B, K = REQUEST, 64  # one served request
-    block = seeded_block(torch, rng, B, K, dev, empty_rows=4)
-    records["score_pipeline"] = dict(
-        shape=f"B={B} K={K} top_k={TOP_K} F={F} H={HIDDEN}",
-        ms=timer(lambda: score_pipeline(block, params, **kw)), plain_ms=timer(lambda: ref(block)),
-        bytes=B * K * (16 + 4 + 4 + 1) + f32 * (F * HIDDEN + 2 * HIDDEN + 1 + 2 * F + B),
-        # per image: a comparison sort's K log2 K for the stable top-k, the
-        # feature row, the standardize step, the MLP, gelu and sigmoid
-        ops=B * (K * int(np.ceil(np.log2(K))) + 30 * TOP_K + 3 * F + 2 * F * HIDDEN
-                 + 12 * HIDDEN + 4),
-    )
+    # estimator_mlp and score_pipeline at every shape the main paths launch
+    # them; the first of each is the kernel's record in the kernels line
+    shapes = time_head(torch, timer, dev)
+    for row in shapes["estimator_mlp"]:
+        plan = mlp_plan(row["B"], row["F"], row["H"], clusters=device_clusters(dev))
+        row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
+    for row in shapes["score_pipeline"]:
+        plan = mlp_plan(row["B"], F, HIDDEN, full_rows=True, clusters=device_clusters(dev),
+                        **pipeline_scratch(row["K"], TOP_K, F))
+        row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
+    for name, rows in shapes.items():
+        for r in rows:
+            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
+        first = rows[0]
+        records[name] = dict(shape=f"{first['key']} ({first['where']})", shapes=rows,
+                             **{k: first[k] for k in ("ms", "path_ms", "host_us", "plain_ms",
+                                                      "bound_ms", "bound_by")})
     for name, r in {**records, **extra}.items():
-        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
+        if "bound_ms" not in r:
+            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
         r["max_abs_err"] = err[name.split()[0]]
     times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms")}
              for k, r in {**records, **extra}.items()}
-    emit("check", {"cases": len(cases), "max_abs_err": err, "times": times, "detail": cases})
+    emit("check", {"cases": len(cases), "max_abs_err": err, "times": times,
+                   "head_shapes": shapes, "detail": cases})
     return records
 
 
@@ -448,8 +572,7 @@ def serve(torch, smi, dev):
     detector_apply(strong, cal_images[:REQUEST])
 
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
-    for wrapper in counters:
-        wrapper.launches = 0
+    reset_counts(counters)
 
     # -- calibration: weak detector + batched NMS, features, estimates
     cal_dets = timed("cal_weak_detect_ms", lambda: decode_detections(weak, cal_images))
@@ -533,6 +656,7 @@ def serve(torch, smi, dev):
     strong_map = cascade_map(matched_all, np.ones_like(offload), (0.5,))
     sync()
     launches = {w.__name__: w.launches for w in counters}
+    split = split_counts(counters)
 
     # -- checks by the repo's own means
     if estimates.shape != (len(srv_images),) or not np.isfinite(estimates).all():
@@ -584,7 +708,7 @@ def serve(torch, smi, dev):
                    "single_vs_request_estimate_diff": single_vs_request},
         "stage_ms": stage, "launches": launches, "card": smi,
     })
-    return launches
+    return launches, split
 
 
 
@@ -1040,12 +1164,17 @@ FLASH_SOURCES = {
     "simt": "src/repro_torch/kernels/csrc/flash_sdpa.cu",
 }
 LM_PATH_KERNELS = ("flash_sdpa", "wkv6", "estimator_mlp")  # each must launch in the lm phase
+HEAD_KERNELS = ("estimator_mlp", "score_pipeline")  # the reward head: timed at each main-path shape
 
 
 def main() -> None:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout of the repo")
+    if "--head-times" in sys.argv[1:]:
+        args = sys.argv[1:]
+        head_times(Path(args[args.index("--src") + 1]).resolve() if "--src" in args else SRC)
+        return
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -1055,9 +1184,19 @@ def main() -> None:
     timer = Timer(torch)
     records = check_kernels(torch, timer, dev)
     records.update(check_lm_kernels(torch, timer, dev))
-    detection = serve(torch, smi, dev)
+    detection, detection_split = serve(torch, smi, dev)
     lm_launches, lm_split = lm_serve(torch, smi, dev)
     paths = {"detection": detection, "lm": lm_launches}
+    splits = {"detection": detection_split, "lm": lm_split}
+    for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
+        for row in records[name]["shapes"]:
+            row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
+                                  for sp in splits.values())
+        total = sum(row["launches"] for row in records[name]["shapes"])
+        if total != sum(p[name] for p in paths.values()):
+            fail(f"{name}: the timed shapes account for {total} of its launches "
+                 f"({ {p: n[name] for p, n in paths.items()} }); by shape: "
+                 f"{ {p: sp.get(name) for p, sp in splits.items()} }")
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = records[name]
@@ -1067,8 +1206,10 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "launches_by_path": {p: n[name] for p, n in paths.items()},
-            **({"launches_split": lm_split[name]} if name in lm_split else {}),
+            **({"launches_split": lm_split[name]} if name in lm_split and name not in HEAD_KERNELS
+               else {}),
             **({"decode": r["decode"]} if "decode" in r else {}),
+            **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -74,6 +74,37 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of contiguous
+// global memory into this CTA's shared memory at `dst`, one bulk copy with no
+// tensor map, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// orders this thread's earlier generic-proxy accesses of shared memory before
+// its later async-proxy ones (a bulk copy into a buffer just read)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------- programmatic dependent launch
+
+// lets the next kernel on the stream, if launched as a programmatic
+// dependent, start its prologue while this grid still runs
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// waits until the grid this one depends on has completed and its writes are
+// visible (returns at once when the launch was not a programmatic dependent)
+__device__ __forceinline__ void pdl_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // Shared-memory matrix descriptor for a tile stored in 128-byte rows with the
@@ -160,6 +191,13 @@ __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid = true) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
                "r"(valid ? 16 : 0)
+               : "memory");
+}
+// 4 bytes global -> shared through L1; when !valid the 4 bytes are
+// zero-filled and nothing is read
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid = true) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -5,9 +5,11 @@ and the top-k gather its wrapper ran outside it.
 
 One launch takes a padded detection block to reward estimates: the stable
 confidence top-k, the feature row, the standardize step and the MLP head all
-run inside the kernel, with no intermediate in device memory.  A CUDA block
-launches the kernel, a CPU block takes ``score_pipeline_ref``.  Launches are
-counted in ``score_pipeline.launches``.
+run inside the kernel, with no intermediate in device memory; the head is
+the reward head of ``kernels/csrc/mlp.cuh``, launched by ``mlp_plan`` with
+whole feature rows.  A CUDA block launches the kernel, a CPU block takes
+``score_pipeline_ref``.  Launches are counted in ``score_pipeline.launches``,
+and by block shape (``"B=.. K=.."``) in ``score_pipeline.launches_by_shape``.
 """
 from __future__ import annotations
 
@@ -20,14 +22,17 @@ from repro_torch.core.features import feature_dim
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import resolve_path
-from repro_torch.kernels.estimator_mlp.ops import check_mlp_params
+from repro_torch.kernels.estimator_mlp.ops import (
+    PLANS, check_aligned, check_mlp_params, device_clusters, keep_plan, mlp_plan,
+)
 from repro_torch.kernels.score_pipeline.ref import score_pipeline_ref
 
-__all__ = ["pipeline_params", "score_pipeline"]
+__all__ = ["pipeline_params", "pipeline_scratch", "score_pipeline"]
 
 _LIB = "score_pipeline"
 _ARGTYPES = (
-    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p]
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_int] * 5
+    + [ctypes.c_void_p]
 )
 
 
@@ -60,6 +65,15 @@ def pipeline_params(model) -> Dict[str, torch.Tensor]:
         "mu": mu,
         "sigma": sigma,
     }
+
+
+def pipeline_scratch(K: int, top_k: int, F: int) -> Dict[str, int]:
+    """The kernel's scratch beside the head (``sp_extra`` in
+    ``score_pipeline.cu``): mu and sigma, and per image of a tile its keys
+    (K rounded up to 4 floats), its detections (scores, boxes, classes: 6 K
+    floats; mask: K bytes) and its top-k order."""
+    ldx = (F + 3) & ~3
+    return {"extra_bytes": 8 * ldx, "row_bytes": 4 * ((K + 3) & ~3) + 25 * K + 4 * top_k}
 
 
 def _check_block(boxes, scores, classes, mask) -> Tuple[int, int]:
@@ -125,6 +139,11 @@ def score_pipeline(
             p["w1"], p["b1"], p["w2"], p["b2"], p["mu"], p["sigma"],
             float(image_size), int(num_classes), int(top_k),
         )
+    check_aligned(w1=p["w1"])
+    key = (B, K, int(top_k), F, H, boxes.device)
+    plan = PLANS.get(key) or keep_plan(key, mlp_plan(
+        B, F, H, full_rows=True, clusters=device_clusters(boxes.device),
+        **pipeline_scratch(K, int(top_k), F)))
     out = torch.empty((B,), dtype=torch.float32, device=boxes.device)
     fn = _build.function(_LIB, "score_pipeline_f32", _ARGTYPES, boxes.device)
     with torch.cuda.device(boxes.device):
@@ -133,11 +152,15 @@ def score_pipeline(
             p["w1"].data_ptr(), p["b1"].data_ptr(), p["w2"].data_ptr(),
             p["b2"].data_ptr(), p["mu"].data_ptr(), p["sigma"].data_ptr(),
             out.data_ptr(), B, K, int(top_k), int(num_classes), F, H,
-            float(image_size), _build.stream_ptr(boxes.device),
+            float(image_size), plan.cs, plan.tb, plan.grid, plan.slab_rows, plan.smem,
+            _build.stream_ptr(boxes.device),
         )
     _build.check(rc, _LIB, "score_pipeline")
     score_pipeline.launches += 1
+    key = f"B={B} K={K}"
+    score_pipeline.launches_by_shape[key] = score_pipeline.launches_by_shape.get(key, 0) + 1
     return out
 
 
 score_pipeline.launches = 0
+score_pipeline.launches_by_shape = {}

@@ -11,6 +11,7 @@ import torch
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.detection.nms import nms_batch
 from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+from repro_torch.kernels.estimator_mlp.ops import device_clusters, mlp_plan
 from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
 from repro_torch.kernels.iou_matrix import (
     iou_matrix,
@@ -74,16 +75,88 @@ def test_nms_on_card_equals_cpu(dev, B):
     assert torch.equal(got.cpu(), want) and want.any() and not want.all()
 
 
-@pytest.mark.parametrize("B,f,h", [(1, F, 128), (37, F, 128), (4096, F, 128), (9, 33, 17), (5, 700, 300)])
+@pytest.mark.parametrize("B,f,h", [
+    (1, F, 128), (37, F, 128), (4096, F, 128), (9, 33, 17), (5, 700, 300),
+    # the LM head (one CTA a cluster, rows finished in registers); a tile
+    # count that is no multiple of the grid; H odd with 4-rank slices (a tail
+    # past the bulk copy); W1 too large to stay resident (a 2-stage ring of
+    # slabs); more tiles than the card holds clusters (clusters walk tiles)
+    (8, 12, 64), (513, F, 128), (37, 203, 65), (300, 4096, 1024), (20000, F, 128),
+])
 def test_estimator_mlp_kernel(dev, B, f, h):
     rng = np.random.default_rng(B)
     x = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
     w = mlp(rng, f, h, dev)
+    before = estimator_mlp.launches
     torch.testing.assert_close(estimator_mlp(x, *w), estimator_mlp_ref(x, *w), atol=1e-5, rtol=0)
+    assert estimator_mlp.launches == before + 1
     assert estimator_mlp(x[:0], *w).shape == (0,)
 
 
-@pytest.mark.parametrize("B,K,ties,empty", [(64, 64, 4, 0.2), (512, 24, None, 0.1), (8, 8, 2, 1.0), (3, 70, 3, 0.0)])
+def test_estimator_mlp_plan_corners_on_card(dev):
+    """The plans the tests above launch cover every corner of mlp_plan, on
+    the cluster capacity the device reports."""
+    held = dict(device_clusters(dev))
+    assert set(held) == {1, 2, 4, 8} and all(n >= 1 for n in held.values())
+    assert held[8] * 8 <= torch.cuda.get_device_properties(dev).multi_processor_count
+    plans = [mlp_plan(B, f, h, clusters=device_clusters(dev))
+             for B, f, h in [(8, 12, 64), (1, F, 128), (4096, F, 128), (37, 203, 65), (300, 4096, 1024),
+                             (20000, F, 128)]]
+    assert [p.cs for p in plans] == [1, 4, 2, 4, 8, 2]
+    lo, hi = plans[3].bounds[-2:]
+    assert ((hi - lo) * 65 * 4) % 16 != 0  # a tail past the last bulk copy
+    assert plans[4].stages == 2  # a ring of slabs
+    assert plans[5].tiles > plans[5].grid // plans[5].cs  # clusters walk several tiles
+
+
+def test_misaligned_w1_raises(dev):
+    rng = np.random.default_rng(0)
+    x = torch.tensor(rng.normal(0, 1, (4, F)).astype(np.float32), device=dev)
+    w1, b1, w2, b2 = mlp(rng, F, 128, dev)
+    shifted = torch.empty(F * 128 + 1, device=dev)[1:].view(F, 128)
+    shifted.copy_(w1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        estimator_mlp(x, shifted, b1, w2, b2)
+
+
+def test_head_reads_weights_written_just_before(dev):
+    """Both kernels are programmatic dependent launches: weights that the
+    kernel just before writes (here a PyTorch op, with no sync between) are
+    what they read, in a chain of head launches too."""
+    rng = np.random.default_rng(3)
+    src = mlp(rng, F, 128, dev)
+    w = [torch.empty_like(t) for t in src]
+    batch = DetectionsBatch(
+        boxes=torch.tensor(boxes(rng, (64, 64)), device=dev),
+        scores=torch.tensor(rng.uniform(0, 1, (64, 64)).astype(np.float32), device=dev),
+        classes=torch.tensor(rng.integers(0, NUM_CLASSES, (64, 64)).astype(np.int32), device=dev),
+        mask=torch.tensor(rng.uniform(0, 1, (64, 64)) < 0.7, device=dev),
+    )
+    ones, zeros = torch.ones(F, device=dev), torch.zeros(F, device=dev)
+    x = torch.tensor(rng.normal(0, 1, (64, F)).astype(np.float32), device=dev)
+    got = []
+    for scale in (0.5, -1.0, 2.0, 0.25):
+        for t, s in zip(w, src):
+            torch.mul(s, scale, out=t)
+        got.append(estimator_mlp(x, *w))
+        params = dict(w1=w[0], b1=w[1], w2=w[2], b2=w[3], mu=zeros, sigma=ones)
+        got.append(score_pipeline(batch, params, num_classes=NUM_CLASSES, top_k=TOP_K,
+                                  image_size=64.0))
+    torch.cuda.synchronize(dev)
+    for i, scale in enumerate((0.5, -1.0, 2.0, 0.25)):
+        ws = [s * scale for s in src]
+        torch.testing.assert_close(got[2 * i], estimator_mlp_ref(x, *ws), atol=1e-5, rtol=0)
+        want = score_pipeline_ref(batch.boxes, batch.scores, batch.classes, batch.mask, *ws,
+                                  zeros, ones, 64.0, NUM_CLASSES, TOP_K)
+        torch.testing.assert_close(got[2 * i + 1], want, atol=2e-6, rtol=0)
+
+
+@pytest.mark.parametrize("B,K,ties,empty", [
+    (64, 64, 4, 0.2), (512, 24, None, 0.1), (8, 8, 2, 1.0), (3, 70, 3, 0.0),
+    # a single frame (4-rank cluster), one all masked, K < top_k at B 1; a
+    # tile count that is no multiple of the grid with clusters walking tiles
+    (1, 64, None, 0.0), (1, 64, 4, 1.0), (1, 12, 3, 0.0), (4096, 16, 3, 0.1), (37, 64, 4, 0.3),
+])
 def test_score_pipeline_kernel(dev, B, K, ties, empty):
     """Tied scores check the in-kernel stable rank against the plain
     version's stable argsort; K < top_k and all-masked rows too."""
@@ -104,10 +177,16 @@ def test_score_pipeline_kernel(dev, B, K, ties, empty):
     mu = torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev)
     sigma = torch.tensor(rng.uniform(0.5, 2, F).astype(np.float32), device=dev)
     params = dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=mu, sigma=sigma)
+    before = score_pipeline.launches
     got = score_pipeline(batch, params, num_classes=NUM_CLASSES, top_k=TOP_K, image_size=64.0)
+    assert score_pipeline.launches == before + 1
     want = score_pipeline_ref(batch.boxes, batch.scores, batch.classes, batch.mask,
                               *params.values(), 64.0, NUM_CLASSES, TOP_K)
     torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    shifted = torch.empty(F * 128 + 1, device=dev)[1:].view(F, 128)
+    shifted.copy_(w1)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        score_pipeline(batch, {**params, "w1": shifted}, num_classes=NUM_CLASSES, top_k=TOP_K)
 
 
 def _bf16_tol(v, route):
