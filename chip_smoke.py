@@ -15,9 +15,14 @@ first use.  Phases, each printing one line of its own:
                ptxas's registers and spills of every kernel; the reward
                head's SASS opcodes (bulk copies, mbarriers, cluster
                barriers, distributed shared memory).
-3. ``check``, ``check_lm``   every kernel against its plain PyTorch
+3. ``check``, ``check_iou``, ``check_lm``   every kernel against its plain PyTorch
                version on the card at main-path and edge shapes, with the
-               tolerance stated (flash_sdpa's tensor-core route, which
+               tolerance stated (the IoU family's ``nms`` and ``match``
+               routes exactly, its ``matrix`` route at 1e-6 / 2e-2 in
+               float32 / bf16; each route timed at the path's shapes, also
+               right after an op that writes its input, with the host's
+               microseconds a call; nms_batch and match_batch must dispatch
+               no sort, gather or scatter; flash_sdpa's tensor-core route, which
                rounds P to bf16, at 2^-8 max |v| + 2^-7 of each output); the kernel's,
                the plain version's and (for flash_sdpa)
                ``scaled_dot_product_attention``'s time at the main-path
@@ -40,7 +45,10 @@ first use.  Phases, each printing one line of its own:
                The first frame of each request is also served alone, as a
                camera sends one frame at a time.  The first request is also
                decided through ``features=``; it and the single frames are
-               held against the same detections decided on the CPU.
+               held against the same detections decided on the CPU.  Fails
+               unless every NMS (calibration chunk, request, frame, strong
+               batch) was one launch of the IoU family's ``nms`` route and
+               every ``match_batch`` one of its ``match`` route.
 5. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
@@ -62,12 +70,14 @@ first use.  Phases, each printing one line of its own:
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
-               launch of the main paths).
+               launch of the main paths; for the IoU kernels, each route's
+               source, launches and timed shapes).
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
---head-times [--src DIR]`` runs only ``time_head``, for the port in ``DIR``
-(an A/B of two versions: once with each, in turns, in one call).  Without a
+--head-times [--src DIR]`` runs only ``time_head``, and ``--iou-times [--src
+DIR]`` only ``time_iou``, for the port in ``DIR`` (an A/B of two versions:
+once with each, in turns, in one call).  Without a
 GPU, or outside a checkout, it exits non-zero and prints no result.  Weights are seeded, not
 trained, so the mAPs and NLLs check the plumbing, not accuracy.
 """
@@ -98,6 +108,7 @@ PEAK_BF16_OPS_PER_S = 989e12
 
 NUM_CLASSES, TOP_K, IMAGE_SIZE, HIDDEN = 8, 25, 64.0, 128
 N_IMAGES, N_CAL, REQUEST = 1024, 512, 64
+CAL_CHUNK = 256  # images a calibration NMS launch takes (decode_detections' batch_size)
 
 
 def fail(msg: str) -> None:
@@ -383,11 +394,12 @@ def time_head(torch, timer, dev):
     return shapes
 
 
-def head_times(src: Path) -> None:
-    """``--head-times [--src DIR]``: only ``time_head``, for the port in
-    ``src`` (default: this checkout's), as one JSON line after the card's
-    line.  An A/B of two versions runs this once with each ``src``, in turns,
-    in one call on one card."""
+def times_only(src: Path, kernels, time_fn) -> None:
+    """``--head-times`` / ``--iou-times [--src DIR]``: only ``time_head`` /
+    ``time_iou``, for the port in ``src`` (default: this checkout's), as one
+    JSON line after the card's line; builds only ``kernels``.  An A/B of two
+    versions runs this once with each ``src``, in turns, in one call on one
+    card."""
     sys.path.insert(0, str(src))
     import torch
 
@@ -395,11 +407,11 @@ def head_times(src: Path) -> None:
         fail("torch.cuda.is_available() is False: no CUDA device")
     from repro_torch.kernels import _build
 
-    _build.build_all(HEAD_KERNELS)
-    shapes = time_head(torch, Timer(torch), torch.device("cuda"))
+    _build.build_all(kernels)
+    shapes = time_fn(torch, Timer(torch), torch.device("cuda"))
     for rows in shapes.values():
         for r in rows:
-            r["bound_ms"], _ = bound(r.pop("bytes"), r.pop("ops"))
+            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"src": str(src), "shapes": shapes}), flush=True)
 
@@ -409,9 +421,6 @@ def check_kernels(torch, timer, dev):
     records with max error, times and bound at the main-path shape."""
     from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
     from repro_torch.kernels.estimator_mlp.ops import device_clusters, mlp_plan
-    from repro_torch.kernels.iou_matrix import (
-        iou_matrix, iou_matrix_batch, iou_matrix_batch_ref, iou_matrix_ref,
-    )
     from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
     from repro_torch.kernels.score_pipeline.ops import pipeline_scratch
 
@@ -426,25 +435,6 @@ def check_kernels(torch, timer, dev):
             fail(f"{kernel} {case}: max abs error {e} against tolerance {tol}")
         err[kernel] = max(err.get(kernel, 0.0), e)
         cases.append({"kernel": kernel, "case": case, "max_abs_err": e, "tol": tol})
-
-    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
-        tname = str(dtype).split(".")[-1]
-        for B in (1, 512):
-            for K in (8, 64):
-                a = torch.tensor(seeded_boxes(rng, (B, K)), device=dev).to(dtype)
-                g = torch.tensor(seeded_boxes(rng, (B, 8)), device=dev).to(dtype)
-                hold("iou_matrix_batch", f"B={B} K={K} M=8 {tname}",
-                     iou_matrix_batch(a, g), iou_matrix_batch_ref(a, g), tol)
-        for B in (64, 256):  # NMS: a request's / a calibration chunk's 64 grid slots
-            a = torch.tensor(seeded_boxes(rng, (B, 64), IMAGE_SIZE), device=dev).to(dtype)
-            hold("iou_matrix_batch", f"B={B} K=M=64 self {tname}",
-                 iou_matrix_batch(a, a), iou_matrix_batch_ref(a, a), tol)
-        for N, M in ((1, 1), (511, 130)):
-            a = torch.tensor(seeded_boxes(rng, (N,)), device=dev).to(dtype)
-            g = torch.tensor(seeded_boxes(rng, (M,)), device=dev).to(dtype)
-            hold("iou_matrix", f"N={N} M={M} {tname}", iou_matrix(a, g), iou_matrix_ref(a, g), tol)
-        a = torch.tensor(seeded_boxes(rng, (64,), IMAGE_SIZE), device=dev).to(dtype)
-        hold("iou_matrix", f"N=M=64 self {tname}", iou_matrix(a, a), iou_matrix_ref(a, a), tol)
 
     F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
     for B, f, h in ((1, F, HIDDEN), (37, F, HIDDEN), (512, F, HIDDEN), (4096, F, HIDDEN), (37, 33, 17)):
@@ -472,32 +462,6 @@ def check_kernels(torch, timer, dev):
 
     # times and bounds at the main-path shapes
     records = {}
-    extra = {}  # a second main-path shape, timed but not in the kernels line
-    f32 = 4
-
-    def iou_cost(B, K, M):  # each box read once, each IoU written once; 14 ops a pair, 5 a box
-        return dict(bytes=B * ((K + M) * 4 * f32 + K * M * f32), ops=B * (14 * K * M + 5 * (K + M)))
-
-    a = torch.tensor(seeded_boxes(rng, (64,), IMAGE_SIZE), device=dev)
-    records["iou_matrix"] = dict(  # a single frame's NMS: 64 grid slots against themselves
-        shape="N=M=64 float32 (single-frame NMS)",
-        ms=timer(lambda: iou_matrix(a, a)), plain_ms=timer(lambda: iou_matrix_ref(a, a)),
-        **iou_cost(1, 64, 64),
-    )
-    a = torch.tensor(seeded_boxes(rng, (REQUEST, 64), IMAGE_SIZE), device=dev)
-    records["iou_matrix_batch"] = dict(  # a request's NMS, the most launches on the serve path
-        shape=f"B={REQUEST} K=M=64 float32 (NMS of a request)",
-        ms=timer(lambda: iou_matrix_batch(a, a)), plain_ms=timer(lambda: iou_matrix_batch_ref(a, a)),
-        **iou_cost(REQUEST, 64, 64),
-    )
-    B, K, M = 512, 64, 8  # matching the 512 served images against their ground truth
-    a = torch.tensor(seeded_boxes(rng, (B, K)), device=dev)
-    g = torch.tensor(seeded_boxes(rng, (B, M)), device=dev)
-    extra["iou_matrix_batch (match)"] = dict(
-        shape=f"B={B} K={K} M={M} float32 (match_batch)",
-        ms=timer(lambda: iou_matrix_batch(a, g)), plain_ms=timer(lambda: iou_matrix_batch_ref(a, g)),
-        **iou_cost(B, K, M),
-    )
     # estimator_mlp and score_pipeline at every shape the main paths launch
     # them; the first of each is the kernel's record in the kernels line
     shapes = time_head(torch, timer, dev)
@@ -515,14 +479,270 @@ def check_kernels(torch, timer, dev):
         records[name] = dict(shape=f"{first['key']} ({first['where']})", shapes=rows,
                              **{k: first[k] for k in ("ms", "path_ms", "host_us", "plain_ms",
                                                       "bound_ms", "bound_by")})
-    for name, r in {**records, **extra}.items():
-        if "bound_ms" not in r:
-            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
-        r["max_abs_err"] = err[name.split()[0]]
+    for name, r in records.items():
+        r["max_abs_err"] = err[name]
     times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms")}
-             for k, r in {**records, **extra}.items()}
+             for k, r in records.items()}
     emit("check", {"cases": len(cases), "max_abs_err": err, "times": times,
                    "head_shapes": shapes, "detail": cases})
+    return records
+
+
+# the iou_matrix family: one source a route (iou.cuh holds what they share);
+# a launch over one image counts in iou_matrix, over more in iou_matrix_batch
+IOU_KERNELS = ("iou_matrix", "iou_matrix_batch")
+IOU_LIBS = ("iou_matrix", "iou_nms", "iou_match")  # csrc/<name>.cu
+IOU_SOURCES = {
+    "matrix": "src/repro_torch/kernels/csrc/iou_matrix.cu",
+    "nms": "src/repro_torch/kernels/csrc/iou_nms.cu",
+    "match": "src/repro_torch/kernels/csrc/iou_match.cu",
+}
+NMS_IOU, NMS_SCORE = 0.45, 0.25  # decode_batch's thresholds
+COCO_THRESHOLDS = tuple(float(t) for t in np.round(np.linspace(0.5, 0.95, 10), 2))
+# aten ops that would show a sort, gather or scatter around the fused routes
+SORT_OPS = ("sort", "gather", "scatter", "take_along", "index", "argmax", "where")
+
+
+def seeded_nms(torch, rng, B, N, dev, tie_levels=8, pad=0):
+    """(boxes, scores, classes) of B images of N slots: scores quantized to
+    ``tie_levels`` (ties for the stable rank), three classes, the last
+    ``pad`` slots of each image padding (class -1, score 0, zero box)."""
+    boxes = seeded_boxes(rng, (B, N), IMAGE_SIZE)
+    scores = rng.uniform(0, 1, (B, N))
+    if tie_levels:
+        scores = np.round(scores * tie_levels) / tie_levels
+    classes = rng.integers(0, 3, (B, N))
+    if pad:
+        boxes[:, N - pad:], scores[:, N - pad:], classes[:, N - pad:] = 0.0, 0.0, -1
+    return (torch.tensor(boxes, device=dev), torch.tensor(scores.astype(np.float32), device=dev),
+            torch.tensor(classes.astype(np.int32), device=dev))
+
+
+def seeded_match(torch, rng, B, K, M, dev, empty_rows=1):
+    """Detections (B, K) near B images' M GT boxes, so that the IoU
+    thresholds split them: tied scores, prefix masks, class -1 and zero boxes
+    on padding, the first ``empty_rows`` images without a detection; as the
+    eight tensors greedy_match takes, less the thresholds."""
+    gt = seeded_boxes(rng, (B, M), IMAGE_SIZE)
+    g_cls = rng.integers(0, NUM_CLASSES, (B, M))
+    src = rng.integers(0, M, (B, K))
+    det = np.take_along_axis(gt, src[..., None], 1) + rng.normal(0, 2.0, (B, K, 4))
+    det[..., 2:] = np.maximum(det[..., 2:], det[..., :2] + 0.5)
+    near = np.take_along_axis(g_cls, src, 1)
+    d_cls = np.where(rng.uniform(0, 1, (B, K)) < 0.8, near, (near + 1) % NUM_CLASSES)
+    d_mask = np.arange(K)[None] < rng.integers(1, K + 1, B)[:, None]
+    d_mask[:empty_rows] = False
+    g_mask = np.arange(M)[None] < rng.integers(1, M + 1, B)[:, None]
+    arrays = (np.where(d_mask[..., None], det, 0).astype(np.float32),
+              (np.round(rng.uniform(0, 1, (B, K)) * 8) / 8).astype(np.float32),
+              np.where(d_mask, d_cls, -1).astype(np.int32), d_mask,
+              np.where(g_mask[..., None], gt, 0).astype(np.float32),
+              np.where(g_mask, g_cls, -1).astype(np.int32), g_mask)
+    return [torch.tensor(a, device=dev) for a in arrays]
+
+
+def matrix_cost(B, K, M):  # each box read once, each IoU written once; 14 ops a pair, 5 a box
+    return dict(bytes=B * ((K + M) * 16 + K * M * 4), ops=B * (14 * K * M + 5 * (K + M)))
+
+
+def nms_cost(B, N):
+    """Boxes, scores, classes read once, the mask written once; a comparison
+    sort's N log2 N, the N (N - 1) / 2 IoUs of later pairs (14 ops, 5 a box)
+    and N scan steps an image."""
+    log = int(np.ceil(np.log2(max(N, 2))))
+    return dict(bytes=B * N * (16 + 4 + 4 + 1),
+                ops=B * (N * log + 14 * N * (N - 1) // 2 + 5 * N + N))
+
+
+def match_cost(B, K, M, T):
+    """Each input read once, tp and match_gt written once; the sort, the K M
+    IoUs, and T K M compares of the argmax an image."""
+    log = int(np.ceil(np.log2(max(K, 2))))
+    return dict(bytes=B * (K * (16 + 4 + 4 + 1) + M * (16 + 4 + 1)) + 4 * T + B * T * K * 5,
+                ops=B * (K * log + 14 * K * M + 5 * (K + M) + T * K * M))
+
+
+def aten_ops(torch, fn):
+    """The aten ops ``fn`` dispatches (TorchDispatchMode)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
+
+
+def time_iou(torch, timer, dev):
+    """The IoU family's routes at the path's shapes: ``ms`` (back to back),
+    ``path_ms`` (right after an op that writes the scores, as the detector's
+    last op does; back-to-back calls of a programmatic dependent launch
+    overlap each other's set-up), ``host_us`` (the wrapper's host time a
+    call), ``plain_ms``.  Returns {route: [row, ...]}, each row with the
+    bytes and operations of its bound."""
+    from repro_torch.kernels.iou_matrix import (
+        greedy_match, greedy_match_ref, iou_matrix_batch, iou_matrix_batch_ref, nms_keep,
+        nms_keep_ref,
+    )
+
+    rng = np.random.default_rng(77)
+
+    def after(op, kernel):
+        return timer(lambda: kernel(op())) - timer(op)
+
+    routes = {"nms": [], "match": [], "matrix": []}
+
+    def timed(B, route, shape, where, call, plain, op, cost):
+        ms = timer(call)
+        host_us = timer.host_us
+        routes[route].append(dict(
+            kernel="iou_matrix" if B == 1 else "iou_matrix_batch", route=route, key=shape,
+            where=where, ms=ms, host_us=host_us,
+            path_ms=after(op, lambda _: call()) if op else None,
+            plain_ms=timer(plain, reps=3, windows=5), **cost))
+
+    for B, where in ((1, "a single frame"), (REQUEST, "a request"), (256, "a calibration chunk"),
+                     (N_CAL, "the strong pass over all served images")):
+        b, s, c = seeded_nms(torch, rng, B, 64, dev, tie_levels=None)
+        s0 = s.clone()
+        timed(B, "nms", f"B={B} N=64", where, lambda: nms_keep(b, s, c, NMS_IOU, NMS_SCORE),
+              lambda: nms_keep_ref(b, s, c, NMS_IOU, NMS_SCORE),
+              lambda: torch.mul(s0, 1.0, out=s), nms_cost(B, 64))
+    for T in (1, 2):
+        args = seeded_match(torch, rng, N_CAL, 64, 8, dev)
+        thr = torch.tensor((0.5, 0.75)[:T], device=dev)
+        s0 = args[1].clone()
+        timed(N_CAL, "match", f"B={N_CAL} K=64 M=8 T={T}", "match_batch of the served images",
+              lambda: greedy_match(*args, thr), lambda: greedy_match_ref(*args, thr),
+              lambda: torch.mul(s0, 1.0, out=args[1]), match_cost(N_CAL, 64, 8, T))
+    for B, K, M, where in ((1, 64, 64, "standalone, a frame's slots"),
+                           (REQUEST, 64, 64, "standalone, a request's slots"),
+                           (N_CAL, 64, 8, "standalone, match_batch's IoU")):
+        a = torch.tensor(seeded_boxes(rng, (B, K), IMAGE_SIZE), device=dev)
+        g = a if K == M else torch.tensor(seeded_boxes(rng, (B, M), IMAGE_SIZE), device=dev)
+        timed(B, "matrix", f"B={B} K={K} M={M}", where, lambda: iou_matrix_batch(a, g),
+              lambda: iou_matrix_batch_ref(a, g), None, matrix_cost(B, K, M))
+    return routes
+
+
+def check_iou_routes(torch, timer, dev):
+    """The iou_matrix family's three routes against their plain versions on
+    the card (``matrix`` within 1e-6 in float32, 2e-2 in bf16; ``nms`` and
+    ``match`` exactly) at the path's shapes and at the corners (tied scores,
+    64-bit word and warp edges, COCO's 10 thresholds, all-masked images,
+    IoU exactly at a threshold, the routes' size limits); that nms_batch and
+    match_batch dispatch no sort, gather or scatter; then each route's times
+    at the path's shapes.  Returns the records of iou_matrix (B = 1) and
+    iou_matrix_batch."""
+    from repro_torch.detection.batch import DetectionsBatch, GroundTruthBatch, match_batch
+    from repro_torch.detection.nms import nms_batch
+    from repro_torch.kernels.iou_matrix import (
+        greedy_match, greedy_match_ref, iou_matrix, iou_matrix_batch, iou_matrix_batch_ref,
+        iou_matrix_ref, nms_keep, nms_keep_ref,
+    )
+
+    sync = _sync(torch, dev)
+    rng = np.random.default_rng(2024)
+    cases, err = [], {k: 0.0 for k in IOU_KERNELS}
+
+    def hold(B, route, case, got, want, tol=None):
+        """``tol`` None: exactly equal (every tensor of ``got`` and ``want``)."""
+        sync()
+        kernel = "iou_matrix" if B == 1 else "iou_matrix_batch"
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        if tol is None:
+            ok = all(g.shape == w.shape and g.dtype == w.dtype and torch.equal(g, w)
+                     for g, w in zip(got, want))
+            e = 0.0 if ok else float("inf")
+        else:
+            e = float((got[0].float() - want[0].float()).abs().max())
+            ok = got[0].shape == want[0].shape and np.isfinite(e) and e <= tol
+        if not ok:
+            fail(f"{kernel} ({route} route) {case}: "
+                 f"{'not exactly equal' if tol is None else f'max abs error {e} > {tol}'}")
+        err[kernel] = max(err[kernel], e)
+        cases.append({"kernel": kernel, "route": route, "case": case, "max_abs_err": e,
+                      "tol": "exact" if tol is None else tol})
+
+    # matrix: the standalone IoU, float32 and bf16
+    for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
+        tname = str(dtype).split(".")[-1]
+        for B, K, M in ((1, 64, 64), (64, 64, 64), (512, 64, 8), (256, 64, 64), (1, 1, 1),
+                        (1, 511, 130), (3, 70, 33)):
+            a = torch.tensor(seeded_boxes(rng, (B, K), IMAGE_SIZE), device=dev).to(dtype)
+            g = a if K == M and B != 512 else torch.tensor(
+                seeded_boxes(rng, (B, M), IMAGE_SIZE), device=dev).to(dtype)
+            if B == 1:
+                hold(1, "matrix", f"N={K} M={M} {tname}", iou_matrix(a[0], g[0]),
+                     iou_matrix_ref(a[0], g[0]), tol)
+            else:
+                hold(B, "matrix", f"B={B} K={K} M={M} {tname}", iou_matrix_batch(a, g),
+                     iou_matrix_batch_ref(a, g), tol)
+    # nms: the path's B at N 64 (the grid slots), then the word edges and the limit
+    for B, N in ((1, 64), (REQUEST, 64), (256, 64), (N_CAL, 64), (3, 1), (3, 63), (3, 65),
+                 (5, 130), (2, 1024)):
+        for ties in (None, 8):
+            args = seeded_nms(torch, rng, B, N, dev, tie_levels=ties, pad=N // 5)
+            hold(B, "nms", f"B={B} N={N} ties={ties}", nms_keep(*args, NMS_IOU, NMS_SCORE),
+                 nms_keep_ref(*args, NMS_IOU, NMS_SCORE))
+    pair = (torch.tensor([[[0, 0, 2, 1], [0, 0, 1, 1]]], dtype=torch.float32, device=dev),
+            torch.tensor([[0.9, 0.8]], device=dev), torch.zeros((1, 2), dtype=torch.int32, device=dev))
+    for thr in (0.5, 0.49):  # the pair's IoU is 0.5 exactly
+        hold(1, "nms", f"IoU at threshold {thr}", nms_keep(*pair, thr, 0.0), nms_keep_ref(*pair, thr, 0.0))
+    # match: the path's shape, then warp edges, COCO thresholds, chunked tiles
+    for B, K, M, T in ((N_CAL, 64, 8, 1), (N_CAL, 64, 8, 2), (REQUEST, 64, 8, 10), (3, 64, 1, 1),
+                       (3, 64, 32, 10), (3, 64, 33, 10), (2, 300, 1024, 2), (1, 5, 3, 1)):
+        args = seeded_match(torch, rng, B, K, M, dev, empty_rows=int(B > 1))
+        thr = torch.tensor(COCO_THRESHOLDS[:T] if T > 2 else (0.5, 0.75)[:T], device=dev)
+        hold(B, "match", f"B={B} K={K} M={M} T={T}", greedy_match(*args, thr),
+             greedy_match_ref(*args, thr))
+    f32 = dict(dtype=torch.float32, device=dev)
+    at = [torch.tensor([[[0, 0, 1, 1]]], **f32), torch.tensor([[0.9]], **f32),
+          torch.zeros((1, 1), dtype=torch.int32, device=dev), torch.ones((1, 1), dtype=torch.bool, device=dev),
+          torch.tensor([[[0, 0, 2, 1]]], **f32), torch.zeros((1, 1), dtype=torch.int32, device=dev),
+          torch.ones((1, 1), dtype=torch.bool, device=dev), torch.tensor([0.5, 0.55], **f32)]
+    hold(1, "match", "IoU at threshold 0.5", greedy_match(*at), greedy_match_ref(*at))
+    # past a limit a CUDA tensor raises, it never takes the plain version
+    for what, call in (("nms N=1025", lambda: nms_keep(*seeded_nms(torch, rng, 1, 1025, dev))),
+                       ("match M=1025", lambda: greedy_match(*seeded_match(torch, rng, 1, 8, 1025, dev),
+                                                             torch.tensor([0.5], device=dev)))):
+        try:
+            call()
+        except ValueError:
+            continue
+        fail(f"{what}: no ValueError past the route's limit")
+
+    # nms_batch and match_batch: one launch each, no sort, gather or scatter around it
+    nb = seeded_nms(torch, rng, REQUEST, 64, dev)
+    mb = seeded_match(torch, rng, REQUEST, 64, 8, dev)
+    det = DetectionsBatch(boxes=mb[0], scores=mb[1], classes=mb[2], mask=mb[3])
+    gt = GroundTruthBatch(boxes=mb[4], classes=mb[5], mask=mb[6])
+    dispatched = {"nms_batch": aten_ops(torch, lambda: nms_batch(nb[0], nb[1], nb[2], NMS_IOU, NMS_SCORE)),
+                  "match_batch": aten_ops(torch, lambda: match_batch(det, gt, (0.5, 0.75)))}
+    for name, ops in dispatched.items():
+        if any(w in op for op in ops for w in SORT_OPS):
+            fail(f"{name} on the card dispatches a sort, gather or scatter: {ops}")
+
+    routes = time_iou(torch, timer, dev)
+    rows = [r for rs in routes.values() for r in rs]
+    for r in rows:
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
+
+    records = {}
+    for kernel, first in (("iou_matrix", "B=1 N=64"), ("iou_matrix_batch", f"B={REQUEST} N=64")):
+        mine = [r for r in rows if r["kernel"] == kernel]
+        head = next(r for r in mine if r["route"] == "nms" and r["key"] == first)
+        records[kernel] = dict(shape=f"nms route {head['key']} ({head['where']})", routes=mine,
+                               max_abs_err=err[kernel],
+                               **{k: head[k] for k in ("ms", "path_ms", "host_us", "plain_ms",
+                                                       "bound_ms", "bound_by")})
+    emit("check_iou", {"cases": len(cases), "max_abs_err": err, "routes": rows,
+                       "dispatched": dispatched, "detail": cases})
     return records
 
 
@@ -575,7 +795,9 @@ def serve(torch, smi, dev):
     reset_counts(counters)
 
     # -- calibration: weak detector + batched NMS, features, estimates
-    cal_dets = timed("cal_weak_detect_ms", lambda: decode_detections(weak, cal_images))
+    cal_dets = timed("cal_weak_detect_ms", lambda: decode_detections(weak, cal_images,
+                                                                     batch_size=CAL_CHUNK))
+    nms_calls = -(-N_CAL // CAL_CHUNK)  # one a chunk, a request, a frame, a strong batch
     x_cal = timed("cal_features_ms", lambda: extract_features_batch(
         cal_dets, NUM_CLASSES, TOP_K, IMAGE_SIZE, device=dev))
     mu = x_cal.mean(dim=0).cpu().numpy()
@@ -619,17 +841,20 @@ def serve(torch, smi, dev):
     for r in range(0, len(srv_images), REQUEST):
         imgs = srv_images[r : r + REQUEST]
         wb = timed("serve_weak_detect_ms", lambda: decode_batch(weak, imgs))
+        nms_calls += 1
         dec = timed("serve_decide_ms", lambda: engine.decide(wb))
         if r == 0:
             first = (wb, dec, timed("serve_decide_features_ms",
                                     lambda: engine.decide(features=engine.features(wb))))
         # the request's first frame, served alone
         wb1 = timed("serve_single_frame_ms", lambda: decode_batch(weak, imgs[:1]))
+        nms_calls += 1
         singles.append((wb1, timed("serve_single_frame_ms", lambda: engine.decide(wb1)),
                         float(dec.estimates[0])))
         idx = np.flatnonzero(dec.offload)
         if idx.size:
             sb = timed("serve_strong_detect_ms", lambda: decode_batch(strong, imgs[idx]))
+            nms_calls += 1
             for j, i in enumerate(idx):
                 strong_rows[r + int(i)] = (sb, j)
         weak_batches.append(wb)
@@ -652,11 +877,19 @@ def serve(torch, smi, dev):
     served_map = timed("eval_map_ms", lambda: cascade_map(matched, offload, (0.5,)))
     strong_all = timed("eval_strong_all_ms", lambda: decode_batch(strong, srv_images))
     matched_all = timed("eval_match_ms", lambda: match_pairs_batched(weak_all, strong_all, gt, (0.5,)))
+    nms_calls += 1
+    match_calls = 4  # two match_batch calls in each match_pairs_batched
     weak_map = cascade_map(matched_all, np.zeros_like(offload), (0.5,))
     strong_map = cascade_map(matched_all, np.ones_like(offload), (0.5,))
     sync()
     launches = {w.__name__: w.launches for w in counters}
     split = split_counts(counters)
+    # every NMS and every match_batch was one launch of its fused route
+    routes = {k: split[k]["by_route"] for k in IOU_KERNELS}
+    took = {r: sum(routes[k][r] for k in IOU_KERNELS) for r in ("matrix", "nms", "match")}
+    if took != {"matrix": 0, "nms": nms_calls, "match": match_calls} or routes["iou_matrix"]["nms"] == 0:
+        fail(f"the detection path's NMS ({nms_calls} calls) and matching ({match_calls} calls) "
+             f"took the IoU routes {routes}")
 
     # -- checks by the repo's own means
     if estimates.shape != (len(srv_images),) or not np.isfinite(estimates).all():
@@ -706,7 +939,8 @@ def serve(torch, smi, dev):
         "checks": {"route_max_abs_err": route_err, "cpu_max_abs_err": cpu_err,
                    "weak_head_card_vs_cpu": head_err,
                    "single_vs_request_estimate_diff": single_vs_request},
-        "stage_ms": stage, "launches": launches, "card": smi,
+        "stage_ms": stage, "launches": launches, "iou_routes": routes,
+        "nms_calls": nms_calls, "match_calls": match_calls, "card": smi,
     })
     return launches, split
 
@@ -1148,9 +1382,9 @@ def lm_serve(torch, smi, dev):
     return total, split_total
 
 
-KERNELS = {
-    "iou_matrix": ("src/repro_torch/kernels/csrc/iou_matrix.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
-    "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_matrix.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
+KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
+    "iou_matrix": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
+    "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
     "estimator_mlp": ("src/repro_torch/kernels/csrc/estimator_mlp.cu", "src/repro/kernels/estimator_mlp/kernel.py:19"),
     "score_pipeline": ("src/repro_torch/kernels/csrc/score_pipeline.cu", "src/repro/kernels/score_pipeline/kernel.py:32"),
     "flash_sdpa": ("src/repro_torch/kernels/csrc/flash_sdpa_wgmma.cu", "src/repro/kernels/flash_sdpa/kernel.py:24"),
@@ -1171,10 +1405,13 @@ def main() -> None:
     t_start = time.perf_counter()
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a checkout of the repo")
-    if "--head-times" in sys.argv[1:]:
-        args = sys.argv[1:]
-        head_times(Path(args[args.index("--src") + 1]).resolve() if "--src" in args else SRC)
-        return
+    args = sys.argv[1:]
+    for flag, kernels, time_fn in (("--head-times", HEAD_KERNELS, time_head),
+                                   ("--iou-times", IOU_LIBS, time_iou)):
+        if flag in args:
+            times_only(Path(args[args.index("--src") + 1]).resolve() if "--src" in args else SRC,
+                       kernels, time_fn)
+            return
     sys.path.insert(0, str(SRC))
     import torch
 
@@ -1183,6 +1420,7 @@ def main() -> None:
     dev = torch.device("cuda")
     timer = Timer(torch)
     records = check_kernels(torch, timer, dev)
+    records.update(check_iou_routes(torch, timer, dev))
     records.update(check_lm_kernels(torch, timer, dev))
     detection, detection_split = serve(torch, smi, dev)
     lm_launches, lm_split = lm_serve(torch, smi, dev)
@@ -1206,11 +1444,15 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "launches_by_path": {p: n[name] for p, n in paths.items()},
-            **({"launches_split": lm_split[name]} if name in lm_split and name not in HEAD_KERNELS
-               else {}),
+            **({"launches_split": lm_split[name]}
+               if name in lm_split and name not in HEAD_KERNELS + IOU_KERNELS else {}),
             **({"decode": r["decode"]} if "decode" in r else {}),
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
+            **({"sources_by_route": IOU_SOURCES,
+                "launches_by_route": detection_split[name]["by_route"],
+                **{k: r[k] for k in ("path_ms", "host_us", "routes")}}
+               if name in IOU_KERNELS else {}),
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     missing = [k["name"] for k in kernels if k["launches"] == 0]

@@ -55,8 +55,9 @@ def match_pairs_batched(
 ) -> List[MatchedImage]:
     """Weak/strong evaluations of every image: both detector outputs are
     matched on device in two :func:`repro_torch.detection.batch.match_batch`
-    calls (per-image IoU through the ``iou_matrix_batch`` kernel) instead of
-    2·N per-image Python matches.  Ragged lists are padded onto ``device``;
+    calls (on the card each one launch of the IoU kernel family's ``match``
+    route: IoU, ranking and greedy assignment of every image) instead of 2·N
+    per-image Python matches.  Ragged lists are padded onto ``device``;
     batches stay where they are.  The returned ``MatchedImage`` evals are
     structurally identical to the per-image path and feed ``oric_batch`` /
     ``APAccumulator`` unchanged."""

@@ -1,5 +1,5 @@
 """Batched detection data plane: padded struct-of-arrays containers on a
-device, and the COCO greedy matcher on the IoU kernel.
+device, and the COCO greedy matcher on the IoU kernel family.
 
 * ``DetectionsBatch`` / ``GroundTruthBatch`` hold float32 boxes, int32
   classes and a bool ``mask`` as tensors on one device.  ``from_list`` pads a
@@ -7,10 +7,13 @@ device, and the COCO greedy matcher on the IoU kernel.
   detector route (``repro_torch.models.detector.decode_batch``) instead keeps
   all grid slots and carries the NMS keep mask as ``mask``.  Consumers rely on
   the mask only, so both give the same features and matches.
-* ``match_batch`` computes per-image IoU through ``iou_matrix_batch`` and
-  reproduces COCO greedy matching (per class, detections by descending score,
-  one GT per detection, per IoU threshold) as masked tensor ops over the
-  batch: ``tp`` and ``match_gt`` equal ``repro.detection.batch.match_batch``'s.
+* ``match_batch`` reproduces COCO greedy matching (per class, detections by
+  descending score, one GT per detection, per IoU threshold) through
+  ``greedy_match``: on the card one launch of the IoU kernel family's
+  ``match`` route (the score rank, the masked IoU tile and the greedy scan in
+  one CTA an image), on the CPU its plain version ``greedy_match_ref``, the
+  reference's ``lax.scan`` as a loop over the score-ordered slots; ``tp`` and
+  ``match_gt`` equal ``repro.detection.batch.match_batch``'s.
 * ``to_image_evals`` turns a ``MatchResult`` into the per-image ``ImageEval``
   list the AP accumulator consumes.
 """
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.detection.map_engine import Detections, GroundTruth, ImageEval
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
-from repro_torch.kernels.iou_matrix import iou_matrix_batch
+from repro_torch.kernels.iou_matrix import greedy_match
 
 
 def _pad_dim(n: int, multiple: int = 8) -> int:
@@ -215,59 +218,6 @@ class MatchResult:
     iou_thresholds: Tuple[float, ...] = field(default=(0.5,))
 
 
-def _greedy_match(
-    iou: torch.Tensor,  # (B, K, M) masked: ineligible pairs hold -1
-    order: torch.Tensor,  # (B, K) detection slots by descending score
-    thresholds: torch.Tensor,  # (T,)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's ``lax.scan`` over score-ordered slots as a loop over
-    the K positions, each step a few ops over the whole batch."""
-    B, K, M = iou.shape
-    T = thresholds.shape[0]
-    if M == 0 or K == 0:
-        return (
-            torch.zeros((B, T, K), dtype=torch.bool, device=iou.device),
-            torch.full((B, T, K), -1, dtype=torch.int32, device=iou.device),
-        )
-    iou_s = torch.take_along_dim(iou, order[:, :, None], dim=1)
-    taken = torch.zeros((B, T, M), dtype=torch.bool, device=iou.device)
-    slot = torch.arange(M, device=iou.device)
-    neg = torch.tensor(-1.0, dtype=iou.dtype, device=iou.device)
-    hits, picks = [], []
-    for k in range(K):
-        avail = torch.where(taken, neg, iou_s[:, None, k, :])  # (B, T, M)
-        j = avail.argmax(dim=-1)  # (B, T) first max, as np.argmax
-        best = avail.gather(-1, j[..., None])[..., 0]
-        hit = best >= thresholds
-        taken |= hit[..., None] & (slot == j[..., None])
-        hits.append(hit)
-        picks.append(torch.where(hit, j, -1))
-    tp_s = torch.stack(hits, dim=2)  # (B, T, K) in sorted-detection order
-    mj_s = torch.stack(picks, dim=2).to(torch.int32)
-    # scatter back to the original slots: inv[b, slot] = sorted position
-    inv = torch.argsort(order, dim=1)
-    tp = torch.take_along_dim(tp_s, inv[:, None, :], dim=2)
-    mj = torch.take_along_dim(mj_s, inv[:, None, :], dim=2)
-    return tp, mj
-
-
-def _match_inputs(d_scores, d_classes, d_mask, g_classes, g_mask, iou):
-    """Eligibility masking + the global score order that reproduces the
-    per-class stable sort of ``match_detections``: one pass in descending
-    score order with class-eligibility masking is the per-class loop; the
-    stable sort keeps the reference's tie order and invalid slots sink with
-    -inf keys."""
-    eligible = (
-        d_mask[:, :, None]
-        & g_mask[:, None, :]
-        & (d_classes[:, :, None] == g_classes[:, None, :])
-    )
-    masked = torch.where(eligible, iou, torch.full_like(iou, -1.0))
-    keys = torch.where(d_mask, d_scores, torch.full_like(d_scores, -torch.inf))
-    order = torch.argsort(-keys, dim=1, stable=True)
-    return masked, order
-
-
 def match_batch(
     det: DetectionsBatch,
     gt: GroundTruthBatch,
@@ -281,11 +231,8 @@ def match_batch(
     if det.device != gt.device:
         raise ValueError(f"detections on {det.device}, ground truth on {gt.device}")
     thresholds = torch.tensor(list(iou_thresholds), dtype=torch.float32, device=det.device)
-    iou = iou_matrix_batch(det.boxes, gt.boxes)
-    masked, order = _match_inputs(
-        det.scores, det.classes, det.mask, gt.classes, gt.mask, iou
-    )
-    tp, mj = _greedy_match(masked, order, thresholds)
+    tp, mj = greedy_match(det.boxes, det.scores, det.classes, det.mask,
+                          gt.boxes, gt.classes, gt.mask, thresholds)
     return MatchResult(
         tp=tp.cpu().numpy(),
         match_gt=mj.cpu().numpy(),

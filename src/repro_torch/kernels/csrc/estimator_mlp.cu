@@ -81,8 +81,8 @@ REPRO_EXPORT int estimator_mlp_f32(const float* x, const float* w1, const float*
   const auto kernel = tb == 2 ? instance<2>(vec) : tb == 4 ? instance<4>(vec)
                     : tb == 8 ? instance<8>(vec) : tb == 16 ? instance<16>(vec)
                     : tb == 32 ? instance<32>(vec) : instance<64>(vec);
-  return mlp_launch(kernel, cs, grid, static_cast<size_t>(smem), stream, x, w1, b1, w2, b2, out,
-                    B, F, H, slab_rows);
+  return launch_pdl(kernel, dim3(grid), MLP_THREADS, static_cast<size_t>(smem), stream, cs, x, w1,
+                    b1, w2, b2, out, B, F, H, slab_rows);
 }
 
 // Clusters of `cs` CTAs with `smem` bytes of dynamic shared memory that the

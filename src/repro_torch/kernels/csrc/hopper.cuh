@@ -6,7 +6,10 @@
 
 #include <cuda.h>  // CUtensorMap
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -103,6 +106,65 @@ __device__ __forceinline__ void pdl_launch_dependents() {
 // visible (returns at once when the launch was not a programmatic dependent)
 __device__ __forceinline__ void pdl_wait() {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Raises `kernel`'s dynamic shared memory limit on the current device to at
+// least `smem` bytes, once per kernel, device and size seen (the attribute
+// call costs host time on every launch otherwise).
+inline cudaError_t raise_smem_limit(const void* kernel, size_t smem) {
+  struct Entry {
+    const void* kernel;
+    int device;
+    size_t smem;
+  };
+  static std::mutex lock;
+  static Entry seen[64];
+  static int n_seen = 0;
+  if (smem <= 48 * 1024) return cudaSuccess;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> guard(lock);
+  Entry* e = nullptr;
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].kernel == kernel && seen[i].device == device) e = &seen[i];
+  if (e != nullptr && e->smem >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  if (e == nullptr && n_seen < 64) e = &seen[n_seen++];
+  if (e != nullptr) *e = Entry{kernel, device, smem};
+  return cudaSuccess;
+}
+
+// Launches `kernel` over `grid` CTAs of `threads` with `smem` bytes of
+// dynamic shared memory on `stream`, as a programmatic dependent of the
+// kernel before it (which saves about a microsecond after any kernel: the
+// CTAs are placed before it has completed), in clusters of `cluster` CTAs
+// along x when `cluster` > 0; returns the CUDA error code.  The kernel must
+// read nothing the kernel before writes until pdl_wait().
+template <typename... Params, typename... Args>
+inline int launch_pdl(void (*kernel)(Params...), dim3 grid, int threads, size_t smem,
+                      void* stream, int cluster, Args... args) {
+  const cudaError_t set = raise_smem_limit(reinterpret_cast<const void*>(kernel), smem);
+  if (set != cudaSuccess) return static_cast<int>(set);
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = cluster;
+  attr[1].val.clusterDim.y = 1;
+  attr[1].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 0 ? 2 : 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------- wgmma

@@ -1,75 +1,100 @@
-// Per-image pairwise IoU: out[b, k, m] = iou(a[b, k], g[b, m]).
+// Per-image pairwise IoU, the `matrix` route of the iou_matrix family:
+// out[b, k, m] = iou(a[b, k], g[b, m]).
 //
 // Replaces the Pallas kernels repro/kernels/iou_matrix/kernel.py:46
 // (_iou_batch_kernel, wrapper iou_matrix_batch_pallas at :64, pallas_call at
 // :77) and kernel.py:27 (_iou_kernel, wrapper iou_matrix_pallas at :90,
-// pallas_call at :100).  The single-matrix form is the B = 1 launch of the
-// same kernel.
+// pallas_call at :100).  The single-matrix form is the B = 1 launch.  The
+// serve path's NMS and matching consume their IoU tiles inside their own
+// launches (iou_nms.cu, iou_match.cu); this route is the standalone matrix.
 //
 // Bound on the H100: ~15 flops per output against 4 bytes written per output
-// and 16 bytes read per box, so it is bound by bytes (and, at serve shapes of
-// B = 512, K = 64, M = 8, by its launch: 1 MB of output is ~0.3 us at
-// 3.35 TB/s).  One thread per output; neighbouring threads write neighbouring
-// outputs, and the box reads are served by L1/L2 since each box is read M or
-// K times.  The TPU kernel's transposed (4, N) lane layout and zero-box padding
-// to tile multiples are not carried over.
+// and 16 bytes read per box, so it is bound by bytes, and at the path's sizes
+// (at most ~1 MB out) by its launch.  Design: one CTA per (image, tile of
+// `rows` rows), rows chosen by iou_plan so that a CTA has about one group of
+// 4 outputs a thread.  The CTA stages the image's M g boxes and its rows' a
+// boxes into shared memory once, one 16-byte load a float32 box (8 bytes a
+// bfloat16 one), and every thread then reads them from there; where M % 4 ==
+// 0 a thread writes 4 neighbouring outputs with one aligned 16-byte store (8
+// bytes in bfloat16), else one output a store.  Output offsets need no
+// division (the tile is contiguous in out); a thread's row and column need one
+// 32-bit division.  A programmatic dependent launch: nothing is read before
+// griddepcontrol.wait.  The TPU kernel's transposed (4, N) lane layout and
+// zero-box padding to tile multiples are not carried over.
 //
 // Arithmetic is float32 for float32 and bfloat16 inputs (stored in the input
-// type), with the _rn intrinsics so that nvcc does not contract into FMAs: the
-// result is the same rounding, op for op, as the plain PyTorch version.
-#include "common.cuh"
-#include "dtype.cuh"
+// type), iou_pair in iou.cuh.
+#include "iou.cuh"
 
-__device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f), fmaxf(__fsub_rn(y2, y1), 0.0f));
+// the layout fields (iou_plan's MATRIX_FIELDS, in order)
+enum { MX_G, MX_A };
+
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
 }
-
-constexpr int IOU_THREADS = 256;
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 raw;
+  raw.x = *reinterpret_cast<const uint32_t*>(&lo);
+  raw.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = raw;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(IOU_THREADS)
-iou_batch_kernel(const T* __restrict__ a, const T* __restrict__ g,
-                 T* __restrict__ out, int B, int K, int M) {
-  const long long total = (long long)B * K * M;
-  for (long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (long long)gridDim.x * blockDim.x) {
-    const int m = (int)(idx % M);
-    const long long bk = idx / M;  // b * K + k
-    const long long b = bk / K;
-    const T* pa = a + bk * 4;
-    const T* pg = g + (b * M + m) * 4;
-    const float ax1 = load_f(pa), ay1 = load_f(pa + 1), ax2 = load_f(pa + 2), ay2 = load_f(pa + 3);
-    const float gx1 = load_f(pg), gy1 = load_f(pg + 1), gx2 = load_f(pg + 2), gy2 = load_f(pg + 3);
-    const float iw = fmaxf(__fsub_rn(fminf(ax2, gx2), fmaxf(ax1, gx1)), 0.0f);
-    const float ih = fmaxf(__fsub_rn(fminf(ay2, gy2), fmaxf(ay1, gy1)), 0.0f);
-    const float inter = __fmul_rn(iw, ih);
-    const float uni = __fsub_rn(
-        __fadd_rn(box_area(ax1, ay1, ax2, ay2), box_area(gx1, gy1, gx2, gy2)), inter);
-    const float v = uni > 0.0f ? __fdiv_rn(inter, fmaxf(uni, 1e-12f)) : 0.0f;
-    out[idx] = store_f<T>(v);
+iou_matrix_kernel(const T* __restrict__ a, const T* __restrict__ g, T* __restrict__ out, int K,
+                  int M, IouPlan p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float4* gs = plan_at<float4>(smem, p, MX_G);
+  float4* as = plan_at<float4>(smem, p, MX_A);
+  const int b = blockIdx.x;
+  const int k0 = blockIdx.y * p.rows;
+  const int rows = min(p.rows, K - k0);
+  pdl_wait();
+  pdl_launch_dependents();
+  const T* gb = g + static_cast<size_t>(b) * M * 4;
+  const T* ab = a + (static_cast<size_t>(b) * K + k0) * 4;
+  for (int m = threadIdx.x; m < M; m += blockDim.x) gs[m] = load_box(gb + 4 * m);
+  for (int r = threadIdx.x; r < rows; r += blockDim.x) as[r] = load_box(ab + 4 * r);
+  __syncthreads();
+  T* ob = out + (static_cast<size_t>(b) * K + k0) * M;
+  if ((M & 3) == 0) {
+    const int q = M >> 2;  // groups of 4 outputs a row
+    for (int idx = threadIdx.x; idx < rows * q; idx += blockDim.x) {
+      const int r = idx / q;
+      const int c = 4 * (idx - r * q);
+      const float4 box = as[r];
+      store4(ob + 4 * idx, make_float4(iou_pair(box, gs[c]), iou_pair(box, gs[c + 1]),
+                                       iou_pair(box, gs[c + 2]), iou_pair(box, gs[c + 3])));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < rows * M; idx += blockDim.x) {
+      const int r = idx / M;
+      ob[idx] = store_f<T>(iou_pair(as[r], gs[idx - r * M]));
+    }
   }
 }
 
 template <typename T>
 static int launch(const void* a, const void* g, void* out, int B, int K, int M,
-                  void* stream) {
-  const long long total = (long long)B * K * M;
-  long long blocks = (total + IOU_THREADS - 1) / IOU_THREADS;
-  if (blocks > 132 * 64) blocks = 132 * 64;  // grid-stride past this
-  iou_batch_kernel<T><<<(unsigned)blocks, IOU_THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(a), static_cast<const T*>(g), static_cast<T*>(out), B, K, M);
-  return static_cast<int>(cudaGetLastError());
+                  const IouPlan* plan, void* stream) {
+  const IouPlan p = *plan;
+  const dim3 grid(B, (K + p.rows - 1) / p.rows);
+  return launch_pdl(iou_matrix_kernel<T>, grid, IOU_THREADS, static_cast<size_t>(p.smem), stream,
+                    0, static_cast<const T*>(a), static_cast<const T*>(g), static_cast<T*>(out),
+                    K, M, p);
 }
 
 // a (B, K, 4), g (B, M, 4), out (B, K, M): contiguous, on the current device,
-// all float32 (_f32) or all bfloat16 (_bf16).  B, K, M >= 1.
-REPRO_EXPORT int iou_matrix_batch_f32(const void* a, const void* g, void* out,
-                                      int B, int K, int M, void* stream) {
-  return launch<float>(a, g, out, B, K, M, stream);
+// all float32 (_f32) or all bfloat16 (_bf16), boxes aligned to one box.
+// B, K, M >= 1; `plan` is iou_plan("matrix", K, M).
+REPRO_EXPORT int iou_matrix_f32(const void* a, const void* g, void* out, int B, int K, int M,
+                                const IouPlan* plan, void* stream) {
+  return launch<float>(a, g, out, B, K, M, plan, stream);
 }
 
-REPRO_EXPORT int iou_matrix_batch_bf16(const void* a, const void* g, void* out,
-                                       int B, int K, int M, void* stream) {
-  return launch<__nv_bfloat16>(a, g, out, B, K, M, stream);
+REPRO_EXPORT int iou_matrix_bf16(const void* a, const void* g, void* out, int B, int K, int M,
+                                 const IouPlan* plan, void* stream) {
+  return launch<__nv_bfloat16>(a, g, out, B, K, M, plan, stream);
 }

@@ -39,8 +39,6 @@
 
 #include <cooperative_groups.h>
 
-#include <mutex>
-
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -223,7 +221,7 @@ __device__ MlpCta mlp_begin(unsigned char* smem, const MlpLayout& L, int F, int 
     for (int b = 0; b < MLP_BARS; ++b) mbar_init(smem_u32(c.bars + b), 1);
     fence_mbar_init();
   }
-  // A programmatic dependent launch (mlp_launch) may start while the kernel
+  // A programmatic dependent launch (launch_pdl) may start while the kernel
   // before it still runs: nothing is read from device memory before it has
   // completed and its writes are visible (the weights may be its output), and
   // the kernel after this one may start only then.  Both return at once in a
@@ -438,69 +436,12 @@ __device__ void mlp_reduce(cg::cluster_group& cluster, const MlpCta& c, int rows
   }
 }
 
-// Raises `kernel`'s dynamic shared memory limit on the current device to at
-// least `smem` bytes, once per kernel, device and size seen (the attribute
-// call costs host time on every launch otherwise).
-inline cudaError_t mlp_smem_limit(const void* kernel, size_t smem) {
-  struct Entry {
-    const void* kernel;
-    int device;
-    size_t smem;
-  };
-  static std::mutex lock;
-  static Entry seen[64];
-  static int n_seen = 0;
-  if (smem <= 48 * 1024) return cudaSuccess;
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> guard(lock);
-  Entry* e = nullptr;
-  for (int i = 0; i < n_seen; ++i)
-    if (seen[i].kernel == kernel && seen[i].device == device) e = &seen[i];
-  if (e != nullptr && e->smem >= smem) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  if (e == nullptr && n_seen < 64) e = &seen[n_seen++];
-  if (e != nullptr) *e = Entry{kernel, device, smem};
-  return cudaSuccess;
-}
-
-// Launches `kernel` over `grid` CTAs in clusters of `cs` with `smem` bytes of
-// dynamic shared memory on `stream`, as a programmatic dependent of the
-// kernel before it (which saves about a microsecond after any kernel: the
-// CTAs are placed before it has completed); returns the CUDA error code.
-template <typename... Params, typename... Args>
-inline int mlp_launch(void (*kernel)(Params...), int cs, int grid, size_t smem, void* stream,
-                      Args... args) {
-  const cudaError_t set = mlp_smem_limit(reinterpret_cast<const void*>(kernel), smem);
-  if (set != cudaSuccess) return static_cast<int>(set);
-  cudaLaunchAttribute attr[2];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cs;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  attr[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[1].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(MLP_THREADS);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cfg.attrs = attr;
-  cfg.numAttrs = 2;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, static_cast<Params>(args)...);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // How many clusters of `cs` CTAs of `kernel` with `smem` bytes of dynamic
 // shared memory the device can hold at once (0 on error): clusters are placed
 // within a GPC, so this is less than SMs / cs.
 template <typename... Params>
 inline int mlp_max_clusters(void (*kernel)(Params...), int cs, size_t smem) {
-  if (mlp_smem_limit(reinterpret_cast<const void*>(kernel), smem) != cudaSuccess) return 0;
+  if (raise_smem_limit(reinterpret_cast<const void*>(kernel), smem) != cudaSuccess) return 0;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
   attr[0].val.clusterDim.x = cs;

@@ -35,6 +35,7 @@
 // partial and hidden activations) stays on chip, so the only traffic is one
 // read of the detections per rank, one of each W1 slice per CTA, and one
 // float written per image.
+#include "iou.cuh"  // rank_count
 #include "mlp.cuh"
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -122,15 +123,7 @@ __device__ void build_rows(float* xs, int ldx, int f0, int width, const SpScratc
     int rank = 0;
     if (ok) {
       const float* keys = t.keys + im * Kp;
-      const float ki = keys[i];
-#pragma unroll 4
-      for (int j = 4 * (idx % S); j < Kp; j += 4 * S) {
-        const float4 k4 = *reinterpret_cast<const float4*>(keys + j);
-        rank += (k4.x > ki) || (k4.x == ki && j < i);
-        rank += (k4.y > ki) || (k4.y == ki && j + 1 < i);
-        rank += (k4.z > ki) || (k4.z == ki && j + 2 < i);
-        rank += (k4.w > ki) || (k4.w == ki && j + 3 < i);
-      }
+      rank = rank_count(keys, Kp, keys[i], i, 4 * (idx % S), 4 * S);
     }
     for (int off = S / 2; off > 0; off >>= 1) rank += __shfl_xor_sync(0xffffffffu, rank, off);
     if (ok && idx % S == 0 && rank < top_k) t.order[im * top_k + rank] = i;
@@ -294,7 +287,7 @@ REPRO_EXPORT int score_pipeline_f32(const void* boxes, const void* scores, const
   const auto kernel = tb == 2 ? instance<2>(vec) : tb == 4 ? instance<4>(vec)
                     : tb == 8 ? instance<8>(vec) : tb == 16 ? instance<16>(vec)
                     : tb == 32 ? instance<32>(vec) : instance<64>(vec);
-  return mlp_launch(kernel, cs, grid, static_cast<size_t>(smem), stream,
+  return launch_pdl(kernel, dim3(grid), MLP_THREADS, static_cast<size_t>(smem), stream, cs,
                     static_cast<const float*>(boxes), static_cast<const float*>(scores),
                     static_cast<const int*>(classes), static_cast<const unsigned char*>(mask), w1,
                     b1, w2, b2, mu, sigma, out, B, K, top_k, C, F, H, image_size, slab_rows);

@@ -8,16 +8,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.detection.batch import DetectionsBatch
+from repro_torch.detection.batch import DetectionsBatch, GroundTruthBatch, match_batch
 from repro_torch.detection.nms import nms_batch
 from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
 from repro_torch.kernels.estimator_mlp.ops import device_clusters, mlp_plan
 from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
 from repro_torch.kernels.iou_matrix import (
+    greedy_match,
+    greedy_match_ref,
     iou_matrix,
     iou_matrix_batch,
     iou_matrix_batch_ref,
     iou_matrix_ref,
+    nms_keep,
+    nms_keep_ref,
 )
 from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
@@ -46,33 +50,197 @@ def mlp(rng, f, h, dev):
         rng.normal(0, 0.1, h).astype(np.float32), np.float32(0.05))]
 
 
+def _route_counts():
+    return {w.__name__: dict(w.launches_by_route) for w in (iou_matrix, iou_matrix_batch)}
+
+
+def _one_launch(B, route, before):
+    """Exactly one launch, of ``route``, counted in iou_matrix at B = 1 and
+    in iou_matrix_batch past it."""
+    after = _route_counts()
+    want = {w: dict.fromkeys(c, 0) for w, c in before.items()}
+    want["iou_matrix" if B == 1 else "iou_matrix_batch"][route] = 1
+    assert {w: {r: after[w][r] - n for r, n in c.items()} for w, c in before.items()} == want
+
+
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("B,K,M", [(1, 1, 1), (512, 64, 8), (3, 70, 33)])
+@pytest.mark.parametrize("B,K,M", [(1, 1, 1), (512, 64, 8), (3, 70, 33), (64, 64, 64), (2, 5, 8193 - 1)])
 def test_iou_kernels(dev, dtype, tol, B, K, M):
+    """The matrix route: 16-byte stores where M % 4 == 0, a scalar tail
+    otherwise; one launch, counted by B."""
     rng = np.random.default_rng(B + K + M)
     a = torch.tensor(boxes(rng, (B, K)), device=dev).to(dtype)
     g = torch.tensor(boxes(rng, (B, M)), device=dev).to(dtype)
-    before = iou_matrix_batch.launches
+    before = _route_counts()
     got = iou_matrix_batch(a, g)
-    assert iou_matrix_batch.launches == before + 1 and got.dtype == dtype
+    _one_launch(B, "matrix", before)
+    assert got.dtype == dtype
     torch.testing.assert_close(got.float(), iou_matrix_batch_ref(a, g).float(), atol=tol, rtol=0)
-    torch.testing.assert_close(iou_matrix(a[0], g[0]).float(),
-                               iou_matrix_ref(a[0], g[0]).float(), atol=tol, rtol=0)
+    before = _route_counts()
+    got = iou_matrix(a[0], g[0])
+    _one_launch(1, "matrix", before)
+    torch.testing.assert_close(got.float(), iou_matrix_ref(a[0], g[0]).float(), atol=tol, rtol=0)
 
 
 @pytest.mark.parametrize("B", [1, 64])
 def test_nms_on_card_equals_cpu(dev, B):
-    # a request's NMS (iou_matrix_batch) and a single frame's (iou_matrix)
+    # a request's NMS and a single frame's: one launch of the nms route each
     rng = np.random.default_rng(B)
     b = torch.tensor(boxes(rng, (B, 64)))
     s = torch.tensor((np.round(rng.uniform(0, 1, (B, 64)) * 8) / 8).astype(np.float32))
     c = torch.tensor(rng.integers(0, 3, (B, 64)).astype(np.int32))
-    wrapper = iou_matrix if B == 1 else iou_matrix_batch
-    before = wrapper.launches
+    before = _route_counts()
     got = nms_batch(b.to(dev), s.to(dev), c.to(dev), 0.45, 0.25)
-    assert wrapper.launches == before + 1
+    _one_launch(B, "nms", before)
     want = nms_batch(b, s, c, 0.45, 0.25)
     assert torch.equal(got.cpu(), want) and want.any() and not want.all()
+
+
+def _nms_case(rng, B, N, dev, pad=0, ties=8):
+    b = boxes(rng, (B, N))
+    s = rng.uniform(0, 1, (B, N))
+    if ties:
+        s = np.round(s * ties) / ties
+    c = rng.integers(0, 3, (B, N))
+    if pad:
+        b[:, N - pad:], s[:, N - pad:], c[:, N - pad:] = 0.0, 0.0, -1
+    return (torch.tensor(b, device=dev), torch.tensor(s.astype(np.float32), device=dev),
+            torch.tensor(c.astype(np.int32), device=dev))
+
+
+@pytest.mark.parametrize("B,N", [(1, 1), (3, 63), (64, 64), (2, 65), (5, 130), (256, 64),
+                                 (512, 64), (2, 1024)])
+@pytest.mark.parametrize("iou_thr,score_thr", [(0.45, 0.25), (0.5, 0.0)])
+def test_nms_route_equals_plain(dev, B, N, iou_thr, score_thr):
+    """Exactly equal keep masks: tied scores (the stable rank), 64-bit word
+    edges, class -1 padding, N up to the route's limit."""
+    rng = np.random.default_rng(B * N)
+    args = _nms_case(rng, B, N, dev, pad=N // 5) + (iou_thr, score_thr)
+    before = _route_counts()
+    got = nms_keep(*args)
+    _one_launch(B, "nms", before)
+    assert got.dtype == torch.bool and torch.equal(got, nms_keep_ref(*args))
+
+
+def test_nms_route_iou_at_threshold(dev):
+    b = torch.tensor([[[0, 0, 2, 1], [0, 0, 1, 1]]], dtype=torch.float32, device=dev)
+    s = torch.tensor([[0.9, 0.8]], device=dev)
+    c = torch.zeros((1, 2), dtype=torch.int32, device=dev)
+    assert nms_keep(b, s, c, 0.5, 0.0).tolist() == [[True, True]]
+    assert nms_keep(b, s, c, 0.49, 0.0).tolist() == [[True, False]]
+
+
+def _match_case(rng, B, K, M, dev, empty=1):
+    """Detections near the ground truth, tied scores, prefix masks, class -1
+    padding, the first ``empty`` images without a detection."""
+    gt = boxes(rng, (B, M))
+    g_cls = rng.integers(0, 2, (B, M))
+    src = rng.integers(0, M, (B, K))
+    det = np.take_along_axis(gt, src[..., None], 1) + rng.normal(0, 2.0, (B, K, 4))
+    det[..., 2:] = np.maximum(det[..., 2:], det[..., :2] + 0.5)
+    near = np.take_along_axis(g_cls, src, 1)
+    d_cls = np.where(rng.uniform(0, 1, (B, K)) < 0.8, near, 1 - near)
+    d_mask = np.arange(K)[None] < rng.integers(1, K + 1, B)[:, None]
+    d_mask[:empty] = False
+    g_mask = np.arange(M)[None] < rng.integers(1, M + 1, B)[:, None]
+    arrays = (np.where(d_mask[..., None], det, 0).astype(np.float32),
+              (np.round(rng.uniform(0, 1, (B, K)) * 8) / 8).astype(np.float32),
+              np.where(d_mask, d_cls, -1).astype(np.int32), d_mask,
+              np.where(g_mask[..., None], gt, 0).astype(np.float32),
+              np.where(g_mask, g_cls, -1).astype(np.int32), g_mask)
+    return [torch.tensor(a, device=dev) for a in arrays]
+
+
+COCO = np.round(np.linspace(0.5, 0.95, 10), 2).astype(np.float32)
+
+
+@pytest.mark.parametrize("B,K,M", [(1, 5, 1), (4, 64, 8), (3, 64, 32), (3, 64, 33), (512, 64, 8),
+                                   (2, 300, 1024), (2, 1024, 40)])
+@pytest.mark.parametrize("T", [1, 2, 10])
+def test_match_route_equals_plain(dev, B, K, M, T):
+    """Exactly equal tp and match_gt: warp edges of M, COCO's 10 thresholds
+    (warps loop over T), IoU tiles in several chunks (M 1024), K up to 1024,
+    an all-masked image (B > 1), class -1 padding."""
+    rng = np.random.default_rng(B * K + M + T)
+    args = _match_case(rng, B, K, M, dev, empty=int(B > 1)) + [torch.tensor(COCO[:T] if T > 2 else [0.5, 0.75][:T],
+                                                          device=dev)]
+    before = _route_counts()
+    tp, mj = greedy_match(*args)
+    _one_launch(B, "match", before)
+    want_tp, want_mj = greedy_match_ref(*args)
+    assert tp.dtype == torch.bool and mj.dtype == torch.int32
+    assert torch.equal(tp, want_tp) and torch.equal(mj, want_mj)
+    assert want_tp.any() or B == 1  # the seeded 5 x 1 image may hold no hit
+
+
+def test_match_route_iou_at_threshold_and_empty_axes(dev):
+    f = dict(device=dev)
+    one = dict(dtype=torch.int32, **f)
+    args = [torch.tensor([[[0, 0, 1, 1]]], dtype=torch.float32, **f), torch.tensor([[0.9]], **f),
+            torch.zeros((1, 1), **one), torch.ones((1, 1), dtype=torch.bool, **f),
+            torch.tensor([[[0, 0, 2, 1]]], dtype=torch.float32, **f), torch.zeros((1, 1), **one),
+            torch.ones((1, 1), dtype=torch.bool, **f), torch.tensor([0.5, 0.55], **f)]
+    tp, mj = greedy_match(*args)
+    assert tp.tolist() == [[[True], [False]]] and mj.tolist() == [[[0], [-1]]]
+    # K = 0 or M = 0: all misses, no launch
+    rng = np.random.default_rng(0)
+    before = _route_counts()
+    for K, M in ((0, 8), (8, 0)):
+        d = _match_case(rng, 3, max(K, 1), max(M, 1), dev)
+        d = [t[:, :K] for t in d[:4]] + [t[:, :M] for t in d[4:]]
+        tp, mj = greedy_match(*[t.contiguous() for t in d], torch.tensor(COCO, device=dev))
+        assert tp.shape == (3, 10, K) and not tp.any() and (mj == -1).all()
+    assert _route_counts() == before
+
+
+def test_routes_refuse_past_limits(dev):
+    """Past a route's limit a CUDA tensor raises; nothing takes the plain
+    version."""
+    rng = np.random.default_rng(1)
+    before = _route_counts()
+    with pytest.raises(ValueError, match="N <= 1024"):
+        nms_keep(*_nms_case(rng, 1, 1025, dev))
+    m = _match_case(rng, 1, 8, 1025, dev)
+    with pytest.raises(ValueError, match="M <= 1024"):
+        greedy_match(*m, torch.tensor([0.5], device=dev))
+    a = torch.tensor(boxes(rng, (1, 4)), device=dev)
+    with pytest.raises(ValueError, match="M <= 8192"):
+        iou_matrix_batch(a, torch.tensor(boxes(rng, (1, 8193)), device=dev))
+    shifted = torch.empty(4 * 64 + 1, device=dev)[1:].view(1, 64, 4)
+    with pytest.raises(ValueError, match="aligned"):
+        iou_matrix_batch(shifted, shifted)
+    assert _route_counts() == before
+
+
+def _aten_ops(fn):
+    """The aten ops ``fn`` dispatches."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    seen = []
+
+    class Record(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            seen.append(str(func.overloadpacket.__name__))
+            return func(*args, **(kwargs or {}))
+
+    with Record():
+        fn()
+    return seen
+
+
+def test_nms_and_match_run_no_torch_sort(dev):
+    """On the card nms_batch and match_batch are one launch each, with no
+    sort, gather or scatter of PyTorch's around them."""
+    rng = np.random.default_rng(2)
+    b, s, c = _nms_case(rng, 64, 64, dev)
+    d = _match_case(rng, 64, 64, 8, dev)
+    det = DetectionsBatch(boxes=d[0], scores=d[1], classes=d[2], mask=d[3])
+    gt = GroundTruthBatch(boxes=d[4], classes=d[5], mask=d[6])
+    ops = _aten_ops(lambda: nms_batch(b, s, c, 0.45, 0.25)) + _aten_ops(
+        lambda: match_batch(det, gt, (0.5, 0.75)))
+    banned = [op for op in ops if any(w in op for w in ("sort", "gather", "scatter", "take_along",
+                                                        "index", "argmax", "where"))]
+    assert not banned, ops
 
 
 @pytest.mark.parametrize("B,f,h", [
