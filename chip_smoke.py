@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serve paths once on one NVIDIA H100: the
-detection path and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b at
-full width).
+"""Drive the PyTorch port's paths once on one NVIDIA H100: the detection
+serve path, the training slice (both detectors trained, the engine fitted)
+and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b at full width).
 
     python3 chip_smoke.py
 
@@ -19,7 +19,8 @@ first use.  Phases, each printing one line of its own:
                version on the card at main-path and edge shapes, with the
                tolerance stated (the IoU family's ``nms`` and ``match``
                routes exactly, its ``matrix`` route at 1e-6 / 2e-2 in
-               float32 / bf16; each route timed at the path's shapes, also
+               float32 / bf16, boxes with a NaN coordinate exactly on every
+               route and as NaN estimates in score_pipeline; each route timed at the path's shapes, also
                right after an op that writes its input, with the host's
                microseconds a call; nms_batch and match_batch must dispatch
                no sort, gather or scatter; flash_sdpa's tensor-core route, which
@@ -27,7 +28,7 @@ first use.  Phases, each printing one line of its own:
                the plain version's and (for flash_sdpa)
                ``scaled_dot_product_attention``'s time at the main-path
                prefill and decode shapes, and the bound; ``estimator_mlp``
-               and ``score_pipeline`` at each of the five shapes the main
+               and ``score_pipeline`` at each of the eight shapes the main
                paths launch them (``time_head``), back to back and right
                after the PyTorch op that precedes them on the path, with
                the host's microseconds a call and the launch plan (cluster
@@ -49,7 +50,27 @@ first use.  Phases, each printing one line of its own:
                unless every NMS (calibration chunk, request, frame, strong
                batch) was one launch of the IoU family's ``nms`` route and
                every ``match_batch`` one of its ``match`` route.
-5. ``lm``      the LM early-exit cascade, once per family at full width
+5. ``train``   the training slice with every launch count set to 0 first:
+               ``build_pipeline`` at its defaults (3000 / 2000 / 1200
+               images, WEAK 500 and STRONG 900 AdamW steps of 64 at full
+               width, NMS over val and pool, matching), ``build_engine``
+               (ORIC rewards, the estimator fitted on the card), the val
+               split served as requests of 64 through the trained cascade
+               and matched for its mAP.  Fails unless each loss falls
+               (last 50 steps' mean below the first 50's) and every NMS and
+               match was one launch of its route.  Then: 5 STRONG steps on
+               the card against 5 on the CPU from one start; the calibration
+               estimates against ``mlp_apply`` (1e-5); the engine artifact's
+               decisions after ``OffloadEngine.load``; a 5-epoch fit on the
+               card against the CPU (estimates within ``SHORT_FIT_TOL``,
+               decisions equal away from the threshold); ``build_engine``'s
+               40-epoch fit repeated bit for bit on the card, and its gaps
+               to the CPU's fit within ``FIT_SPREAD_MULTIPLE`` times those
+               a one-ulp move of the features makes on one device; 20 steps of each
+               detector under ``torch.profiler`` for a step's device time.
+               Prints steps/s, losses, stage seconds and the weak-only,
+               strong-only and served cascade mAPs.
+6. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
@@ -57,7 +78,10 @@ first use.  Phases, each printing one line of its own:
                ``lm_logits`` features and a seeded MLP head; an engine
                artifact -> ``LMCascade.load``; 4 served batches of 8 x 512
                through ``serve_batch``; 16 greedy tokens a row through the
-               stack its decision chose.  Then, outside the count: decode
+               stack its decision chose; ``LMCascade.fit`` on two more
+               8 x 512 batches and one ``serve_batch`` through the fitted
+               cascade.  Then, outside the count: the fit's calibration
+               estimates against ``mlp_apply`` (1e-5), decode
                against the forward, the weak logits against the plain
                versions (bf16 as served, and float32), and the decisions
                against the CPU engine on the same features.  Launches are
@@ -65,7 +89,7 @@ first use.  Phases, each printing one line of its own:
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-6. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+7. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
@@ -78,8 +102,9 @@ last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
 --head-times [--src DIR]`` runs only ``time_head``, and ``--iou-times [--src
 DIR]`` only ``time_iou``, for the port in ``DIR`` (an A/B of two versions:
 once with each, in turns, in one call).  Without a
-GPU, or outside a checkout, it exits non-zero and prints no result.  Weights are seeded, not
-trained, so the mAPs and NLLs check the plumbing, not accuracy.
+GPU, or outside a checkout, it exits non-zero and prints no result.  The
+serve and lm phases run seeded weights, so their mAPs and NLLs check the
+plumbing; the train phase's mAPs are those of detectors trained on the card.
 """
 from __future__ import annotations
 
@@ -109,6 +134,11 @@ PEAK_BF16_OPS_PER_S = 989e12
 NUM_CLASSES, TOP_K, IMAGE_SIZE, HIDDEN = 8, 25, 64.0, 128
 N_IMAGES, N_CAL, REQUEST = 1024, 512, 64
 CAL_CHUNK = 256  # images a calibration NMS launch takes (decode_detections' batch_size)
+# the train phase: build_pipeline's and build_engine's own defaults
+N_TRAIN, N_VAL, N_POOL, STEPS_WEAK, STEPS_STRONG = 3000, 2000, 1200, 500, 900
+TRAIN_BATCH, PARITY_STEPS = 64, 5  # train_detector's batch; card-vs-CPU steps
+PROFILED_STEPS = 20  # training steps timed, and traced for their device time
+LM_FIT_BATCHES = 2  # LMCascade.fit's calibration batches of 8 x 512 a family
 
 
 def fail(msg: str) -> None:
@@ -357,7 +387,10 @@ def time_head(torch, timer, dev):
     shapes = {"estimator_mlp": [], "score_pipeline": []}
     for B, f, h, where in ((N_CAL, F, HIDDEN, "calibration estimates"),
                            (REQUEST, F, HIDDEN, "decide(features=...)"),
-                           (LM_BATCH, 12, LM_HIDDEN, "LM cascade decide")):
+                           (LM_BATCH, 12, LM_HIDDEN, "LM cascade decide"),
+                           (N_VAL, F, HIDDEN, "OffloadEngine.fit's calibration estimates (train)"),
+                           (LM_FIT_BATCHES * LM_BATCH, 12, LM_HIDDEN,
+                            "LMCascade.fit's calibration estimates")):
         x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
         mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
         sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
@@ -374,7 +407,8 @@ def time_head(torch, timer, dev):
                   mu=torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev),
                   sigma=torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev))
     kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
-    for B, K, where in ((REQUEST, 64, "a request"), (1, 64, "a single frame")):
+    for B, K, where in ((REQUEST, 64, "a request"), (1, 64, "a single frame"),
+                        (N_VAL % REQUEST, 64, "the val split's last request (train)")):
         block = seeded_block(torch, rng, B, K, dev, empty_rows=B // 16)
         scores0 = block[1].clone()
         path_ms = after(lambda: torch.mul(scores0, 1.0, out=block[1]),
@@ -459,6 +493,26 @@ def check_kernels(torch, timer, dev):
                      score_pipeline(block, params, **kw), ref(block), 2e-6)
     block = seeded_block(torch, rng, 16, 64, dev, empty_rows=16)
     hold("score_pipeline", "B=16 K=64 all rows masked", score_pipeline(block, params, **kw), ref(block), 2e-6)
+    # a NaN box coordinate (each of the four) in a valid top-scored slot: the
+    # image's estimate is NaN, as in box_feature_stack; the NaN pattern must
+    # be the plain version's exactly, the other estimates within 2e-6
+    for B in (1, REQUEST):
+        block = list(seeded_block(torch, rng, B, 64, dev))
+        rows = list(range(0, B, 3))
+        for i in rows:
+            block[0][i, 1, i % 4] = float("nan")
+            block[1][i, 1], block[3][i, 1] = 2.0, True
+        got, want = score_pipeline(block, params, **kw), ref(block)
+        sync()
+        same_nan = torch.equal(got.isnan(), want.isnan()) and int(want.isnan().sum()) == len(rows)
+        finite = ~want.isnan()
+        e = float((got - want)[finite].abs().max()) if finite.any() else 0.0
+        if not (same_nan and np.isfinite(e) and e <= 2e-6):
+            fail(f"score_pipeline B={B} NaN boxes: NaN pattern equal {same_nan}, "
+                 f"finite rows differ by {e} (tolerance 2e-6)")
+        err["score_pipeline"] = max(err["score_pipeline"], e)
+        cases.append({"kernel": "score_pipeline", "case": f"B={B} K=64 NaN box coordinates",
+                      "max_abs_err": e, "tol": "NaN pattern exact, finite rows 2e-6"})
 
     # times and bounds at the main-path shapes
     records = {}
@@ -613,13 +667,16 @@ def time_iou(torch, timer, dev):
         timed(B, "nms", f"B={B} N=64", where, lambda: nms_keep(b, s, c, NMS_IOU, NMS_SCORE),
               lambda: nms_keep_ref(b, s, c, NMS_IOU, NMS_SCORE),
               lambda: torch.mul(s0, 1.0, out=s), nms_cost(B, 64))
-    for T in (1, 2):
-        args = seeded_match(torch, rng, N_CAL, 64, 8, dev)
+    for B, T, where in ((N_CAL, 1, "match_batch of the served images"),
+                        (N_CAL, 2, "match_batch of the served images"),
+                        (N_VAL, 1, "match_pairs_batched of the val split (train)"),
+                        (N_POOL, 1, "match_batch of the pool split (train)")):
+        args = seeded_match(torch, rng, B, 64, 8, dev)
         thr = torch.tensor((0.5, 0.75)[:T], device=dev)
         s0 = args[1].clone()
-        timed(N_CAL, "match", f"B={N_CAL} K=64 M=8 T={T}", "match_batch of the served images",
+        timed(B, "match", f"B={B} K=64 M=8 T={T}", where,
               lambda: greedy_match(*args, thr), lambda: greedy_match_ref(*args, thr),
-              lambda: torch.mul(s0, 1.0, out=args[1]), match_cost(N_CAL, 64, 8, T))
+              lambda: torch.mul(s0, 1.0, out=args[1]), match_cost(B, 64, 8, T))
     for B, K, M, where in ((1, 64, 64, "standalone, a frame's slots"),
                            (REQUEST, 64, 64, "standalone, a request's slots"),
                            (N_CAL, 64, 8, "standalone, match_batch's IoU")):
@@ -695,8 +752,9 @@ def check_iou_routes(torch, timer, dev):
     for thr in (0.5, 0.49):  # the pair's IoU is 0.5 exactly
         hold(1, "nms", f"IoU at threshold {thr}", nms_keep(*pair, thr, 0.0), nms_keep_ref(*pair, thr, 0.0))
     # match: the path's shape, then warp edges, COCO thresholds, chunked tiles
-    for B, K, M, T in ((N_CAL, 64, 8, 1), (N_CAL, 64, 8, 2), (REQUEST, 64, 8, 10), (3, 64, 1, 1),
-                       (3, 64, 32, 10), (3, 64, 33, 10), (2, 300, 1024, 2), (1, 5, 3, 1)):
+    for B, K, M, T in ((N_CAL, 64, 8, 1), (N_CAL, 64, 8, 2), (N_VAL, 64, 8, 1), (N_POOL, 64, 8, 1),
+                       (REQUEST, 64, 8, 10), (3, 64, 1, 1), (3, 64, 32, 10), (3, 64, 33, 10),
+                       (2, 300, 1024, 2), (1, 5, 3, 1)):
         args = seeded_match(torch, rng, B, K, M, dev, empty_rows=int(B > 1))
         thr = torch.tensor(COCO_THRESHOLDS[:T] if T > 2 else (0.5, 0.75)[:T], device=dev)
         hold(B, "match", f"B={B} K={K} M={M} T={T}", greedy_match(*args, thr),
@@ -707,6 +765,41 @@ def check_iou_routes(torch, timer, dev):
           torch.tensor([[[0, 0, 2, 1]]], **f32), torch.zeros((1, 1), dtype=torch.int32, device=dev),
           torch.ones((1, 1), dtype=torch.bool, device=dev), torch.tensor([0.5, 0.55], **f32)]
     hold(1, "match", "IoU at threshold 0.5", greedy_match(*at), greedy_match_ref(*at))
+    # NaN box coordinates, each of the four, in the first box of a pair, the
+    # second or both: box_iou's union is NaN and its IoU 0 (fmaxf / fminf
+    # would drop the NaN), on every route exactly
+    def nan_at(t, rows, slot):
+        t = t.clone()
+        for i in rows:
+            t[i, slot(i), i % 4] = float("nan")
+        return t
+
+    for side in ("first", "second", "both"):
+        first, second = side in ("first", "both"), side in ("second", "both")
+        for B in (1, 3):
+            a = torch.tensor(seeded_boxes(rng, (B, 8), IMAGE_SIZE), device=dev)
+            g = torch.tensor(seeded_boxes(rng, (B, 6), IMAGE_SIZE), device=dev)
+            a, g = (nan_at(a, range(B), lambda i: i) if first else a), \
+                (nan_at(g, range(B), lambda i: i + 1) if second else g)
+            if B == 1:
+                hold(1, "matrix", f"N=8 M=6 NaN {side}", iou_matrix(a[0], g[0]), iou_matrix_ref(a[0], g[0]))
+            else:
+                hold(B, "matrix", f"B={B} K=8 M=6 NaN {side}", iou_matrix_batch(a, g),
+                     iou_matrix_batch_ref(a, g))
+            args = seeded_match(torch, rng, B, 64, 8, dev, empty_rows=0)
+            if first:
+                args[0] = nan_at(args[0], range(B), lambda i: 0)
+            if second:
+                args[4] = nan_at(args[4], range(B), lambda i: 0)
+            thr = torch.tensor(COCO_THRESHOLDS, device=dev)
+            hold(B, "match", f"B={B} K=64 M=8 T=10 NaN {side}", greedy_match(*args, thr),
+                 greedy_match_ref(*args, thr))
+    for B in (1, REQUEST):  # NaN in each image's top-scored box and in another
+        b, s_, c = seeded_nms(torch, rng, B, 64, dev, tie_levels=None)
+        top = s_.argmax(dim=1).tolist()
+        b = nan_at(nan_at(b, range(B), lambda i: top[i]), range(B), lambda i: (top[i] + 7) % 64)
+        hold(B, "nms", f"B={B} N=64 NaN boxes", nms_keep(b, s_, c, NMS_IOU, NMS_SCORE),
+             nms_keep_ref(b, s_, c, NMS_IOU, NMS_SCORE))
     # past a limit a CUDA tensor raises, it never takes the plain version
     for what, call in (("nms N=1025", lambda: nms_keep(*seeded_nms(torch, rng, 1, 1025, dev))),
                        ("match M=1025", lambda: greedy_match(*seeded_match(torch, rng, 1, 8, 1025, dev),
@@ -943,6 +1036,314 @@ def serve(torch, smi, dev):
         "nms_calls": nms_calls, "match_calls": match_calls, "card": smi,
     })
     return launches, split
+
+
+# --------------------------------------------------------------- the training slice
+
+# The reward estimator fitted on the card against the same fit on the CPU
+# (same init, features and rewards).  After 5 epochs the two agree within
+# SHORT_FIT_TOL.  build_engine's 40 epochs (280 AdamW steps) amplify float32
+# rounding (Adam turns noise in a near-zero gradient into a step of ~lr)
+# until single estimates differ by far more than that, on one device as
+# much as across two (PERF.md §6).  So the card's 40-epoch fit is held against
+# the CPU's in FIT_SPREAD_DRAWS draws (the val features as they are, then
+# moved by one ulp): the median over the draws of each draw's median and
+# 99th percentile |estimate difference|, and the mean decisions differing,
+# each within FIT_SPREAD_MULTIPLE times the same over draws of what one such
+# move does on one device (CPU fits against the CPU fit, card fits against
+# the card's; for decisions at least 1).  A one-ulp move once is a smaller
+# push than rounding that differs at every step, and single draws spread by
+# over ten times, hence the multiple.
+SHORT_FIT_EPOCHS, SHORT_FIT_TOL = 5, 1e-4
+FIT_SPREAD_DRAWS, FIT_SPREAD_MULTIPLE = 4, 10
+
+
+def hold_training(what, got, want, lr_sum, max_share=0.01):
+    """Parameters after N AdamW steps from one start, on two devices, at the
+    tolerance tests/test_torch_train.py holds the port to repro: every
+    element within 2 lr_sum (m_hat / sqrt(v_hat) is ~1 for any gradient
+    above eps, so float32 noise in a near-zero gradient can move an element
+    by lr a step), at most ``max_share`` of the elements beyond 1e-5 (None:
+    not held).  ``got`` / ``want``: name -> tensor.  Returns (max |diff|,
+    share beyond 1e-5)."""
+    worst, far, total = 0.0, 0, 0
+    for k, w in want.items():
+        d = (got[k].detach().cpu() - w.detach().cpu()).abs()
+        worst = max(worst, float(d.max()))
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    if not np.isfinite(worst) or worst > 2 * lr_sum or (max_share is not None and far > max_share * total):
+        fail(f"{what}: parameters differ by up to {worst} (2 lr_sum {2 * lr_sum}), "
+             f"{far} of {total} elements beyond 1e-5")
+    return worst, far / total
+
+
+def train(torch, smi, dev):
+    """The training slice, counted: ``build_pipeline`` at its defaults (WEAK
+    and STRONG trained on the card, decoded with NMS, matched), ``build_engine``
+    (ORIC rewards, the reward estimator fitted on the card, its calibration
+    estimates through ``estimator_mlp``), then the val split served as
+    requests of 64 through the trained cascade (WEAK + NMS -> ``decide``
+    (``score_pipeline``) -> STRONG on the offloaded frames) and matched.
+    Then, outside the count: each loss falls, 5 card steps against 5 CPU
+    steps from one start, the calibration estimates against ``mlp_apply``,
+    the artifact round trip and the same fit on the CPU.  Returns the
+    launches of the counted run and their split."""
+    from repro_torch.api import MLPRewardModel, OffloadEngine
+    from repro_torch.convert import detector_params_from_jax, detector_params_to_jax
+    from repro_torch.core.estimator import EstimatorConfig, mlp_apply
+    from repro_torch.core.reward import RewardOracle, cascade_map, match_pairs_batched
+    from repro_torch.data.shapes import ShapesDataset
+    from repro_torch.detection.batch import DetectionsBatch, GroundTruthBatch
+    from repro_torch.experiments.detection_repro import build_engine, build_pipeline
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models.detector import STRONG, WEAK, Detector, decode_batch
+    from repro_torch.train.checkpoint import load_pytree
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import train_detector
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    t_phase = time.perf_counter()
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    val = ShapesDataset.generate(N_VAL, seed=1)  # build_pipeline's val split (seed + 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counts(counters)
+        state = build_pipeline(N_TRAIN, N_VAL, N_POOL, STEPS_WEAK, STEPS_STRONG, force=True,
+                               verbose=False, device=dev, cache_dir=tmp, stage_ms=stage)
+        nms_calls = 2 * -(-N_VAL // CAL_CHUNK) + -(-N_POOL // CAL_CHUNK)  # decode_detections' chunks
+        match_calls = 3  # val: weak and strong; pool: weak
+        engine = timed("engine_fit_ms", lambda: build_engine(
+            state, context_size=800, epochs=40, hidden=(HIDDEN,), device=dev))
+        # the trained detectors, from the pipeline's cache (repro's HWIO layout)
+        detectors = {}
+        for cfg in (WEAK, STRONG):
+            det = Detector(cfg, device=dev)
+            det.load_state_dict(detector_params_from_jax(load_pytree(
+                str(Path(tmp) / f"torch_detector_{cfg.name}.npz"),
+                detector_params_to_jax(det.state_dict()))))
+            detectors[cfg.name] = det
+
+        # serve the val split as requests of 64 through the trained cascade
+        fields = ("boxes", "scores", "classes", "mask")
+        weak_batches, offload, estimates, strong_rows = [], [], [], {}
+        for r in range(0, N_VAL, REQUEST):
+            imgs = val.images[r : r + REQUEST]
+            wb = timed("serve_weak_detect_ms", lambda: decode_batch(detectors["weak"], imgs))
+            dec = timed("serve_decide_ms", lambda: engine.decide(wb))
+            idx = np.flatnonzero(dec.offload)
+            nms_calls += 1 + int(idx.size > 0)
+            if idx.size:
+                sb = timed("serve_strong_detect_ms", lambda: decode_batch(detectors["strong"], imgs[idx]))
+                for j, i in enumerate(idx):
+                    strong_rows[r + int(i)] = (sb, j)
+            weak_batches.append(wb)
+            offload.append(dec.offload)
+            estimates.append(dec.estimates)
+        offload, estimates = np.concatenate(offload), np.concatenate(estimates)
+        weak_all = DetectionsBatch(**{f: torch.cat([getattr(b, f) for b in weak_batches]) for f in fields})
+        rows = [strong_rows.get(i, (weak_all, i)) for i in range(N_VAL)]
+        served_strong = DetectionsBatch(**{
+            f: torch.cat([getattr(src, f)[j : j + 1] for src, j in rows]) for f in fields})
+        gt = GroundTruthBatch.from_list(val.gts, device=dev)
+        matched = timed("eval_match_ms", lambda: match_pairs_batched(weak_all, served_strong, gt, (0.5,)))
+        match_calls += 2
+        served_map = timed("eval_map_ms", lambda: cascade_map(matched, offload, (0.5,)))
+        sync()
+        phase_s = time.perf_counter() - t_phase
+        launches = {c.__name__: c.launches for c in counters}
+        split = split_counts(counters)
+        routes = {k: split[k]["by_route"] for k in IOU_KERNELS}
+        took = {r: sum(routes[k][r] for k in IOU_KERNELS) for r in ("matrix", "nms", "match")}
+        if took != {"matrix": 0, "nms": nms_calls, "match": match_calls}:
+            fail(f"the train path's NMS ({nms_calls} calls) and matching ({match_calls} calls) "
+                 f"took the IoU routes {routes}")
+
+        # -- checks, outside the count
+        losses = {}
+        for name, trace in state.train_losses.items():
+            first, last = float(np.mean(trace[:50])), float(np.mean(trace[-50:]))
+            if not (np.isfinite(trace).all() and last < first):
+                fail(f"{name} detector: the loss did not fall (first 50 {first}, last 50 {last})")
+            losses[name] = {"steps": len(trace), "first_50_mean": first, "last_50_mean": last,
+                            "steps_per_s": len(trace) / (stage[f"train_{name}_ms"] / 1e3)}
+        for name, v in (("weak", state.weak_map), ("strong", state.strong_map), ("served", served_map)):
+            if not (np.isfinite(v) and 0.0 <= v <= 1.0):
+                fail(f"{name} val mAP {v} is not in [0, 1]")
+        if not (np.isfinite(estimates).all() and ((estimates >= 0) & (estimates <= 1)).all()):
+            fail("served estimates are not finite in [0, 1]")
+        # the calibration estimates (estimator_mlp) against mlp_apply on the card
+        x = engine.features(state.weak_dets_val)
+        est = engine.reward_model.estimator
+        xs = (x - torch.tensor(est._mu, device=dev)) / torch.tensor(est._sigma, device=dev)
+        with torch.no_grad():
+            plain = mlp_apply(est.params, xs, sigmoid_out=True).cpu().numpy()
+        cal_err = float(np.abs(plain - engine.calibration_scores).max())
+        if x.shape != (N_VAL, TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES) or cal_err > 1e-5:
+            fail(f"calibration estimates: estimator_mlp vs mlp_apply differ by {cal_err} > 1e-5")
+        # the artifact: save -> OffloadEngine.load -> identical decisions
+        path = str(Path(tmp) / "engine.npz")
+        engine.save(path)
+        loaded = OffloadEngine.load(path, device=dev)
+        a, b = engine.decide(features=x), loaded.decide(features=x)
+        if not (np.array_equal(a.offload, b.offload) and np.array_equal(a.estimates, b.estimates)):
+            fail("the reloaded engine artifact decides differently on the val features")
+        # the same fit on the CPU: the same init (drawn on the CPU), the card's
+        # features and the same rewards (build_engine's oracle, recomputed).
+        # Features extracted on the CPU instead differ in float32 rounding,
+        # which standardizing by a near-constant column's tiny sigma blows up
+        rewards = RewardOracle.from_pool(state.pool_weak_evals, 800, np.random.default_rng(0)) \
+            .oric_batch(state.val_pairs)
+        if not np.array_equal(np.sort(rewards), engine.transform.state()["sorted_rewards"]):
+            fail("build_engine's rewards are not the oracle's ORIC rewards of the val split")
+
+        def fit(device, epochs, features=x):
+            return OffloadEngine(
+                reward_model=MLPRewardModel(
+                    config=EstimatorConfig(hidden=(HIDDEN,), epochs=epochs, seed=0), device=device),
+                ratio=0.2, device=device).fit(features=features.to(device), rewards=rewards)
+
+        def gap(a, b):
+            d = np.abs(a.calibration_scores - b.calibration_scores)
+            differ = a.decide(features=x.to(a.device)).offload != b.decide(features=x.to(b.device)).offload
+            return d, differ, {"max": float(d.max()), "p99": float(np.quantile(d, 0.99)),
+                               "median": float(np.median(d)), "decisions_differing": int(differ.sum())}
+
+        # the short fit: card and CPU agree at SHORT_FIT_TOL
+        card, cpu = fit(dev, SHORT_FIT_EPOCHS), fit("cpu", SHORT_FIT_EPOCHS)
+        d, differ, short = gap(card, cpu)
+        near = np.abs(card.calibration_scores - card.policy.threshold) <= SHORT_FIT_TOL
+        steps = SHORT_FIT_EPOCHS * (N_VAL // 256)
+        sched = warmup_cosine(2e-3, max(steps // 20, 1), steps)
+        worst, share = hold_training(
+            f"the {SHORT_FIT_EPOCHS}-epoch estimator fit, card vs CPU",
+            *({f"{n}.{k}": v for n, p in e.reward_model.estimator.params.items() for k, v in p.items()}
+              for e in (card, cpu)), sum(sched(i) for i in range(steps)), max_share=None)
+        short.update(epochs=SHORT_FIT_EPOCHS, near_threshold_rows=int(near.sum()),
+                     params_max_abs=worst, params_share_beyond_1e_5=share)
+        if d.max() > SHORT_FIT_TOL or (differ & ~near).any():
+            fail(f"the {SHORT_FIT_EPOCHS}-epoch estimator fit, card vs CPU: estimates differ by "
+                 f"{d.max()} (tolerance {SHORT_FIT_TOL}), {int((differ & ~near).sum())} decisions "
+                 "differ away from the threshold")
+        # build_engine's 40-epoch fit: the card repeats it bit for bit.  Against
+        # the CPU it is held to the spread float32 rounding alone gives: draws
+        # of the card-vs-CPU gap (on the val features, and on them moved by one
+        # ulp each, a seeded random direction an element) against draws of the
+        # gap one such move makes on one device (CPU against CPU, card against
+        # card)
+        repeat = fit(dev, 40)
+        if not np.array_equal(repeat.calibration_scores, engine.calibration_scores):
+            fail("build_engine's fit repeated on the card gives other estimates")
+        cpu = fit("cpu", 40)
+        draws = {"card_vs_cpu": [gap(engine, cpu)[2]], "one_device": []}
+        for seed in range(FIT_SPREAD_DRAWS):
+            u = np.random.default_rng(seed).uniform(size=tuple(x.shape)) < 0.5
+            moved = torch.from_numpy(np.nextafter(
+                x.cpu().numpy(), np.where(u, -np.inf, np.inf).astype(np.float32)))
+            cpu_moved = fit("cpu", 40, moved)
+            draws["one_device"].append(dict(gap(cpu, cpu_moved)[2], device="cpu"))
+            if seed < FIT_SPREAD_DRAWS - 1:
+                card_moved = fit(dev, 40, moved.to(dev))
+                draws["card_vs_cpu"].append(gap(card_moved, cpu_moved)[2])
+                draws["one_device"].append(dict(gap(engine, card_moved)[2], device="card"))
+        typical = {w: {"median": float(np.median([d["median"] for d in runs])),
+                       "p99": float(np.median([d["p99"] for d in runs])),
+                       "decisions_differing": float(np.mean([d["decisions_differing"] for d in runs]))}
+                   for w, runs in draws.items()}
+        limit = {k: FIT_SPREAD_MULTIPLE * (max(v, 1.0) if k == "decisions_differing" else v)
+                 for k, v in typical["one_device"].items()}
+        full = dict(draws["card_vs_cpu"][0], epochs=40, card_repeat_equal=True, draws=draws,
+                    typical=typical, limit=limit)
+        if any(typical["card_vs_cpu"][k] > v for k, v in limit.items()):
+            fail(f"build_engine's fit, card vs CPU: typical gaps {typical['card_vs_cpu']} above "
+                 f"{FIT_SPREAD_MULTIPLE}x the one-ulp spread on one device {typical['one_device']}")
+        fits = {"short": short, "full": full}
+
+    # 5 steps of train_detector at STRONG's width from one seeded start, on
+    # the card and on the CPU (TF32 off: the probe phase set both flags)
+    ds = ShapesDataset.generate(PARITY_STEPS * TRAIN_BATCH, seed=0)
+    card_det, card_loss = train_detector(STRONG, ds, steps=PARITY_STEPS, batch_size=TRAIN_BATCH,
+                                         seed=10, log_every=0, device=dev)
+    cpu_det, cpu_loss = train_detector(STRONG, ds, steps=PARITY_STEPS, batch_size=TRAIN_BATCH,
+                                       seed=10, log_every=0, device="cpu")
+    loss_rel = float(np.max(np.abs(np.array(card_loss) - cpu_loss) / np.abs(cpu_loss)))
+    if loss_rel > 1e-4:
+        fail(f"STRONG loss trace, card vs CPU: relative difference {loss_rel} > 1e-4")
+    sched = warmup_cosine(3e-3, max(PARITY_STEPS // 10, 1), PARITY_STEPS)
+    lr_sum = sum(sched(i) for i in range(PARITY_STEPS))
+    worst, share = hold_training("STRONG after 5 steps, card vs CPU", card_det.state_dict(),
+                                 cpu_det.state_dict(), lr_sum)
+    step_ms = {cfg.name: step_device_ms(torch, cfg, ds, dev) for cfg in (WEAK, STRONG)}
+
+    emit("train", {
+        "images": {"train": N_TRAIN, "val": N_VAL, "pool": N_POOL},
+        "steps": {"weak": STEPS_WEAK, "strong": STEPS_STRONG}, "batch": TRAIN_BATCH,
+        "widths": {"weak": [list(WEAK.widths), WEAK.head_width],
+                   "strong": [list(STRONG.widths), STRONG.head_width]},
+        "cuts": [], "losses": losses,
+        "stage_s": {k.removesuffix("_ms") + "_s": v / 1e3 for k, v in stage.items()},
+        "phase_s": phase_s,
+        "map50_val": {"weak_only": state.weak_map, "strong_only": state.strong_map,
+                      "cascade_served": served_map,
+                      "cascade_from_pipeline": cascade_map(state.val_pairs, offload, (0.5,))},
+        "realized_ratio": float(offload.mean()), "target_ratio": 0.2,
+        "requests": -(-N_VAL // REQUEST), "request_size": REQUEST,
+        "checks": {"calibration_estimator_mlp_vs_mlp_apply": cal_err,
+                   "artifact_round_trip_equal": True,
+                   "fit_card_vs_cpu": fits, "short_fit_tol": SHORT_FIT_TOL,
+                   "parity_steps": PARITY_STEPS, "parity_loss_max_rel": loss_rel,
+                   "parity_params_max_abs": worst, "parity_params_share_beyond_1e-5": share,
+                   "parity_2_lr_sum": 2 * lr_sum},
+        "step_ms": step_ms,
+        "launches": launches, "iou_routes": routes, "nms_calls": nms_calls,
+        "match_calls": match_calls, "card": smi,
+    })
+    return launches, split
+
+
+def step_device_ms(torch, cfg, ds, dev, steps=PROFILED_STEPS):
+    """One training step's wall time (host clock, ``steps`` steps after a
+    warm-up, device synced) and its device time: the durations of the
+    kernels and copies ``torch.profiler`` records on the card over another
+    ``steps`` steps, summed (one stream: they do not overlap)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.train.trainer import train_detector
+
+    def run():
+        return train_detector(cfg, ds, steps=steps, batch_size=TRAIN_BATCH, seed=3, log_every=0,
+                              device=dev)
+
+    train_detector(cfg, ds, steps=3, batch_size=TRAIN_BATCH, seed=3, log_every=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    device = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / steps
+    if not on_card:
+        device = None  # the profiler saw the card do nothing: not measured
+    return {"steps": steps, "wall_ms": wall, "device_ms": device,
+            "device_share": device / wall if device is not None else None,
+            "device_events_a_step": len(on_card) / steps}
 
 
 
@@ -1183,6 +1584,7 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     path, then the checks.  Returns (report, launches of the main path)."""
     from repro_torch.api.features import LMLogitsFeatures
     from repro_torch.api.reward_model import MLPRewardModel
+    from repro_torch.core.estimator import mlp_apply
     from repro_torch.data.lm_synth import synth_lm_batch
     from repro_torch.models import lm
     from repro_torch.serving.cascade_serving import LMCascade, truncate_params, truncated_config
@@ -1252,6 +1654,12 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
                 gen_tokens[which] += int(rows.size) * LM_TOKENS
                 gen_calls[which] += 1
         tokens.append(toks)
+    # -- fit: LMCascade.fit on two more calibration batches (oracle NLL
+    # rewards, the engine fitted on the card), then a served batch through it
+    fit_cal = [lm_batch() for _ in range(LM_FIT_BATCHES)]
+    fitted = timed("fit_ms", lambda: LMCascade.fit(params, cfg, exit_layer, fit_cal,
+                                                   ratio=LM_RATIO, seed=seed))
+    fit_out = timed("fit_serve_ms", lambda: fitted.serve_batch(params, served[0]))
     sync()
     launches = {c.__name__: c.launches for c in counters}
     split = split_counts(counters)
@@ -1273,10 +1681,31 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         fail(f"{cfg.name}: served estimates are not finite of shape ({LM_SERVED * LM_BATCH},)")
     if not ((estimates >= 0) & (estimates <= 1)).all():
         fail(f"{cfg.name}: served estimates fall outside [0, 1]")
-    for r in results:
+    for r in results + [fit_out]:
         for key in ("nll_weak", "nll_strong", "nll_final"):
             if not np.isfinite(r[key]).all():
                 fail(f"{cfg.name}: {key} is not finite")
+    fit_cal_scores = fitted.engine.calibration_scores
+    if fit_cal_scores.shape != (LM_FIT_BATCHES * LM_BATCH,) or not np.isfinite(fit_cal_scores).all() \
+            or not np.isfinite(fit_out["estimates"]).all():
+        fail(f"{cfg.name}: LMCascade.fit's estimates are not finite of shape "
+             f"({LM_FIT_BATCHES * LM_BATCH},)")
+    # the fit's calibration estimates (estimator_mlp) against mlp_apply on the
+    # fit's features, recomputed (the weak forward repeats bit for bit)
+    fit_x = []
+    for batch in fit_cal:
+        wl, _ = lm.forward(wparams, wcfg, batch)
+        fit_x.append(fitted.engine.features((wl, batch["labels"])))
+        del wl
+    del fit_cal
+    est = fitted.engine.reward_model.estimator
+    fit_x = (torch.cat(fit_x) - torch.tensor(est._mu, device=dev)) / torch.tensor(est._sigma, device=dev)
+    with torch.no_grad():
+        plain = mlp_apply(est.params, fit_x, sigmoid_out=True).cpu().numpy()
+    fit_cal_err = float(np.abs(plain - fit_cal_scores).max())
+    if plain.shape != fit_cal_scores.shape or not fit_cal_err <= 1e-5:
+        fail(f"{cfg.name}: LMCascade.fit's calibration estimates, estimator_mlp vs mlp_apply, "
+             f"differ by {fit_cal_err} > 1e-5")
     all_toks = torch.cat(tokens)
     if int(all_toks.min()) < 0 or int(all_toks.max()) >= cfg.vocab_size:
         fail(f"{cfg.name}: generated token ids outside [0, {cfg.vocab_size})")
@@ -1344,6 +1773,12 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         "generated_tokens": gen_tokens,
         "generated_tokens_per_s": sum(gen_tokens.values()) / (gen_total_ms / 1e3),
         "setup_ms": {k: v for k, v in stage.items() if k.startswith(("init", "cal", "engine"))},
+        "fit": {"calibration_batches": LM_FIT_BATCHES, "rows": LM_FIT_BATCHES * LM_BATCH,
+                "fit_ms": stage["fit_ms"], "serve_batch_ms": stage["fit_serve_ms"],
+                "rewards_sorted": [float(v) for v in fitted.cdf.state()["sorted_rewards"]],
+                "calibration_estimator_mlp_vs_mlp_apply": fit_cal_err,
+                "served_offload_ratio": float(fit_out["offload_ratio"]),
+                "served_nll_final": float(fit_out["nll_final"].mean())},
         "peak_memory_gib": peak_gib,
         "checks": checks, "launches": launches, "launches_split": split,
     }
@@ -1398,6 +1833,7 @@ FLASH_SOURCES = {
     "simt": "src/repro_torch/kernels/csrc/flash_sdpa.cu",
 }
 LM_PATH_KERNELS = ("flash_sdpa", "wkv6", "estimator_mlp")  # each must launch in the lm phase
+TRAIN_PATH_KERNELS = ("iou_matrix_batch", "estimator_mlp", "score_pipeline")  # ... in the train phase
 HEAD_KERNELS = ("estimator_mlp", "score_pipeline")  # the reward head: timed at each main-path shape
 
 
@@ -1423,9 +1859,10 @@ def main() -> None:
     records.update(check_iou_routes(torch, timer, dev))
     records.update(check_lm_kernels(torch, timer, dev))
     detection, detection_split = serve(torch, smi, dev)
+    train_launches, train_split = train(torch, smi, dev)
     lm_launches, lm_split = lm_serve(torch, smi, dev)
-    paths = {"detection": detection, "lm": lm_launches}
-    splits = {"detection": detection_split, "lm": lm_split}
+    paths = {"detection": detection, "train": train_launches, "lm": lm_launches}
+    splits = {"detection": detection_split, "train": train_split, "lm": lm_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -1450,7 +1887,8 @@ def main() -> None:
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
             **({"sources_by_route": IOU_SOURCES,
-                "launches_by_route": detection_split[name]["by_route"],
+                "launches_by_route": {p: sp[name]["by_route"] for p, sp in splits.items()
+                                      if p != "lm"},
                 **{k: r[k] for k in ("path_ms", "host_us", "routes")}}
                if name in IOU_KERNELS else {}),
         })
@@ -1461,6 +1899,9 @@ def main() -> None:
     missing = [k for k in LM_PATH_KERNELS if paths["lm"][k] == 0]
     if missing:
         fail(f"kernels never launched on the LM path: {missing}")
+    missing = [k for k in TRAIN_PATH_KERNELS if paths["train"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the train path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

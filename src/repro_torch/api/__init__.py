@@ -1,5 +1,5 @@
-"""The OffloadEngine API: one decision-stack object, loaded from the
-artifact the JAX package fits and saves."""
+"""The OffloadEngine API: one decision-stack object, fitted on calibration
+data or loaded from an artifact either package saved."""
 from repro_torch.api.engine import DecisionBatch, OffloadEngine
 from repro_torch.api.features import (
     DetectionBoxFeatures,
@@ -22,6 +22,7 @@ from repro_torch.api.policies import (
     register_policy,
 )
 from repro_torch.api.reward_model import (
+    CNNRewardModel,
     MLPRewardModel,
     RewardModel,
     reward_model_from_state,
@@ -48,5 +49,6 @@ __all__ = [
     "register_policy",
     "RewardModel",
     "MLPRewardModel",
+    "CNNRewardModel",
     "reward_model_from_state",
 ]

@@ -1,15 +1,16 @@
-"""`OffloadEngine` — the decision stack at serve time.
+"""`OffloadEngine` — the decision stack.
 
     weak output --FeatureExtractor--> features
-                --RewardModel-------> reward estimate        (§V MLP)
+                --RewardModel-------> reward estimate        (§V MLP/CNN)
+                --RankTransform-----> MORIC rank target      (Eq. 6, fit time)
                 --Policy------------> offload decision       (§III threshold /
                                                               topk / token_bucket)
 
-An engine is fitted by the JAX package (``repro.api.OffloadEngine.fit``) and
-crosses over as the ``.npz`` artifact ``save`` writes; ``load`` rebuilds it
-on a device.  Estimates stay on the device from the detections to the
-policy boundary, where ``decide`` copies them to the host once.  ``fit``
-comes with the port's training slice.
+An engine is fitted once (``fit``), decides batches at serve time, and
+round-trips through ``save``/``load`` as the ``.npz`` artifact whose layout
+both packages share (an engine either package fitted loads in the other).
+Estimates stay on the device from the detections to the policy boundary,
+where ``decide`` copies them to the host once.
 """
 from __future__ import annotations
 
@@ -110,12 +111,26 @@ class OffloadEngine:
             return features.to(self.device, torch.float32)
         return torch.tensor(np.asarray(features), dtype=torch.float32, device=self.device)
 
-    def fit(self, weak_outputs: Any = None, rewards=None, *, features=None):
-        raise NotImplementedError(
-            "OffloadEngine.fit comes with the port's training slice (ROADMAP.md, "
-            "queue A: train/adamw.py, RewardEstimator.fit, OffloadEngine.fit); "
-            "fit with repro.api.OffloadEngine and load its saved artifact"
+    def fit(self, weak_outputs: Any = None, rewards=None, *, features=None) -> "OffloadEngine":
+        """Fit the rank transform and the reward model on calibration data,
+        then derive the policy from the calibration estimates (on the card
+        the ``estimator_mlp`` kernel's, for the fused MLP)."""
+        if rewards is None:
+            raise ValueError("fit() needs rewards")
+        x = self.features(weak_outputs, features=features)
+        r = np.asarray(rewards, np.float64)
+        if self.transform_kind == "cdf":
+            self.transform = CdfTransform(r)
+            y = self.transform(r)
+        else:
+            self.transform = None
+            y = r
+        self.reward_model.fit(x, y)
+        self.calibration_scores = np.asarray(self.reward_model.predict(x), np.float64)
+        self.policy = make_policy(
+            self.policy_name, self.calibration_scores, self.ratio, **self.policy_kwargs
         )
+        return self
 
     # ---------------------------------------------------------------- serve
 
@@ -158,7 +173,7 @@ class OffloadEngine:
         """Estimates (copied to the host here, once) and the policy's offload
         mask."""
         if self.policy is None:
-            raise RuntimeError("decide() before load()")
+            raise RuntimeError("decide() before fit()/load()")
         est = self.score_device(weak_outputs, features=features).cpu().numpy()
         mask = np.asarray(self.policy.decide_batch(est), bool)
         return DecisionBatch(estimates=est, offload=mask)
@@ -179,7 +194,7 @@ class OffloadEngine:
         """A clone sharing every fitted component under a different decision
         policy."""
         if self.calibration_scores is None:
-            raise RuntimeError("with_policy() before load()")
+            raise RuntimeError("with_policy() before fit()/load()")
         live_ratio = float(getattr(self.policy, "ratio", self.ratio))
         clone = OffloadEngine(
             feature_extractor=self.feature_extractor,
@@ -206,7 +221,7 @@ class OffloadEngine:
         """The calibrated stack as checkpoint ``(arrays, meta)`` — what
         ``save`` writes, in the JAX package's layout."""
         if self.calibration_scores is None:
-            raise RuntimeError("save() before load()")
+            raise RuntimeError("save() before fit()/load()")
         model_arrays, model_meta = self.reward_model.state()
         arrays: Dict[str, Any] = {
             "model": model_arrays,

@@ -1,7 +1,10 @@
-"""Carry weights from the JAX package's layout into the port's.
+"""Carry weights between the JAX package's layout and the port's, both ways.
 
-The reward model and the engine need no converter: they cross as the
-``.npz`` artifact ``save_flat`` writes, whose layout both packages share.
+Convolution weights are HWIO in ``repro`` and OIHW in the port; the MLP's
+``{"layer<i>": {"w": (in, out), "b": (out,)}}`` is the same in both.  The
+``*_to_jax`` functions give numpy arrays in ``repro``'s layout, which is also
+what the port writes to files (detector ``.npz`` caches, reward-model
+artifacts), so that either package reads what the other wrote.
 """
 from __future__ import annotations
 
@@ -27,6 +30,59 @@ def detector_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> Di
         state[f"{name}.weight"] = torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
         state[f"{name}.bias"] = torch.from_numpy(np.asarray(p["b"], np.float32).copy())
     return state
+
+
+def detector_params_to_jax(state: Mapping[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`detector_params_from_jax`: a ``Detector``
+    state dict (OIHW) to ``repro``'s parameter pytree as numpy (HWIO)."""
+    tree: Dict[str, Dict[str, np.ndarray]] = {}
+    for key, t in state.items():
+        name, kind = key.rsplit(".", 1)
+        arr = t.detach().cpu().numpy()
+        if kind == "weight":
+            tree.setdefault(name, {})["w"] = np.ascontiguousarray(arr.transpose(2, 3, 1, 0))
+        else:
+            tree.setdefault(name, {})["b"] = arr.copy()
+    return tree
+
+
+def mlp_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
+                        device: DeviceLike = "cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """``repro.core.estimator`` MLP parameters (numpy) to float32 tensors on
+    ``device``; the layout is the same."""
+    dev = resolve_device(device)
+    return {name: {k: torch.tensor(np.asarray(v, np.float32), device=dev) for k, v in layer.items()}
+            for name, layer in tree.items()}
+
+
+def mlp_params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The port's MLP parameters to numpy in ``repro``'s (the same) layout."""
+    return {name: {k: v.detach().cpu().numpy() for k, v in layer.items()}
+            for name, layer in params.items()}
+
+
+def cnn_params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],
+                        device: DeviceLike = "cuda") -> Dict[str, Dict[str, torch.Tensor]]:
+    """``repro.core.estimator.cnn_init``'s pytree (conv weights HWIO) to the
+    port's (OIHW) on ``device``; the dense head keeps its (in, out) layout."""
+    dev = resolve_device(device)
+    out = {}
+    for name, p in tree.items():
+        w = np.asarray(p["w"], np.float32)
+        w = w.transpose(3, 2, 0, 1) if w.ndim == 4 else w
+        out[name] = {"w": torch.tensor(np.ascontiguousarray(w), device=dev),
+                     "b": torch.tensor(np.asarray(p["b"], np.float32), device=dev)}
+    return out
+
+
+def cnn_params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[str, Dict[str, np.ndarray]]:
+    """The inverse of :func:`cnn_params_from_jax`, as numpy."""
+    out = {}
+    for name, p in params.items():
+        w = p["w"].detach().cpu().numpy()
+        out[name] = {"w": np.ascontiguousarray(w.transpose(2, 3, 1, 0)) if w.ndim == 4 else w,
+                     "b": p["b"].detach().cpu().numpy()}
+    return out
 
 
 # LM parameters the JAX layers use in float32 whatever the activation type

@@ -22,3 +22,18 @@ __device__ __forceinline__ float gelu_tanh(float x) {
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
+
+// max / min that propagate NaN, as jnp.maximum / jnp.minimum and
+// torch.maximum / clamp do (fmaxf and fminf return the operand that is not
+// NaN).  PTX max.NaN / min.NaN (sm_80+); on numbers they equal fmaxf / fminf.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}

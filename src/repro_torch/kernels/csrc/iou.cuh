@@ -38,16 +38,17 @@ __device__ __forceinline__ P* plan_at(unsigned char* smem, const IouPlan& p, int
 }
 
 __device__ __forceinline__ float box_area(float x1, float y1, float x2, float y2) {
-  return __fmul_rn(fmaxf(__fsub_rn(x2, x1), 0.0f), fmaxf(__fsub_rn(y2, y1), 0.0f));
+  return __fmul_rn(max_nan(__fsub_rn(x2, x1), 0.0f), max_nan(__fsub_rn(y2, y1), 0.0f));
 }
 
-// iou(a, g) for boxes [x1, y1, x2, y2].  A zero intersection gives 0
+// iou(a, g) for boxes [x1, y1, x2, y2].  A NaN coordinate in either box
+// makes the union NaN and the IoU 0, as in box_iou.  A zero intersection gives 0
 // without the division: 0 / u is 0 all the same, and the division's
 // full-range check sends a zero dividend to a slow subroutine (most pairs of
 // an image do not overlap).
 __device__ __forceinline__ float iou_pair(float4 a, float4 g) {
-  const float iw = fmaxf(__fsub_rn(fminf(a.z, g.z), fmaxf(a.x, g.x)), 0.0f);
-  const float ih = fmaxf(__fsub_rn(fminf(a.w, g.w), fmaxf(a.y, g.y)), 0.0f);
+  const float iw = max_nan(__fsub_rn(min_nan(a.z, g.z), max_nan(a.x, g.x)), 0.0f);
+  const float ih = max_nan(__fsub_rn(min_nan(a.w, g.w), max_nan(a.y, g.y)), 0.0f);
   const float inter = __fmul_rn(iw, ih);
   const float uni =
       __fsub_rn(__fadd_rn(box_area(a.x, a.y, a.z, a.w), box_area(g.x, g.y, g.z, g.w)), inter);

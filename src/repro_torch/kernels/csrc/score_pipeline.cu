@@ -145,10 +145,11 @@ __device__ void build_rows(float* xs, int ldx, int f0, int width, const SpScratc
       const float x2 = bx[2] / image_size, y2 = bx[3] / image_size;
       const float cx = (x1 + x2) / 2.0f;
       const float cy = (y1 + y2) / 2.0f;
-      const float w = fmaxf(x2 - x1, 0.0f);
-      const float h = fmaxf(y2 - y1, 0.0f);
+      // a NaN coordinate stays NaN in its features, as in box_feature_stack
+      const float w = max_nan(x2 - x1, 0.0f);
+      const float h = max_nan(y2 - y1, 0.0f);
       const float area = w * h;
-      const float aspect = fminf(fmaxf(w / fmaxf(h, 1e-6f), 0.0f), 10.0f) / 10.0f;
+      const float aspect = min_nan(max_nan(w / max_nan(h, 1e-6f), 0.0f), 10.0f) / 10.0f;
       fb[0] = t.scores[i] * m;
       fb[1] = cx * m;
       fb[2] = cy * m;

@@ -1,18 +1,18 @@
-"""Serving launcher: batched prefill + greedy decode on a reduced config (the
-generate mode of ``repro.launch.serve``).
+"""Serving launcher: batched prefill + greedy decode on a reduced config,
+with optional ORIC cascade gating (``repro.launch.serve``).
 
   python -m repro_torch.launch.serve --arch qwen2_7b --tokens 16
   python -m repro_torch.launch.serve --arch rwkv6_1b6 --device cpu
+  python -m repro_torch.launch.serve --arch qwen2_7b --cascade
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--cascade`` (fit an
-``LMCascade`` and serve through it) needs the port's training slice
-(ROADMAP.md queue A item 1) and raises until then.
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--cascade`` fits an
+``LMCascade`` on one calibration batch and serves that batch through it.
 """
 from __future__ import annotations
 
 import argparse
 import time
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -21,10 +21,13 @@ from repro_torch.configs import get_config
 from repro_torch.data.lm_synth import synth_lm_batch
 from repro_torch.kernels.dispatch import resolve_device
 from repro_torch.models.lm import init_params, reduced
+from repro_torch.serving.cascade_serving import LMCascade
 from repro_torch.serving.decode_loop import generate
 
 
-def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
+def main(argv: Optional[Sequence[str]] = None) -> Union[torch.Tensor, Dict]:
+    """The generated tokens, or with ``--cascade`` the served batch's result
+    (``LMCascade.serve_batch``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--batch", type=int, default=8)
@@ -35,18 +38,23 @@ def main(argv: Optional[Sequence[str]] = None) -> torch.Tensor:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
-    if args.cascade:
-        raise NotImplementedError(
-            "--cascade fits an LMCascade, which comes with the port's training slice "
-            "(ROADMAP.md queue A item 1); fit with `python -m repro.launch.serve "
-            "--cascade` and serve the saved engine through LMCascade.load"
-        )
     dev = resolve_device(args.device)
     cfg = reduced(get_config(args.arch))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
-    toks, _ = synth_lm_batch(np.random.default_rng(args.seed), args.batch, args.prompt_len,
-                             cfg.vocab_size)
+    toks, labels = synth_lm_batch(np.random.default_rng(args.seed), args.batch, args.prompt_len,
+                                  cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
+
+    if args.cascade:
+        cal = dict(batch, labels=torch.from_numpy(labels).to(dev))
+        cascade = LMCascade.fit(params, cfg, exit_layer=max(cfg.num_layers // 2, 1),
+                                calib_batches=[cal], ratio=0.25, epochs=10)
+        out = cascade.serve_batch(params, cal)
+        print(f"cascade: offload_ratio={out['offload_ratio']:.2f} "
+              f"nll weak={out['nll_weak'].mean():.4f} "
+              f"strong={out['nll_strong'].mean():.4f} "
+              f"final={out['nll_final'].mean():.4f}")
+        return out
 
     t0 = time.perf_counter()
     out = generate(params, cfg, batch, steps=args.tokens)

@@ -5,10 +5,12 @@ from repro_torch.models.detector import (
     WEAK,
     Detector,
     DetectorConfig,
+    build_targets,
     decode_batch,
     decode_detections,
     detector_apply,
     detector_forward,
+    detector_loss,
 )
 
 __all__ = [
@@ -16,8 +18,10 @@ __all__ = [
     "WEAK",
     "Detector",
     "DetectorConfig",
+    "build_targets",
     "decode_batch",
     "decode_detections",
     "detector_apply",
     "detector_forward",
+    "detector_loss",
 ]

@@ -17,8 +17,9 @@ Parity with ``repro.models.detector``:
 * GELU is the tanh approximation, as ``jax.nn.gelu``.
 * Images and head outputs are NHWC at the public functions.
 
-Training (``build_targets``, ``detector_loss``) comes with the port's
-training slice.
+Training: ``build_targets`` is a host numpy copy of ``repro``'s (bit-equal)
+and ``detector_loss`` the same loss on the module's own (autograd) forward;
+``detector_apply`` / ``detector_forward`` are inference only.
 """
 from __future__ import annotations
 
@@ -65,6 +66,15 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def conv2d_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, stride: int) -> torch.Tensor:
+    """``lax.conv_general_dilated(..., padding="SAME")`` on NCHW ``x`` and an
+    OIHW ``weight``: pad by XLA's rule, then convolve unpadded."""
+    k = weight.shape[-1]
+    top, bottom = _same_pad(x.shape[2], k, stride)
+    left, right = _same_pad(x.shape[3], k, stride)
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), weight, bias, stride=stride)
+
+
 class Detector(nn.Module):
     """The grid detector of ``cfg``; weights are He-normal draws from
     ``generator`` (on the CPU, then moved to ``device``) until a state dict is
@@ -106,9 +116,7 @@ class Detector(nn.Module):
         h = images.permute(0, 3, 1, 2)
         for i in range(len(self.cfg.widths)):
             conv_a = getattr(self, f"stage{i}_a")
-            top, bottom = _same_pad(h.shape[2], 3, 2)
-            left, right = _same_pad(h.shape[3], 3, 2)
-            h = _gelu(conv_a(F.pad(h, (left, right, top, bottom))))
+            h = _gelu(conv2d_same(h, conv_a.weight, conv_a.bias, 2))
             h = _gelu(getattr(self, f"stage{i}_b")(h))
         feat = h
         h = _gelu(self.head_hidden(h))
@@ -118,6 +126,75 @@ class Detector(nn.Module):
 
 def _images(detector: Detector, images) -> torch.Tensor:
     return torch.as_tensor(images, dtype=torch.float32).to(detector.device)
+
+
+def build_targets(
+    cfg: DetectorConfig, boxes: np.ndarray, classes: np.ndarray
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Host-side target assignment for a padded batch (copied from the JAX
+    package): boxes (B, M, 4) pixels, classes (B, M) with -1 padding ->
+    obj (B, G, G), cls (B, G, G) int32, box (B, G, G, 4) normalized targets.
+    Each object goes to the cell of its centre; a larger object overwrites a
+    smaller one in the same cell."""
+    B, M, _ = boxes.shape
+    G = cfg.grid
+    cell = cfg.image_size / G
+    obj = np.zeros((B, G, G), dtype=np.float32)
+    cls_t = np.zeros((B, G, G), dtype=np.int32)
+    box_t = np.zeros((B, G, G, 4), dtype=np.float32)
+    area = np.clip(boxes[..., 2] - boxes[..., 0], 0, None) * np.clip(
+        boxes[..., 3] - boxes[..., 1], 0, None
+    )
+    order = np.argsort(area, axis=1)  # small first so large overwrite
+    for b in range(B):
+        for m in order[b]:
+            if classes[b, m] < 0:
+                continue
+            x1, y1, x2, y2 = boxes[b, m]
+            cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+            gx = min(int(cx / cell), G - 1)
+            gy = min(int(cy / cell), G - 1)
+            obj[b, gy, gx] = 1.0
+            cls_t[b, gy, gx] = classes[b, m]
+            box_t[b, gy, gx] = [
+                cx / cell - gx,  # offset in cell, (0,1)
+                cy / cell - gy,
+                (x2 - x1) / cfg.image_size,  # size as image fraction
+                (y2 - y1) / cfg.image_size,
+            ]
+    return obj, cls_t, box_t
+
+
+def detector_loss(detector: Detector, images, obj_t, cls_t, box_t) -> torch.Tensor:
+    """``repro.models.detector.detector_loss`` on the module's forward, with
+    autograd: objectness BCE (positive cells weighted 5), class CE on
+    positive cells, smooth-L1 on the sigmoid boxes of positive cells (x2).
+    Targets are host arrays or tensors, moved to the detector's device."""
+    cfg = detector.cfg
+    dev = detector.device
+    obj_t = torch.as_tensor(obj_t, dtype=torch.float32).to(dev)
+    cls_t = torch.as_tensor(cls_t).to(dev, torch.int64)
+    box_t = torch.as_tensor(box_t, dtype=torch.float32).to(dev)
+    out, _ = detector(_images(detector, images))
+    obj_logit = out[..., 0]
+    cls_logit = out[..., 1 : 1 + cfg.num_classes]
+    box_raw = out[..., 1 + cfg.num_classes :]
+    # torch.maximum splits the gradient at a tie as jnp.maximum does
+    # (relu / clamp_min give it all to one side)
+    obj_bce = torch.maximum(obj_logit, torch.zeros_like(obj_logit)) - obj_logit * obj_t + torch.log1p(
+        torch.exp(-torch.abs(obj_logit))
+    )
+    w_pos = 5.0
+    obj_loss = torch.mean(obj_bce * torch.where(obj_t > 0, w_pos, 1.0))
+    logp = F.log_softmax(cls_logit, dim=-1)
+    ce = -torch.gather(logp, -1, cls_t[..., None])[..., 0]
+    n_pos = torch.clamp(torch.sum(obj_t), min=1.0)
+    cls_loss = torch.sum(ce * obj_t) / n_pos
+    box_pred = torch.sigmoid(box_raw)
+    diff = torch.abs(box_pred - box_t)
+    sl1 = torch.where(diff < 1.0, 0.5 * diff * diff, diff - 0.5).sum(-1)
+    box_loss = torch.sum(sl1 * obj_t) / n_pos
+    return obj_loss + cls_loss + 2.0 * box_loss
 
 
 @torch.no_grad()

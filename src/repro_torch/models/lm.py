@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.models.layers import (
     AttnConfig,
     RWKV6Config,
@@ -214,19 +215,6 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
             "ln2": layernorm_init(M, dt, **kw),
         }
     return p
-
-
-def tree_map(fn, tree: PyTree) -> PyTree:
-    """``fn`` applied to every tensor of a nested parameter dict."""
-    return {k: tree_map(fn, v) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
-
-
-def tree_leaves(tree: PyTree):
-    for v in tree.values():
-        if isinstance(v, dict):
-            yield from tree_leaves(v)
-        else:
-            yield v
 
 
 def layer_params(stack: PyTree, i: int) -> PyTree:

@@ -7,11 +7,12 @@ head; the "strong detector" is the full depth.  One
 features of the weak logits -> the one-hidden-layer MLP (the
 ``estimator_mlp`` kernel) -> quantile threshold.
 
-The engine is fitted by the JAX package (``repro``'s ``LMCascade.fit``) and
-crosses over as the artifact ``save`` writes; ``fit`` comes with the port's
-training slice (ROADMAP.md queue A item 1) and ``serve_stream`` with
-``runtime.session.OffloadSession`` (queue A item 2).  The port runs the dense
-and RWKV stacks (single layer stacks); MoE's two-stack split waits with MoE.
+``fit`` computes the oracle rewards (NLL_weak - NLL_strong) on calibration
+batches and fits the engine on the weak logits' features; an engine either
+package fitted crosses over as the artifact ``save`` writes.
+``serve_stream`` comes with ``runtime.session.OffloadSession`` (ROADMAP.md
+queue A item 2).  The port runs the dense and RWKV stacks (single layer
+stacks); MoE's two-stack split waits with MoE.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.api import OffloadEngine
+from repro_torch.api import LMLogitsFeatures, MLPRewardModel, OffloadEngine
 from repro_torch.api.features import logits_features  # re-export, as in repro
+from repro_torch.core.estimator import EstimatorConfig
 from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.models.lm import LMConfig, check_arch, forward, tree_map
 from repro_torch.serving import timing
@@ -90,12 +92,45 @@ class LMCascade:
         return self.engine.policy
 
     @classmethod
-    def fit(cls, *args, **kwargs) -> "LMCascade":
-        raise NotImplementedError(
-            "LMCascade.fit comes with the port's training slice (ROADMAP.md queue A "
-            "item 1); fit with repro.serving.cascade_serving.LMCascade, save, and "
-            "load the artifact with LMCascade.load"
+    def fit(
+        cls,
+        params: PyTree,
+        cfg: LMConfig,
+        exit_layer: int,
+        calib_batches,  # iterable of batches (tokens + labels)
+        ratio: float = 0.2,
+        epochs: int = 40,
+        seed: int = 0,
+    ) -> "LMCascade":
+        """Oracle rewards on the calibration batches, then the engine (the
+        MORIC estimator on the weak logits' features + quantile threshold)
+        fitted on the parameters' device.  Each batch's logits are reduced
+        to features and NLLs before the next forward, so at most one
+        (B, S, V) logits tensor is alive at a time."""
+        dev = params["embed"].device
+        wcfg = truncated_config(cfg, exit_layer)
+        wparams = truncate_params(params, cfg, exit_layer)
+        extractor = LMLogitsFeatures(device=dev)
+        feats, rewards = [], []
+        with torch.no_grad():
+            for batch in calib_batches:
+                wlogits, _ = forward(wparams, wcfg, batch)
+                nll_w = sequence_nll(wlogits, batch["labels"])
+                feats.append(extractor((wlogits, batch["labels"])))
+                del wlogits
+                slogits, _ = forward(params, cfg, batch)
+                nll_s = sequence_nll(slogits, batch["labels"])
+                del slogits
+                rewards.append((nll_w - nll_s).cpu().numpy())  # > 0: offload helps
+        engine = OffloadEngine(
+            feature_extractor=extractor,
+            reward_model=MLPRewardModel(
+                config=EstimatorConfig(hidden=(64,), epochs=epochs, seed=seed), device=dev
+            ),
+            ratio=ratio,
         )
+        engine.fit(features=torch.cat(feats), rewards=np.concatenate(rewards))
+        return cls(cfg=cfg, exit_layer=exit_layer, engine=engine)
 
     @torch.no_grad()
     def serve_batch(self, params: PyTree, batch: Dict, *,

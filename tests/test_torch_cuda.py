@@ -212,6 +212,89 @@ def test_routes_refuse_past_limits(dev):
     assert _route_counts() == before
 
 
+def _with_nan(a, at):
+    """A copy of boxes ``a`` (B, N, 4) with NaN at each (image, slot,
+    coordinate) of ``at``."""
+    a = a.copy()
+    for b, i, j in at:
+        a[b, i, j] = np.nan
+    return a
+
+
+# one NaN coordinate in a box, each of x1, y1, x2, y2 once
+NAN_AT = ((0, 1, 0), (1, 2, 1), (1, 5, 2), (2, 0, 3))
+
+
+@pytest.mark.parametrize("side", ["first", "second", "both"])
+def test_iou_routes_nan_boxes_equal_plain(dev, side):
+    """A NaN coordinate in either box gives box_iou's 0 on every route (C's
+    fmaxf / fminf drop the NaN: [NaN, 0, 5, 10] against [0, 0, 10, 10] gave
+    1), so the matrix, the NMS keeps and the matches equal the plain
+    versions exactly."""
+    rng = np.random.default_rng(11)
+    first, second = side in ("first", "both"), side in ("second", "both")
+    p = torch.tensor([[float("nan"), 0, 5, 10]], device=dev)
+    q = torch.tensor([[0.0, 0, 10, 10]], device=dev)
+    p, q = (p, p) if first and second else (p, q) if first else (q, p)
+    assert iou_matrix(p, q).tolist() == [[0.0]] == iou_matrix_ref(p, q).tolist()
+
+    a, g = boxes(rng, (3, 8)), boxes(rng, (3, 6))
+    a, g = (_with_nan(a, NAN_AT) if first else a), (_with_nan(g, NAN_AT) if second else g)
+    a, g = torch.tensor(a, device=dev), torch.tensor(g, device=dev)
+    assert torch.equal(iou_matrix_batch(a, g), iou_matrix_batch_ref(a, g))
+    assert torch.equal(iou_matrix(a[0], g[0]), iou_matrix_ref(a[0], g[0]))
+
+    if side != "second":  # NMS has one box set: NaN in a top-scored box and in others
+        b, s, c = (t.cpu().numpy() for t in _nms_case(rng, 4, 64, dev, pad=8))
+        at = [(i, int(np.argmax(s[i])), j) for i, _, j in NAN_AT] + list(NAN_AT)
+        args = (torch.tensor(_with_nan(b, at), device=dev), torch.tensor(s, device=dev),
+                torch.tensor(c, device=dev), 0.45, 0.25)
+        for B in (1, 4):
+            got = nms_keep(*(t[:B] for t in args[:3]), *args[3:])
+            assert torch.equal(got, nms_keep_ref(*(t[:B] for t in args[:3]), *args[3:]))
+
+    m = [t.cpu().numpy() for t in _match_case(rng, 3, 64, 8, dev, empty=0)]
+    at = [(i, 0, j) for i, _, j in NAN_AT]
+    if first:
+        m[0] = _with_nan(m[0], at)
+    if second:
+        m[4] = _with_nan(m[4], at)
+    args = [torch.tensor(x, device=dev) for x in m] + [torch.tensor(COCO, device=dev)]
+    for B in (1, 3):
+        tp, mj = greedy_match(*(t[:B] for t in args[:7]), args[7])
+        want_tp, want_mj = greedy_match_ref(*(t[:B] for t in args[:7]), args[7])
+        assert torch.equal(tp, want_tp) and torch.equal(mj, want_mj)
+
+
+def test_score_pipeline_nan_boxes(dev):
+    """A NaN coordinate stays NaN in its box features (box_feature_stack's
+    w, h and aspect), so the image's estimate is NaN as in the plain version;
+    the NaN pattern is held exactly, the other estimates at 2e-6."""
+    rng = np.random.default_rng(12)
+    B, K = 64, 64
+    at = [(i, i % 3, i % 4) for i in range(0, B, 5)]
+    scores, mask = rng.uniform(0, 1, (B, K)).astype(np.float32), rng.uniform(0, 1, (B, K)) < 0.7
+    for i, k, _ in at:  # a valid box of the top k
+        scores[i, k], mask[i, k] = 1.0, True
+    batch = DetectionsBatch(
+        boxes=torch.tensor(_with_nan(boxes(rng, (B, K)), at), device=dev),
+        scores=torch.tensor(scores, device=dev),
+        classes=torch.tensor(rng.integers(0, NUM_CLASSES, (B, K)).astype(np.int32), device=dev),
+        mask=torch.tensor(mask, device=dev),
+    )
+    w1, b1, w2, b2 = mlp(rng, F, 128, dev)
+    params = dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=torch.zeros(F, device=dev),
+                  sigma=torch.ones(F, device=dev))
+    for rows in (slice(0, 1), slice(0, B)):
+        sub = DetectionsBatch(boxes=batch.boxes[rows], scores=batch.scores[rows],
+                              classes=batch.classes[rows], mask=batch.mask[rows])
+        got = score_pipeline(sub, params, num_classes=NUM_CLASSES, top_k=TOP_K, image_size=64.0)
+        want = score_pipeline_ref(sub.boxes, sub.scores, sub.classes, sub.mask, *params.values(),
+                                  64.0, NUM_CLASSES, TOP_K)
+        assert torch.equal(got.isnan(), want.isnan()) and want.isnan().any()
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0, equal_nan=True)
+
+
 def _aten_ops(fn):
     """The aten ops ``fn`` dispatches."""
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -506,3 +589,61 @@ def test_lm_decode_matches_forward_on_card(dev, arch):
     dl, _ = lm.decode_step(params, cfg, cache, nxt, 16)
     full, _ = lm.forward(params, cfg, {"tokens": torch.cat([toks, nxt[:, None]], 1)})
     torch.testing.assert_close(dl, full[:, -1], atol=5e-4, rtol=0)
+
+
+@pytest.fixture
+def no_tf32():
+    """Full float32 convolutions and products, as chip_smoke.py sets them."""
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = flags
+
+
+def test_train_detector_on_card_matches_cpu(dev, no_tf32):
+    """A few AdamW steps at reduced width from one seeded start (drawn on
+    the CPU) on the card and on the CPU: loss traces at 1e-4 relative, every
+    weight within 2 lr_sum, at most 1% of them beyond 1e-5 (the tolerance
+    the port is held to against repro, tests/test_torch_train.py)."""
+    from repro_torch.data.shapes import ShapesDataset
+    from repro_torch.models.detector import DetectorConfig
+    from repro_torch.train.schedule import warmup_cosine
+    from repro_torch.train.trainer import train_detector
+
+    cfg = DetectorConfig("tiny", widths=(8, 16, 16), head_width=16)
+    ds = ShapesDataset.generate(96, seed=3)
+    card, card_loss = train_detector(cfg, ds, steps=6, batch_size=32, log_every=0, device=dev)
+    cpu, cpu_loss = train_detector(cfg, ds, steps=6, batch_size=32, log_every=0, device="cpu")
+    np.testing.assert_allclose(card_loss, cpu_loss, rtol=1e-4)
+    sched = warmup_cosine(3e-3, 1, 6)
+    lr_sum = sum(sched(i) for i in range(6))
+    far = total = 0
+    for k, w in cpu.state_dict().items():
+        d = (card.state_dict()[k].cpu() - w).abs()
+        assert float(d.max()) <= 2 * lr_sum, k
+        far, total = far + int((d > 1e-5).sum()), total + d.numel()
+    assert far <= 0.01 * total
+
+
+def test_engine_fit_on_card_matches_cpu(dev, no_tf32):
+    """A short fit (3 epochs) of the reward estimator on the card and on the
+    CPU from one start and the same features: calibration estimates (one
+    estimator_mlp launch on the card) within 1e-4, decisions equal."""
+    from repro_torch.api import MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+
+    rng = np.random.default_rng(5)
+    x = rng.normal(0, 1, (600, F)).astype(np.float32) * (rng.uniform(0, 1, F) < 0.5)
+    rewards = rng.normal(0, 1, 600) * (rng.uniform(0, 1, 600) < 0.4)
+
+    def fit(device):
+        model = MLPRewardModel(config=EstimatorConfig(hidden=(128,), epochs=3), device=device)
+        return OffloadEngine(reward_model=model, ratio=0.2, device=device).fit(
+            features=torch.tensor(x, device=device), rewards=rewards)
+
+    before = estimator_mlp.launches
+    card = fit(dev)
+    assert estimator_mlp.launches == before + 1 and card.reward_model.fused
+    cpu = fit("cpu")
+    np.testing.assert_allclose(card.calibration_scores, cpu.calibration_scores, atol=1e-4)
+    np.testing.assert_array_equal(card.decide(features=x).offload, cpu.decide(features=x).offload)

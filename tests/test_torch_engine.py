@@ -110,13 +110,6 @@ def test_empty_request(artifact):
     assert dec.estimates.shape == (0,) and dec.offload.shape == (0,)
 
 
-def test_fit_waits_for_training_slice(artifact):
-    _, path = artifact
-    teng = OffloadEngine.load(path, device="cpu")
-    with pytest.raises(NotImplementedError, match="training slice"):
-        teng.fit(features=np.zeros((4, 387), np.float32), rewards=np.zeros(4))
-
-
 def test_pipeline_params_cached_by_identity(artifact):
     _, path = artifact
     model = OffloadEngine.load(path, device="cpu").reward_model

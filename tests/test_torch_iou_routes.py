@@ -315,3 +315,84 @@ def test_lane_argmax_emulation_equals_plain(M):
         got_tp, got_mj = _emulate_match(*[a[b] for a in arrays], COCO[:3])
         np.testing.assert_array_equal(got_tp, tp[b].numpy())
         np.testing.assert_array_equal(got_mj, mj[b].numpy())
+
+
+def _with_nan(a, at):
+    """A copy of boxes ``a`` (B, N, 4) with NaN at each (image, slot,
+    coordinate) of ``at``."""
+    a = a.copy()
+    for b, i, j in at:
+        a[b, i, j] = np.nan
+    return a
+
+
+# one NaN coordinate in a box, each of x1, y1, x2, y2 once
+NAN_AT = ((0, 1, 0), (1, 2, 1), (1, 5, 2), (2, 0, 3))
+
+
+@pytest.mark.parametrize("side", ["first", "second", "both"])
+def test_plain_versions_equal_repro_on_nan_boxes(side):
+    """A box with a NaN coordinate has a NaN union, so its IoU is 0 in
+    ``box_iou`` and in ``repro`` (the card's routes are held to these plain
+    versions exactly in tests/test_torch_cuda.py).  NMS keeps, the matching
+    and the fused score pipeline's NaN estimates equal ``repro``'s too."""
+    from repro.kernels.iou_matrix import iou_matrix_batch as j_iou_batch
+    from repro.kernels.score_pipeline import score_pipeline as j_score
+    from repro_torch.kernels.iou_matrix import iou_matrix_batch_ref, iou_matrix_ref
+    from repro_torch.kernels.score_pipeline import score_pipeline_ref
+
+    first, second = side in ("first", "both"), side in ("second", "both")
+    rng = np.random.default_rng(5)
+    # the pair of the fault: [NaN, 0, 5, 10] against [0, 0, 10, 10]
+    p, q = np.array([[np.nan, 0, 5, 10]], np.float32), np.array([[0, 0, 10, 10]], np.float32)
+    p, q = (p, q) if first else (q, p)
+    if first and second:
+        q = p
+    assert iou_matrix_ref(torch.tensor(p), torch.tensor(q)).tolist() == [[0.0]]
+
+    a, g = _boxes(rng, (3, 8)), _boxes(rng, (3, 6))
+    a, g = (_with_nan(a, NAN_AT) if first else a), (_with_nan(g, NAN_AT) if second else g)
+    want = np.asarray(j_iou_batch(jnp.asarray(a), jnp.asarray(g)))
+    np.testing.assert_array_equal(iou_matrix_batch_ref(torch.tensor(a), torch.tensor(g)).numpy(), want)
+    np.testing.assert_array_equal(
+        np.asarray(j_iou_batch(jnp.asarray(a), jnp.asarray(g), interpret=True)), want)
+    hit = np.zeros(want.shape, bool)
+    for b, i, _ in NAN_AT:
+        if first:
+            hit[b, i, :] = True
+        if second:
+            hit[b, :, i] = True
+    assert (want[hit] == 0).all() and (want[~hit] > 0).any()
+
+    boxes, scores, classes = _nms_inputs(rng, 3, 64)
+    boxes = _with_nan(boxes, [(b, int(np.argmax(scores[b])), j) for b, _, j in NAN_AT] + list(NAN_AT))
+    want = _j_nms(boxes, scores, classes, 0.45, 0.25)
+    np.testing.assert_array_equal(
+        nms_keep_ref(torch.tensor(boxes), torch.tensor(scores), torch.tensor(classes), 0.45, 0.25).numpy(),
+        want)
+
+    arrays = list(_match_inputs(rng, 3, 64, 8, empty_images=0))
+    at = [(b, 0, j) for b, _, j in NAN_AT]
+    if first:
+        arrays[0] = _with_nan(arrays[0], at)
+    if second:
+        arrays[4] = _with_nan(arrays[4], at)
+    want, ref, _ = _match_both(tuple(arrays), COCO)
+    np.testing.assert_array_equal(ref[0].numpy(), want.tp)
+    np.testing.assert_array_equal(ref[1].numpy(), want.match_gt)
+
+    det, d_scores, d_classes, d_mask = arrays[:4]
+    F = 25 * (7 + 8) + 4 + 8
+    params = {"w1": rng.normal(0, 0.1, (F, 32)), "b1": rng.normal(0, 0.1, 32),
+              "w2": rng.normal(0, 0.1, 32), "b2": np.float64(0.05), "mu": rng.normal(0, 0.1, F),
+              "sigma": rng.uniform(0.5, 2.0, F)}
+    params = {k: np.asarray(v, np.float32) for k, v in params.items()}
+    kw = dict(num_classes=8, top_k=25, image_size=64.0)
+    want = np.asarray(j_score(JDB(boxes=det, scores=d_scores, classes=d_classes, mask=d_mask),
+                              {k: jnp.asarray(v) for k, v in params.items()}, **kw))
+    got = score_pipeline_ref(*(torch.tensor(x) for x in (det, d_scores, d_classes, d_mask)),
+                             *(torch.tensor(params[k]) for k in ("w1", "b1", "w2", "b2", "mu", "sigma")),
+                             64.0, 8, 25).numpy()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=0)
+    assert np.isnan(want).any() == first

@@ -26,7 +26,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.serving.cascade_serving import truncate_params, truncated_config
 from repro_torch.serving.decode_loop import generate
 
-ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "rwkv6_1b6"]
+ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "qwen1_5_32b", "rwkv6_1b6"]
 B, S = 2, 16
 
 
@@ -283,7 +283,7 @@ def test_truncate_params_shares_storage(models):
     assert logits.shape == (B, S, tcfg.vocab_size)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(ARCHS) - {"qwen1_5_32b"}))
+@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(ARCHS)))
 def test_unported_families_raise(arch):
     cfg = tlm.reduced(get_config(arch))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
