@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the detection
-serve path, the training slice (both detectors trained, the engine fitted)
-and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b at full width).
+serve path, the training slice (both detectors trained, the engine fitted),
+the streaming runtime over the trained engine, and the LM early-exit cascade
+(qwen2-7b and rwkv6-1.6b at full width, in batches and as streams).
 
     python3 chip_smoke.py
 
@@ -28,7 +29,7 @@ first use.  Phases, each printing one line of its own:
                the plain version's and (for flash_sdpa)
                ``scaled_dot_product_attention``'s time at the main-path
                prefill and decode shapes, and the bound; ``estimator_mlp``
-               and ``score_pipeline`` at each of the eight shapes the main
+               and ``score_pipeline`` at each of the nine shapes the main
                paths launch them (``time_head``), back to back and right
                after the PyTorch op that precedes them on the path, with
                the host's microseconds a call and the launch plan (cluster
@@ -70,7 +71,31 @@ first use.  Phases, each printing one line of its own:
                detector under ``torch.profiler`` for a step's device time.
                Prints steps/s, losses, stage seconds and the weak-only,
                strong-only and served cascade mAPs.
-6. ``lm``      the LM early-exit cascade, once per family at full width
+6. ``stream``  the streaming runtime over the train phase's engine, every
+               launch count set to 0 first: the val split's 2000 frames
+               through WEAK + NMS a request of 64 at a time, each request
+               through ``OffloadSession.submit_batch`` (the fast path, one
+               ``score_pipeline`` launch), the frames' features through
+               ``simulate`` (``OffloadRuntime`` over
+               ``default_edge_fleet(3, seed=0)``, ``least_loaded``,
+               ``degrade``, micro-batches of 8, re-budgeted 0.2 -> 0.1 at
+               frame 1000, one frame a time unit, under ``Obs``; the
+               buffered path, ``estimator_mlp`` a drain), then 64 frames
+               one at a time through WEAK + NMS and
+               ``OffloadSession.submit``.  Fails unless the fast path equals
+               the train phase's ``engine.decide`` bit for bit, the buffered
+               path and the single frames hold within 1e-5 with decisions
+               equal away from the threshold (flips near it counted), a
+               second ``simulate`` on the card repeats the trace record for
+               record, the same ``simulate`` on the CPU (the engine artifact
+               loaded there) repeats it up to the first decision that
+               flipped near the threshold, the realized ratio is within 0.02
+               of 0.2 before and of 0.1 after the re-budget, and ``Obs``
+               counts 2000 frames, a ``session.flush`` span a drain and the
+               wrappers' launches.  Prints frames/s through ``simulate``, the
+               host ms a drain (``session.score`` / ``session.decide``) and
+               the dispatcher's outcomes.
+7. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
@@ -80,7 +105,13 @@ first use.  Phases, each printing one line of its own:
                through ``serve_batch``; 16 greedy tokens a row through the
                stack its decision chose; ``LMCascade.fit`` on two more
                8 x 512 batches and one ``serve_batch`` through the fitted
-               cascade.  Then, outside the count: the fit's calibration
+               cascade.  Then, counted as the stream path: the 4 batches
+               through ``serve_stream`` (masks and estimates must equal
+               ``serve_batch``'s bit for bit), again with a re-budget to 0.5
+               at request 16 (masks may change from there on only, to the
+               new threshold's), and ``cascade_generate`` on the first
+               batch (tokens must equal the ones ``generate`` gave each
+               row's stack).  Then, outside the count: the fit's calibration
                estimates against ``mlp_apply`` (1e-5), decode
                against the forward, the weak logits against the plain
                versions (bf16 as served, and float32), and the decisions
@@ -89,13 +120,16 @@ first use.  Phases, each printing one line of its own:
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-7. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+8. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
                launch of the main paths; for the IoU kernels, each route's
-               source, launches and timed shapes).
+               source, launches and timed shapes).  The paths: detection,
+               train, stream (the detection stream and both LM streams) and
+               lm; the run fails if score_pipeline, estimator_mlp or
+               iou_matrix_batch never launched on the stream path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -390,7 +424,8 @@ def time_head(torch, timer, dev):
                            (LM_BATCH, 12, LM_HIDDEN, "LM cascade decide"),
                            (N_VAL, F, HIDDEN, "OffloadEngine.fit's calibration estimates (train)"),
                            (LM_FIT_BATCHES * LM_BATCH, 12, LM_HIDDEN,
-                            "LMCascade.fit's calibration estimates")):
+                            "LMCascade.fit's calibration estimates"),
+                           (STREAM_MICRO_BATCH, F, HIDDEN, "a stream's micro-batch drain")):
         x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
         mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
         sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
@@ -1311,7 +1346,9 @@ def train(torch, smi, dev):
         "launches": launches, "iou_routes": routes, "nms_calls": nms_calls,
         "match_calls": match_calls, "card": smi,
     })
-    return launches, split
+    trained = {"engine": engine, "val": val, "weak": detectors["weak"],
+               "weak_batches": weak_batches, "estimates": estimates, "offload": offload}
+    return launches, split, trained
 
 
 def step_device_ms(torch, cfg, ds, dev, steps=PROFILED_STEPS):
@@ -1349,9 +1386,223 @@ def step_device_ms(torch, cfg, ds, dev, steps=PROFILED_STEPS):
 
 # --------------------------------------------------------------- the LM slice
 
+# --------------------------------------------------------------- the streaming runtime
+
+# The stream phase: the val split's frames, one per time unit, through
+# OffloadRuntime over default_edge_fleet(3, seed=0) (least_loaded, degrade)
+# in micro-batches of STREAM_MICRO_BATCH, re-budgeted mid-stream; then
+# STREAM_SINGLE_FRAMES frames through OffloadSession.submit one at a time.
+STREAM_MICRO_BATCH, STREAM_RATIO, STREAM_REBUDGET = 8, 0.2, {1000: 0.1}
+STREAM_SINGLE_FRAMES = 64
+STREAM_RATIO_TOL = 0.02  # realized ratio before / after the re-budget
+STREAM_EST_TOL = 1e-5  # estimator_mlp against score_pipeline: two kernels, two summation orders
+STREAM_PATH_KERNELS = ("score_pipeline", "estimator_mlp", "iou_matrix_batch")  # each must launch
+
+
+def hold_flips(what, got_est, got_offload, want_est, thresholds):
+    """Decisions ``got_offload`` (from estimates ``got_est``) against the
+    threshold policy on ``want_est``: estimates within STREAM_EST_TOL, and a
+    decision may differ only where an estimate lies within STREAM_EST_TOL of
+    its threshold.  Returns the counts, for the report."""
+    err = float(np.abs(got_est - want_est).max()) if len(want_est) else 0.0
+    expected = want_est > thresholds
+    near = np.abs(want_est - thresholds) <= STREAM_EST_TOL
+    flips = got_offload != expected
+    if not err <= STREAM_EST_TOL or (flips & ~near).any():
+        fail(f"{what}: estimates differ by {err} (tolerance {STREAM_EST_TOL}); "
+             f"{int((flips & ~near).sum())} decisions differ away from the threshold")
+    return {"max_abs_err": err, "flips": int(flips.sum()), "near_threshold_rows": int(near.sum())}
+
+
+def stream(torch, smi, dev, trained):
+    """The streaming runtime on the card, counted: the val split through WEAK
+    + NMS a request of 64 at a time, each request through
+    ``OffloadSession.submit_batch`` (the fast path, ``score_pipeline``), the
+    frames' features through ``simulate`` (the buffered path,
+    ``estimator_mlp`` a micro-batch, under ``Obs``), then single frames
+    through WEAK + NMS and ``OffloadSession.submit``.  Then, outside the
+    count: the fast path against the train phase's ``engine.decide``, the
+    buffered path against the fast path, a second ``simulate`` on the card
+    and one on the CPU against the first, the realized ratios around the
+    re-budget and the observability plane.  Returns the launches of the
+    counted run and their split."""
+    from repro_torch.api import OffloadEngine
+    from repro_torch.core.policy import ThresholdPolicy
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models.detector import decode_batch
+    from repro_torch.obs import Obs
+    from repro_torch.runtime import OffloadSession, default_edge_fleet, simulate
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    engine, val, weak = trained["engine"], trained["val"], trained["weak"]
+    sim = dict(strategy="least_loaded", on_saturation="degrade", ratio=STREAM_RATIO,
+               micro_batch=STREAM_MICRO_BATCH, set_ratio_at=STREAM_REBUDGET, seed=0)
+
+    def run_simulate(eng, x, obs=None):  # a fresh seeded fleet each run
+        return simulate(eng, features=x, edges=default_edge_fleet(3, seed=0), obs=obs, **sim)
+
+    decode_batch(weak, val.images[:1])  # cuDNN's choice for one frame, outside the count
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    # -- frames enter through WEAK + NMS, a request of 64 at a time
+    requests = [timed("weak_detect_ms", lambda: decode_batch(weak, val.images[r : r + REQUEST]))
+                for r in range(0, N_VAL, REQUEST)]
+    # -- the fast path: each request whole through one session
+    session = OffloadSession(engine, micro_batch=STREAM_MICRO_BATCH)
+    fast = []
+    for wb in requests:
+        fast += timed("fast_submit_batch_ms", lambda: session.submit_batch(wb))
+    # -- the buffered path: the frames' features streamed through simulate
+    x = timed("features_ms", lambda: torch.cat([engine.features(wb) for wb in requests]))
+    before = {c.__name__: c.launches for c in counters}
+    obs = Obs()
+    sync()
+    t0 = time.perf_counter()
+    trace = run_simulate(engine, x, obs)
+    simulate_s = time.perf_counter() - t0
+    obs_launches = obs.kernel_delta()["launches"]
+    simulate_launches = {c.__name__: c.launches - before[c.__name__] for c in counters}
+    # -- single frames: WEAK + NMS on one image, then OffloadSession.submit
+    single_session = OffloadSession(engine, micro_batch=STREAM_MICRO_BATCH)
+    frames, singles = [], []
+    for i in range(STREAM_SINGLE_FRAMES):
+        wb1 = timed("single_weak_detect_ms", lambda: decode_batch(weak, val.images[i : i + 1]))
+        frames.append(wb1)
+        singles += timed("single_submit_ms", lambda: single_session.submit(wb1))
+    singles += single_session.flush()
+    sync()
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+
+    # -- checks, outside the count
+    est_fast = np.array([d.estimate for d in fast])
+    off_fast = np.array([d.offload for d in fast])
+    if [d.step for d in fast] != list(range(N_VAL)):
+        fail("the fast path's steps are not the arrival order")
+    same_detections = all(
+        torch.equal(getattr(a, f), getattr(b, f))
+        for a, b in zip(requests, trained["weak_batches"]) for f in ("boxes", "scores", "classes", "mask"))
+    if not (np.array_equal(est_fast, trained["estimates"].astype(np.float64))
+            and np.array_equal(off_fast, trained["offload"])):
+        fail(f"the fast path (score_pipeline) differs from the train phase's engine.decide on the "
+             f"same requests (detections equal: {same_detections}): estimates by "
+             f"{float(np.abs(est_fast - trained['estimates']).max())}, "
+             f"{int((off_fast != trained['offload']).sum())} decisions")
+    # the buffered path (estimator_mlp) against the fast path, at the
+    # threshold in force at each step
+    cal = engine.calibration_scores
+    thr = np.full(N_VAL, ThresholdPolicy(cal, STREAM_RATIO).threshold)
+    for step, ratio in sorted(STREAM_REBUDGET.items()):
+        thr[step:] = ThresholdPolicy(cal, ratio).threshold
+    est_buf = np.array([r.estimate for r in trace.records])
+    off_buf = np.array([r.offload for r in trace.records])
+    buffered = hold_flips("the buffered path vs the fast path", est_buf, off_buf, est_fast, thr)
+    # the single frames (their own one-image detections) against the same
+    # detections decided as one request
+    one = engine.decide(features=torch.cat([engine.features(b) for b in frames]))
+    single = hold_flips("single frames through submit() vs decide()",
+                        np.array([d.estimate for d in singles]),
+                        np.array([d.offload for d in singles]), one.estimates.astype(np.float64),
+                        np.full(len(frames), engine.policy.threshold))
+    single["vs_request_max_abs_diff"] = float(np.abs(one.estimates - est_fast[:len(frames)]).max())
+    # a second run on the card, without Obs: the same trace, record for record
+    sync()
+    t0 = time.perf_counter()
+    again = run_simulate(engine, x)
+    simulate_s_no_obs = time.perf_counter() - t0
+    if again.records != trace.records or again.summary() != trace.summary():
+        fail("two simulate runs on the card give different traces")
+    # the same stream on the CPU, from the artifact: equal wherever no
+    # decision flipped near the threshold (a flip changes the fleet's state,
+    # so records after the first one may follow another course)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "engine.npz")
+        engine.save(path)
+        cpu_engine = OffloadEngine.load(path, device="cpu")
+    cpu_trace = run_simulate(cpu_engine, x.cpu())
+    est_cpu = np.array([r.estimate for r in cpu_trace.records])
+    off_cpu = np.array([r.offload for r in cpu_trace.records])
+    cpu = hold_flips("simulate on the CPU vs the card", est_buf, off_buf, est_cpu, thr)
+    flips = np.flatnonzero(off_cpu != off_buf)
+    upto = int(flips[0]) if flips.size else N_VAL
+    for a, b in zip(trace.records[:upto], cpu_trace.records[:upto]):
+        a, b = a.as_dict(), b.as_dict()
+        if abs(a.pop("estimate") - b.pop("estimate")) > STREAM_EST_TOL or a != b:
+            fail(f"simulate on the CPU vs the card: record {a['step']} differs before any "
+                 f"flip ({a} vs {b})")
+    if not flips.size and cpu_trace.dispatcher != trace.dispatcher:
+        fail("simulate on the CPU vs the card: dispatcher stats differ with no flip")
+    cpu.update(first_flip=upto if flips.size else None, records_equal=upto)
+    # the realized ratio before and after the re-budget
+    (cut, after_ratio), = STREAM_REBUDGET.items()
+    realized = {"before": float(off_buf[:cut].mean()), "after": float(off_buf[cut:].mean())}
+    if abs(realized["before"] - STREAM_RATIO) > STREAM_RATIO_TOL \
+            or abs(realized["after"] - after_ratio) > STREAM_RATIO_TOL:
+        fail(f"realized ratios {realized} not within {STREAM_RATIO_TOL} of "
+             f"{STREAM_RATIO} / {after_ratio}")
+    # the observability plane
+    processed = obs.metrics.snapshot().get('repro_frames_processed_total{stream="0"}')
+    report = obs.profiler.report()
+    drains = N_VAL // STREAM_MICRO_BATCH
+    n_flush = sum(e["name"] == "session.flush" for e in obs.tracer.events)
+    if processed != N_VAL or n_flush != drains or report["session.score"]["count"] != drains:
+        fail(f"Obs: {processed} frames processed (want {N_VAL}), {n_flush} session.flush spans "
+             f"and {report['session.score']['count']} drains (want {drains})")
+    if obs_launches != simulate_launches:
+        fail(f"Obs's launch counts {obs_launches} differ from the wrappers' {simulate_launches}")
+
+    emit("stream", {
+        "frames": N_VAL, "requests": len(requests), "single_frames": STREAM_SINGLE_FRAMES,
+        "micro_batch": STREAM_MICRO_BATCH, "fleet": "default_edge_fleet(3, seed=0)",
+        "strategy": sim["strategy"], "on_saturation": sim["on_saturation"],
+        "ratio": STREAM_RATIO, "set_ratio_at": STREAM_REBUDGET, "realized_ratio": realized,
+        "simulate_s": simulate_s, "frames_per_s": N_VAL / simulate_s,
+        "frames_per_s_without_obs": N_VAL / simulate_s_no_obs,
+        "drain_host_ms": {k: report[k]["total_ms"] / report[k]["count"]
+                          for k in ("session.score", "session.decide")},
+        "profile": {k: {"total_ms": v["total_ms"], "count": v["count"]} for k, v in report.items()},
+        "outcomes": trace.outcome_counts(), "dispatcher": trace.dispatcher,
+        "telemetry": trace.telemetry.as_dict(),
+        "checks": {"fast_vs_train_decide_equal": True, "detections_equal_train": same_detections,
+                   "buffered_vs_fast": buffered, "single_frames": single,
+                   "card_rerun_equal": True, "cpu_vs_card": cpu,
+                   "obs_frames_processed": processed, "obs_flush_spans": n_flush,
+                   "obs_launches": obs_launches},
+        "stage_ms": stage, "phase_s": phase_s, "launches": launches, "card": smi,
+    })
+    return launches, split
+
+
+def merge_split(into, split):
+    """Add the by-route / by-shape counts of ``split`` into ``into``."""
+    for k, parts in split.items():
+        for part, counts in parts.items():
+            dest = into.setdefault(k, {}).setdefault(part, {})
+            for key, n in counts.items():
+                dest[key] = dest.get(key, 0) + n
+    return into
+
+
 LM_ARCHS = ("qwen2_7b", "rwkv6_1b6")
 LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
 LM_HIDDEN, LM_TOP_K = 64, 8
+LM_REBUDGET = {16: 0.5}  # the LM stream's re-budget: request -> ratio
 # bf16 keeps 8 significant bits: one rounding moves a value by up to 2^-8 of
 # itself, and a rounding that falls differently in one layer (another matmul
 # shape, another attention order) travels through every later layer of
@@ -1588,7 +1839,8 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     from repro_torch.data.lm_synth import synth_lm_batch
     from repro_torch.models import lm
     from repro_torch.serving.cascade_serving import LMCascade, truncate_params, truncated_config
-    from repro_torch.serving.decode_loop import generate
+    from repro_torch.core.policy import ThresholdPolicy
+    from repro_torch.serving.decode_loop import cascade_generate, generate
 
     sync = _sync(torch, dev)
     stage: Dict[str, float] = {}
@@ -1672,6 +1924,18 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         shapes = split["wkv6"]["by_shape"]
         if shapes["prefill"] == 0 or shapes["decode"] == 0:
             fail(f"{cfg.name}: wkv6 launches by shape on the LM path: {shapes}")
+    # -- the stream, counted on its own: the served batches through one
+    # session (serve_stream), again with a re-budget, then cascade_generate
+    # on the first batch
+    reset_counts(counters)
+    streamed = timed("stream_ms", lambda: cascade.serve_stream(params, served, micro_batch=LM_BATCH))
+    rebudgeted = timed("stream_ms", lambda: cascade.serve_stream(
+        params, served, micro_batch=LM_BATCH, set_ratio_at=LM_REBUDGET))
+    gen = timed("cascade_generate_ms", lambda: cascade_generate(
+        params, cfg, served[0], LM_TOKENS, engine=cascade.engine, exit_layer=exit_layer))
+    sync()
+    stream_launches = {c.__name__: c.launches for c in counters}
+    stream_split = split_counts(counters)
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
 
     # -- checks, outside the count
@@ -1750,6 +2014,31 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     checks["served_vs_recomputed_masks_equal"] = bool(np.array_equal(card.offload, results[0]["offload"]))
     checks["served_vs_recomputed_estimates_max_abs_err"] = float(
         np.abs(card.estimates - results[0]["estimates"]).max())
+    # the stream: serve_batch's masks and estimates bit for bit (the same
+    # estimator_mlp launch on the same features); the re-budget moves the
+    # masks from its request on, to the threshold at the new ratio; the
+    # session-gated decode gives the tokens generate gave each row's stack
+    if not (np.array_equal(streamed["offload"], offload)
+            and np.array_equal(streamed["estimates"], estimates.astype(np.float64))):
+        fail(f"{cfg.name}: serve_stream differs from serve_batch")
+    (at, ratio), = LM_REBUDGET.items()
+    want = offload.copy()
+    want[at:] = estimates[at:] > ThresholdPolicy(cascade.engine.calibration_scores, ratio).threshold
+    if not (np.array_equal(rebudgeted["offload"], want)
+            and np.array_equal(rebudgeted["estimates"], streamed["estimates"])):
+        fail(f"{cfg.name}: serve_stream with set_ratio_at {LM_REBUDGET}: masks "
+             f"{rebudgeted['offload'].astype(int).tolist()}, want {want.astype(int).tolist()}")
+    if not (np.array_equal(gen["offload"], results[0]["offload"]) and torch.equal(gen["tokens"], tokens[0])):
+        fail(f"{cfg.name}: cascade_generate differs from serve_batch's decisions + generate")
+    checks["stream"] = {
+        "serve_stream_equals_serve_batch": True,
+        "rebudget_at": at, "rebudget_ratio": ratio,
+        "realized_before_after": [float(rebudgeted["offload"][:at].mean()),
+                                  float(rebudgeted["offload"][at:].mean())],
+        "cascade_generate_equals_generate": True,
+        "telemetry": streamed["telemetry"], "rebudget_telemetry": rebudgeted["telemetry"],
+        "cascade_generate_telemetry": gen["telemetry"],
+    }
 
     gen_total_ms = sum(sum(d.values()) for d in gen_ms.values())
     report = {
@@ -1779,8 +2068,11 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
                 "calibration_estimator_mlp_vs_mlp_apply": fit_cal_err,
                 "served_offload_ratio": float(fit_out["offload_ratio"]),
                 "served_nll_final": float(fit_out["nll_final"].mean())},
+        "stream_ms": {"serve_stream": stage["stream_ms"] / 2,
+                      "cascade_generate": stage["cascade_generate_ms"]},
         "peak_memory_gib": peak_gib,
         "checks": checks, "launches": launches, "launches_split": split,
+        "stream_launches": stream_launches, "stream_launches_split": stream_split,
     }
     return report, launches
 
@@ -1788,7 +2080,7 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
 def lm_serve(torch, smi, dev):
     """The LM phase: each family in turn, its model freed before the next.
     Returns the launches of the two main-path runs, summed, and their
-    by-route / by-shape split."""
+    by-route / by-shape split; then the same for the two families' streams."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.estimator_mlp import estimator_mlp
     from repro_torch.kernels.flash_sdpa import flash_sdpa
@@ -1798,7 +2090,8 @@ def lm_serve(torch, smi, dev):
 
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
     total = {c.__name__: 0 for c in counters}
-    split_total = {}
+    stream_total = dict(total)
+    split_total, stream_split = {}, {}
     for i, cfg in enumerate(get_config(a) for a in LM_ARCHS):
         t0 = time.perf_counter()
         report, launches = lm_serve_family(torch, dev, cfg, seed=10 + i, counters=counters)
@@ -1807,14 +2100,13 @@ def lm_serve(torch, smi, dev):
         emit("lm", report)
         for k, n in launches.items():
             total[k] += n
-        for k, parts in report["launches_split"].items():
-            for part, counts in parts.items():
-                into = split_total.setdefault(k, {}).setdefault(part, {})
-                for key, n in counts.items():
-                    into[key] = into.get(key, 0) + n
+        for k, n in report["stream_launches"].items():
+            stream_total[k] += n
+        merge_split(split_total, report["launches_split"])
+        merge_split(stream_split, report["stream_launches_split"])
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return total, split_total
+    return total, split_total, stream_total, stream_split
 
 
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
@@ -1859,10 +2151,17 @@ def main() -> None:
     records.update(check_iou_routes(torch, timer, dev))
     records.update(check_lm_kernels(torch, timer, dev))
     detection, detection_split = serve(torch, smi, dev)
-    train_launches, train_split = train(torch, smi, dev)
-    lm_launches, lm_split = lm_serve(torch, smi, dev)
-    paths = {"detection": detection, "train": train_launches, "lm": lm_launches}
-    splits = {"detection": detection_split, "train": train_split, "lm": lm_split}
+    train_launches, train_split, trained = train(torch, smi, dev)
+    stream_launches, stream_split = stream(torch, smi, dev, trained)
+    del trained
+    lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
+    # the stream path: the detection stream and the two LM streams
+    stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
+    merge_split(stream_split, lm_stream_split)
+    paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
+             "lm": lm_launches}
+    splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
+              "lm": lm_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -1902,6 +2201,9 @@ def main() -> None:
     missing = [k for k in TRAIN_PATH_KERNELS if paths["train"][k] == 0]
     if missing:
         fail(f"kernels never launched on the train path: {missing}")
+    missing = [k for k in STREAM_PATH_KERNELS if paths["stream"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the stream path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

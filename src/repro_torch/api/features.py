@@ -14,7 +14,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.core.features import extract_features_batch
+from repro_torch.core.features import extract_features_batch, feature_dim
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.detection.map_engine import Detections
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
@@ -79,6 +79,10 @@ class DetectionBoxFeatures:
         self.top_k = int(top_k)
         self.image_size = float(image_size)
         self.device = resolve_device(device)
+
+    @property
+    def feature_dim(self) -> int:
+        return feature_dim(self.num_classes, self.top_k)
 
     def __call__(
         self, weak_outputs: Union[Sequence[Detections], DetectionsBatch]

@@ -12,7 +12,9 @@ source never loads a stale library.  The libraries expose a plain C interface
 (no PyTorch headers, which keeps each build to seconds); a wrapper passes
 ``data_ptr()`` pointers and PyTorch's current stream, and every C entry
 returns ``cudaGetLastError()``, which :func:`check` turns into an exception.
-``build_all`` starts one ``nvcc`` per source at once.
+``build_all`` starts one ``nvcc`` per source at once, and counts each
+library it builds in ``BUILDS`` (source name -> builds in this process;
+``repro_torch.obs.kernel_stats`` reads it).
 
 The kernels are compiled for ``sm_90a`` only, so loading refuses any device
 whose compute capability is not (9, 0).
@@ -39,6 +41,7 @@ NVCC_FLAGS = (
 REQUIRED_CAPABILITY = (9, 0)
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+BUILDS: Dict[str, int] = {}
 _FUNCS: Dict[tuple, ctypes._CFuncPtr] = {}
 _LOCK = threading.Lock()
 
@@ -101,6 +104,7 @@ def build_all(names: Optional[Sequence[str]] = None) -> Dict[str, str]:
             continue
         os.replace(tmp, out)
         out.with_suffix(".log").write_text(log)
+        BUILDS[name] = BUILDS.get(name, 0) + 1
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return logs

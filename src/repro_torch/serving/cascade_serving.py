@@ -9,10 +9,10 @@ features of the weak logits -> the one-hidden-layer MLP (the
 
 ``fit`` computes the oracle rewards (NLL_weak - NLL_strong) on calibration
 batches and fits the engine on the weak logits' features; an engine either
-package fitted crosses over as the artifact ``save`` writes.
-``serve_stream`` comes with ``runtime.session.OffloadSession`` (ROADMAP.md
-queue A item 2).  The port runs the dense and RWKV stacks (single layer
-stacks); MoE's two-stack split waits with MoE.
+package fitted crosses over as the artifact ``save`` writes.  ``serve_batch``
+decides one batch; ``serve_stream`` streams batches through one
+:class:`repro_torch.runtime.OffloadSession`.  The port runs the dense and
+RWKV stacks (single layer stacks); MoE's two-stack split waits with MoE.
 """
 from __future__ import annotations
 
@@ -28,6 +28,7 @@ from repro_torch.api.features import logits_features  # re-export, as in repro
 from repro_torch.core.estimator import EstimatorConfig
 from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.models.lm import LMConfig, check_arch, forward, tree_map
+from repro_torch.runtime.session import OffloadSession
 from repro_torch.serving import timing
 
 PyTree = dict
@@ -167,11 +168,70 @@ class LMCascade:
             "offload_ratio": decision.ratio,
         }
 
-    def serve_stream(self, *args, **kwargs) -> Dict:
-        raise NotImplementedError(
-            "serve_stream needs runtime.session.OffloadSession, which comes with "
-            "ROADMAP.md queue A item 2; use serve_batch per batch until then"
-        )
+    @torch.no_grad()
+    def serve_stream(
+        self,
+        params: PyTree,
+        batches,
+        *,
+        micro_batch: int = 8,
+        ratio: Optional[float] = None,
+        session=None,
+        set_ratio_at: Optional[Dict[int, float]] = None,
+    ) -> Dict:
+        """Streaming serve: requests arrive batch by batch and flow through
+        one :class:`repro_torch.runtime.OffloadSession` in arrival order —
+        the stateful counterpart of ``serve_batch`` (policy state,
+        realized-ratio telemetry, and mid-stream ``set_ratio_at`` re-budgets
+        carry across batches).  Realized rewards (NLL_weak - NLL_strong of
+        each request that actually went to the strong model) are recorded
+        into the session telemetry, so ``reward_sum / rewards_recorded`` is
+        the mean realized quality delta of the offloaded traffic.
+
+        ``set_ratio_at`` maps global request index -> new target ratio; a
+        re-budget lands at the batch boundary before the batch that holds
+        its request.  Each batch's weak logits stay on the device through
+        the decision (one ``estimator_mlp`` launch a batch); returns the
+        concatenated per-request results (host numpy) plus the telemetry."""
+        if session is None:
+            session = OffloadSession(self.engine, ratio=ratio, micro_batch=micro_batch)
+        rebudget = dict(set_ratio_at or {})
+        wcfg = truncated_config(self.cfg, self.exit_layer)
+        wparams = truncate_params(params, self.cfg, self.exit_layer)
+        served = 0
+        est, off, nw, ns = [], [], [], []
+        for batch in batches:
+            # re-budgets land at the nearest batch boundary, in step order
+            for step in sorted(rebudget):
+                if step < served + int(batch["tokens"].shape[0]):
+                    session.set_ratio(rebudget.pop(step))
+            wlogits, _ = forward(wparams, wcfg, batch)
+            decisions = session.submit_batch((wlogits, batch["labels"]))
+            mask = np.array([d.offload for d in decisions], bool)
+            nll_w = sequence_nll(wlogits, batch["labels"]).cpu().numpy()
+            del wlogits
+            slogits, _ = forward(params, self.cfg, batch)
+            nll_s = sequence_nll(slogits, batch["labels"]).cpu().numpy()
+            del slogits
+            for r in (nll_w - nll_s)[mask]:
+                session.record_reward(float(r))
+            est.append(np.array([d.estimate for d in decisions]))
+            off.append(mask)
+            nw.append(nll_w)
+            ns.append(nll_s)
+            served += len(mask)
+        offload = np.concatenate(off) if off else np.zeros(0, bool)
+        nll_w = np.concatenate(nw) if nw else np.zeros(0)
+        nll_s = np.concatenate(ns) if ns else np.zeros(0)
+        return {
+            "estimates": np.concatenate(est) if est else np.zeros(0),
+            "offload": offload,
+            "nll_weak": nll_w,
+            "nll_strong": nll_s,
+            "nll_final": np.where(offload, nll_s, nll_w),
+            "offload_ratio": float(offload.mean()) if offload.size else 0.0,
+            "telemetry": session.telemetry.as_dict(),
+        }
 
     def set_ratio(self, ratio: float) -> None:
         """Runtime offload-budget adjustment (delegates to the engine)."""

@@ -1,16 +1,14 @@
-"""Batched autoregressive decode loop over ``decode_step``.
-
-``cascade_generate`` (engine-gated weak/strong decode) needs
-``runtime.session.OffloadSession``, which comes with ROADMAP.md queue A
-item 2; it raises until then.
-"""
+"""Batched autoregressive decode loop over ``decode_step``, plus the
+engine-gated weak/strong cascade decode (``cascade_generate``)."""
 from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
-from repro_torch.models.lm import LMConfig, decode_step, prefill
+from repro_torch.models.lm import LMConfig, decode_step, forward, prefill
+from repro_torch.runtime.session import OffloadSession
 from repro_torch.serving import timing
 
 
@@ -52,9 +50,67 @@ def generate(
     return torch.stack(toks, dim=1)
 
 
-def cascade_generate(*args, **kwargs):
-    raise NotImplementedError(
-        "cascade_generate needs runtime.session.OffloadSession, which comes with "
-        "ROADMAP.md queue A item 2; route rows by LMCascade.serve_batch's "
-        "decisions and call generate on each stack until then"
-    )
+@torch.no_grad()
+def cascade_generate(
+    params,
+    cfg: LMConfig,
+    batch: Dict,
+    steps: int,
+    *,
+    engine=None,
+    session=None,
+    exit_layer: int,
+    micro_batch: int = 8,
+    capacity: Optional[int] = None,
+    greedy: bool = True,
+    generator: Optional[torch.Generator] = None,
+) -> Dict:
+    """Session-gated decode: every request decodes through the early-exit
+    (weak) stack; rows the ``OffloadSession`` offloads decode at full depth
+    instead.  The decision reads only the weak prompt logits — the same
+    deployability constraint as the detection cascade.
+
+    Requests flow through a stream session in arrival (row) order, so
+    stateful policies (``token_bucket``) carry across calls when the caller
+    passes a long-lived ``session``; passing just ``engine`` opens a
+    throwaway session for this batch.  ``batch`` values must share the
+    leading batch dimension (dense / RWKV stacks).  Each stack decodes its
+    rows, gathered by an index tensor on the params' device, through
+    :func:`generate`; sampling draws from ``generator``.  Returns the
+    generated tokens (a (B, steps) int32 tensor on the params' device) plus
+    the decisions (host numpy) and the session telemetry.
+    """
+    from repro_torch.serving.cascade_serving import truncate_params, truncated_config
+
+    if session is None:
+        if engine is None:
+            raise ValueError("pass engine= or session=")
+        session = OffloadSession(engine, micro_batch=micro_batch)
+
+    dev = params["embed"].device
+    wcfg = truncated_config(cfg, exit_layer)
+    wparams = truncate_params(params, cfg, exit_layer)
+    wlogits, _ = forward(wparams, wcfg, batch)
+    decisions = session.submit_batch((wlogits, batch.get("labels")))
+    del wlogits
+    offload = np.array([d.offload for d in decisions], bool)
+    estimates = np.array([d.estimate for d in decisions])
+
+    # decisions are known before decoding (they read only prompt logits), so
+    # each row decodes through exactly one stack
+    B = int(batch["tokens"].shape[0])
+    out = torch.zeros((B, steps), dtype=torch.int32, device=dev)
+    for p, c, rows in ((wparams, wcfg, np.flatnonzero(~offload)),
+                       (params, cfg, np.flatnonzero(offload))):
+        if rows.size:
+            idx = torch.from_numpy(rows).to(dev)
+            sub = {k: torch.as_tensor(v).to(dev)[idx] for k, v in batch.items()}
+            out[idx] = generate(p, c, sub, steps, capacity=capacity, greedy=greedy,
+                                generator=generator)
+    return {
+        "tokens": out,
+        "offload": offload,
+        "estimates": estimates,
+        "offload_ratio": float(offload.mean()) if offload.size else 0.0,
+        "telemetry": session.telemetry.as_dict(),
+    }

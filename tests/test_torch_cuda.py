@@ -647,3 +647,111 @@ def test_engine_fit_on_card_matches_cpu(dev, no_tf32):
     cpu = fit("cpu")
     np.testing.assert_allclose(card.calibration_scores, cpu.calibration_scores, atol=1e-4)
     np.testing.assert_array_equal(card.decide(features=x).offload, cpu.decide(features=x).offload)
+
+
+def _detection_engine(device, rng_seed=11):
+    """A detection engine (box features + the fused MLP, H 128) fitted for
+    3 epochs on seeded detections, on ``device``."""
+    from repro_torch.api import DetectionBoxFeatures, MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+
+    rng = np.random.default_rng(rng_seed)
+    batch = _seeded_detections(rng, 300, 64, device)
+    model = MLPRewardModel(config=EstimatorConfig(hidden=(128,), epochs=3), device=device)
+    engine = OffloadEngine(
+        feature_extractor=DetectionBoxFeatures(NUM_CLASSES, TOP_K, image_size=64.0, device=device),
+        reward_model=model, ratio=0.2, device=device)
+    return engine.fit(batch, rewards=rng.normal(0, 1, 300))
+
+
+def _seeded_detections(rng, B, K, device):
+    counts = rng.integers(0, K + 1, B)
+    mask = np.arange(K)[None] < counts[:, None]
+    return DetectionsBatch(
+        boxes=torch.tensor(boxes(rng, (B, K)), device=device),
+        scores=torch.tensor(rng.uniform(0, 1, (B, K)).astype(np.float32), device=device),
+        classes=torch.tensor(np.where(mask, rng.integers(0, NUM_CLASSES, (B, K)), -1), device=device),
+        mask=torch.tensor(mask, device=device),
+    )
+
+
+def test_session_buffer_on_card_grows_and_compacts(dev, no_tf32, tmp_path):
+    """The pending buffer lives on the card, grows geometrically past 64
+    rows and compacts a partial drain (overlapping rows) correctly: the
+    stream decides as the same engine on the CPU (estimates 1e-5, decisions
+    equal away from the threshold), one estimator_mlp launch a drain."""
+    from repro_torch.api import OffloadEngine
+    from repro_torch.runtime import OffloadSession
+
+    engine = _detection_engine(dev)
+    engine.save(str(tmp_path / "engine.npz"))
+    cpu = OffloadEngine.load(str(tmp_path / "engine.npz"), device="cpu")
+    x = engine.features(_seeded_detections(np.random.default_rng(2), 150, 64, dev))
+    sessions = [OffloadSession(engine, micro_batch=7), OffloadSession(cpu, micro_batch=7)]
+    before = estimator_mlp.launches
+    out = []
+    for s, feats in zip(sessions, (x, x.cpu())):
+        got = s.submit_batch(features=feats[:100], flush=False)  # 14 drains, 2 rows left
+        assert s._buf.device == feats.device and s._buf.shape[0] == 100 and s._pending_rows == 2
+        got += s.submit_batch(features=feats[100:], flush=False)  # 7 drains, 3 left
+        assert s._buf.shape[0] == 100 and s._pending_rows == 3
+        torch.testing.assert_close(s._buf[:3], feats[147:150], atol=0, rtol=0)
+        out.append(got + s.flush())
+    assert estimator_mlp.launches == before + 22
+    card, host = out
+    assert [d.step for d in card] == list(range(150)) == [d.step for d in host]
+    est_c, est_h = (np.array([d.estimate for d in o]) for o in out)
+    np.testing.assert_allclose(est_c, est_h, atol=1e-5, rtol=0)
+    near = np.abs(est_h - engine.policy.threshold) <= 1e-5
+    flips = np.array([a.offload != b.offload for a, b in zip(card, host)])
+    assert not (flips & ~near).any()
+
+
+def test_session_fast_path_vs_buffered_on_card(dev, no_tf32):
+    """One request through the fast path (one score_pipeline launch) and
+    through the buffered path (feature extraction, then estimator_mlp a
+    micro-batch): estimates within 1e-5 (the MLP tolerance; two kernels,
+    two summation orders), decisions equal except rows that close to the
+    threshold, counted."""
+    from repro_torch.runtime import OffloadSession
+
+    engine = _detection_engine(dev)
+    batch = _seeded_detections(np.random.default_rng(4), 64, 64, dev)
+    sp, em = score_pipeline.launches, estimator_mlp.launches
+    fast = OffloadSession(engine, micro_batch=8).submit_batch(batch)
+    assert (score_pipeline.launches, estimator_mlp.launches) == (sp + 1, em)
+    buffered = OffloadSession(engine, micro_batch=8)
+    slow = buffered.submit_batch(batch, flush=False) + buffered.flush()
+    assert (score_pipeline.launches, estimator_mlp.launches) == (sp + 1, em + 8)
+    est_f = np.array([d.estimate for d in fast])
+    est_b = np.array([d.estimate for d in slow])
+    np.testing.assert_allclose(est_b, est_f, atol=1e-5, rtol=0)
+    np.testing.assert_array_equal(est_f, engine.decide(batch).estimates)  # same kernel, same inputs
+    near = np.abs(est_f - engine.policy.threshold) <= 1e-5
+    flips = np.array([a.offload != b.offload for a, b in zip(fast, slow)])
+    assert not (flips & ~near).any(), f"{int(flips.sum())} flips, {int(near.sum())} rows near"
+
+
+def test_session_submit_needs_no_host_sync(dev, no_tf32):
+    """A frame that does not fill the micro-batch enters the card buffer
+    without waiting for the card (CUDA's sync debug mode raises on any
+    synchronizing call); the drain waits once, for its estimates."""
+    from repro_torch.runtime import OffloadSession
+
+    engine = _detection_engine(dev)
+    x = engine.features(_seeded_detections(np.random.default_rng(6), 16, 64, dev))
+    single = _seeded_detections(np.random.default_rng(7), 1, 64, dev)
+    session = OffloadSession(engine, micro_batch=8)
+    session.submit(features=x[0])  # allocates the buffer
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for row in x[1:7]:
+            assert session.submit(features=row) == []
+        with pytest.raises(RuntimeError):
+            session.submit(features=x[7])  # the drain copies estimates to the host
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert session._pending_rows == 8
+    assert len(session.flush()) == 8
+    assert len(session.submit(single)) == 0 and session._pending_rows == 1

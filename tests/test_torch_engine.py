@@ -121,3 +121,61 @@ def test_pipeline_params_cached_by_identity(artifact):
     fresh = model.pipeline_params()
     assert fresh is not first
     torch.testing.assert_close(fresh["w2"], first["w2"] + 0.25)
+
+
+def test_detection_feature_dim_matches_repro(artifact):
+    jeng, path = artifact
+    teng = OffloadEngine.load(path, device="cpu")
+    assert teng.feature_extractor.feature_dim == jeng.feature_extractor.feature_dim
+    jb, tb, _ = _request(6)
+    assert teng.features(tb).shape[1] == teng.feature_extractor.feature_dim
+
+
+def test_detection_session_routes_match_repro(artifact):
+    """A stream of detection requests through ``OffloadSession``: the fast
+    path (a whole ``DetectionsBatch``, ``score_pipeline``), the buffered
+    path (``flush=False``: features, then ``estimator_mlp`` a micro-batch)
+    and single frames (a ``Detections`` as in repro, or a one-row
+    ``DetectionsBatch`` as the card's detector leaves it) decide as repro's
+    sessions.  Fast against buffered: estimates within 1e-5, decisions equal
+    except rows within 1e-5 of the threshold (counted, not hidden)."""
+    from repro.runtime import OffloadSession as JSession
+
+    from repro_torch.runtime import OffloadSession
+
+    jeng, path = artifact
+    teng = OffloadEngine.load(path, device="cpu")
+    jb, tb, tdets = _request(7, n=40)
+    jdets = jb.to_list()
+
+    def same(got, want, atol=2e-6):
+        assert [d.step for d in got] == [d.step for d in want]
+        assert [d.offload for d in got] == [d.offload for d in want]
+        np.testing.assert_allclose([d.estimate for d in got], [d.estimate for d in want],
+                                   atol=atol, rtol=0)
+
+    fast = OffloadSession(teng, micro_batch=8).submit_batch(tb)
+    same(fast, JSession(jeng, micro_batch=8).submit_batch(jb))
+    buffered = OffloadSession(teng, micro_batch=8)
+    jbuffered = JSession(jeng, micro_batch=8)
+    slow = buffered.submit_batch(tb, flush=False) + buffered.flush()
+    same(slow, jbuffered.submit_batch(jb, flush=False) + jbuffered.flush(), atol=1e-5)
+    frames, one_row = OffloadSession(teng, micro_batch=8), OffloadSession(teng, micro_batch=8)
+    jframes = JSession(jeng, micro_batch=8)
+    got, rows, want = [], [], []
+    for i in range(len(tdets)):
+        got += frames.submit(tdets[i])
+        rows += one_row.submit(TDB(**{f: getattr(tb, f)[i : i + 1]
+                                      for f in ("boxes", "scores", "classes", "mask")}))
+        want += jframes.submit(jdets[i])
+    same(got, want, atol=1e-5)
+    same(rows, got, atol=0)
+    est_f = np.array([d.estimate for d in fast])
+    est_b = np.array([d.estimate for d in slow])
+    np.testing.assert_allclose(est_b, est_f, atol=1e-5, rtol=0)
+    thr = teng.policy.threshold
+    near = np.abs(est_f - thr) <= 1e-5
+    flips = np.array([a.offload != b.offload for a, b in zip(fast, slow)])
+    assert not (flips & ~near).any(), f"{int(flips.sum())} flips, {int(near.sum())} rows near"
+    with pytest.raises(ValueError, match="one frame"):
+        frames.submit(tb)

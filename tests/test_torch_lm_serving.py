@@ -1,8 +1,10 @@
 """The port's LM cascade serve path against the JAX package's, on the CPU:
 ``lm_logits`` features, ``sequence_nll``, and an engine fitted and saved by
 ``repro``'s ``LMCascade`` served by the port's ``LMCascade.load`` on the same
-weights and batch (offload masks exactly equal), plus the launcher (generate
-and ``--cascade``).  ``LMCascade.fit`` itself is held against ``repro``'s in
+weights and batch (offload masks exactly equal), batch by batch
+(``serve_batch``), as a stream through one session (``serve_stream``) and
+session-gated decoding (``cascade_generate``, greedy tokens exactly equal),
+plus the launcher (generate and ``--cascade``).  ``LMCascade.fit`` itself is held against ``repro``'s in
 tests/test_torch_pipeline.py."""
 import numpy as np
 import pytest
@@ -18,6 +20,7 @@ from repro.serving.cascade_serving import LMCascade as JLMCascade
 from repro.serving.cascade_serving import sequence_nll as j_sequence_nll
 from repro.serving.cascade_serving import truncate_params as j_truncate_params
 from repro.serving.cascade_serving import truncated_config as j_truncated_config
+from repro.serving.decode_loop import cascade_generate as j_cascade_generate
 
 from repro_torch.api import LMLogitsFeatures, OffloadEngine, make_feature_extractor
 from repro_torch.api.features import logits_features
@@ -26,8 +29,14 @@ from repro_torch.convert import lm_params_from_jax
 from repro_torch.data.lm_synth import synth_lm_batch
 from repro_torch.launch import serve as launcher
 from repro_torch.models import lm as tlm
-from repro_torch.serving.cascade_serving import LMCascade, sequence_nll
-from repro_torch.serving.decode_loop import cascade_generate
+from repro_torch.serving.cascade_serving import (
+    LMCascade,
+    sequence_nll,
+    truncate_params,
+    truncated_config,
+)
+from repro_torch.runtime import OffloadSession
+from repro_torch.serving.decode_loop import cascade_generate, generate
 
 
 def _logits_and_labels(seed, B=4, S=12, V=300, pad=3):
@@ -141,11 +150,97 @@ def test_cascade_views_and_ratio(fitted, tmp_path):
 
 
 def test_unported_entry_points_raise(fitted):
+    """The streaming entry points take the families the port runs; MoE (and
+    the int8 KV cache) come with ROADMAP queue A item 9 and raise naming it."""
     _, _, tcascade, tparams, tcfg = fitted
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        tcascade.serve_stream(tparams, [])
-    with pytest.raises(NotImplementedError, match="queue A item 2"):
-        cascade_generate(tparams, tcfg, {}, 4, exit_layer=1)
+    moe = tlm.reduced(get_config("deepseek_moe_16b"), num_layers=2)
+    moe_cascade = LMCascade(cfg=moe, exit_layer=1, engine=tcascade.engine)
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        moe_cascade.serve_stream(tparams, [_batch(5, tcfg)])
+    with pytest.raises(NotImplementedError, match="queue A item 9"):
+        cascade_generate(tparams, moe, _batch(5, tcfg), 4, exit_layer=1, engine=tcascade.engine)
+    with pytest.raises(ValueError, match="engine= or session="):
+        cascade_generate(tparams, tcfg, _batch(5, tcfg), 4, exit_layer=1)
+
+
+def _same_stream(got, want):
+    np.testing.assert_array_equal(got["offload"], want["offload"])
+    for key in ("nll_weak", "nll_strong", "nll_final"):
+        np.testing.assert_allclose(got[key], want[key], atol=1e-5, err_msg=key)
+    np.testing.assert_allclose(got["estimates"], want["estimates"], atol=1e-3)
+    assert got["offload_ratio"] == want["offload_ratio"]
+    g, w = dict(got["telemetry"]), dict(want["telemetry"])
+    for key in ("mean_estimate", "reward_sum"):
+        assert g.pop(key) == pytest.approx(w.pop(key), abs=1e-3), key
+    assert g == w
+
+
+@pytest.mark.parametrize("set_ratio_at", [None, {10: 0.75}])
+def test_serve_stream_matches_repro(fitted, set_ratio_at):
+    """Three batches of 8 through one session (micro-batch 8): repro's masks
+    and telemetry counts (estimates and realized-reward sums at 1e-3, as
+    ``test_loaded_cascade_serves_like_repro`` explains); a re-budget lands at
+    the boundary before the batch holding its request; each batch's masks
+    equal ``serve_batch``'s at the ratio in force."""
+    jcascade, jparams, tcascade, tparams, tcfg = fitted
+    batches = [_batch(20 + i, tcfg) for i in range(3)]
+    jbatches = [{k: jnp.asarray(v) for k, v in b.items()} for b in batches]
+    kw = dict(micro_batch=8, ratio=0.25, set_ratio_at=set_ratio_at)
+    got = tcascade.serve_stream(tparams, batches, **kw)
+    want = jcascade.serve_stream(jparams, jbatches, **kw)
+    _same_stream(got, want)
+    t = got["telemetry"]
+    assert t["processed"] == 24 and t["offloaded"] == int(got["offload"].sum())
+    assert t["rewards_recorded"] == t["offloaded"]
+    ratios = [0.25, 0.25, 0.25] if set_ratio_at is None else [0.25, 0.75, 0.75]
+    assert t["target_ratio"] == ratios[-1]
+    for i, (b, r) in enumerate(zip(batches, ratios)):
+        tcascade.set_ratio(r)
+        single = tcascade.serve_batch(tparams, b)
+        np.testing.assert_array_equal(got["offload"][8 * i: 8 * i + 8], single["offload"])
+        np.testing.assert_array_equal(got["estimates"][8 * i: 8 * i + 8], single["estimates"])
+    tcascade.set_ratio(0.25)
+    # a long-lived session carries its state across calls
+    session = OffloadSession(tcascade.engine, micro_batch=4)
+    tcascade.serve_stream(tparams, batches[:1], session=session)
+    again = tcascade.serve_stream(tparams, batches[1:2], session=session)
+    assert again["telemetry"]["processed"] == 16
+    assert tcascade.serve_stream(tparams, [])["offload"].shape == (0,)
+
+
+def test_cascade_generate_matches_repro(fitted):
+    """Greedy session-gated decoding: repro's masks and tokens exactly; each
+    row's tokens are ``generate``'s on its stack over the same row subset."""
+    jcascade, jparams, tcascade, tparams, tcfg = fitted
+    batch = _batch(31, tcfg)
+    tcascade.set_ratio(0.5)
+    jcascade.set_ratio(0.5)
+    try:
+        got = cascade_generate(tparams, tcfg, batch, 6, engine=tcascade.engine, exit_layer=1)
+        want = j_cascade_generate(jparams, jcascade.cfg, {k: jnp.asarray(v) for k, v in batch.items()},
+                                  6, engine=jcascade.engine, exit_layer=1)
+    finally:
+        tcascade.set_ratio(0.25)
+        jcascade.set_ratio(0.25)
+    offload = got["offload"]
+    np.testing.assert_array_equal(offload, want["offload"])
+    assert 0 < offload.sum() < len(offload)
+    assert got["tokens"].dtype == torch.int32 and got["tokens"].shape == (8, 6)
+    np.testing.assert_array_equal(got["tokens"].numpy(), want["tokens"])
+    np.testing.assert_allclose(got["estimates"], want["estimates"], atol=1e-3)
+    assert got["offload_ratio"] == want["offload_ratio"]
+    assert got["telemetry"]["processed"] == 8
+    wparams = truncate_params(tparams, tcfg, 1)
+    for p, c, rows in ((wparams, truncated_config(tcfg, 1), np.flatnonzero(~offload)),
+                       (tparams, tcfg, np.flatnonzero(offload))):
+        sub = {k: torch.as_tensor(v)[torch.from_numpy(rows)] for k, v in batch.items()}
+        np.testing.assert_array_equal(got["tokens"][rows].numpy(), generate(p, c, sub, 6).numpy())
+    # sampling draws from the caller's generator: the same seed, the same tokens
+    draws = [cascade_generate(tparams, tcfg, batch, 4, engine=tcascade.engine, exit_layer=1,
+                              greedy=False, generator=torch.Generator().manual_seed(3))["tokens"]
+             for _ in range(2)]
+    assert torch.equal(draws[0], draws[1])
+    assert int(draws[0].min()) >= 0 and int(draws[0].max()) < tcfg.vocab_size
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
