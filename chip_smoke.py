@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths once on one NVIDIA H100: the detection
 serve path, the training slice (both detectors trained, the engine fitted),
-the streaming runtime over the trained engine, and the LM early-exit cascade
+the streaming runtime over the trained engine (also behind netsim uplinks),
+the paper's experiments (``run_all``), and the LM early-exit cascade
 (qwen2-7b and rwkv6-1.6b at full width, in batches and as streams).
 
     python3 chip_smoke.py
@@ -82,7 +83,10 @@ first use.  Phases, each printing one line of its own:
                frame 1000, one frame a time unit, under ``Obs``; the
                buffered path, ``estimator_mlp`` a drain), then 64 frames
                one at a time through WEAK + NMS and
-               ``OffloadSession.submit``.  Fails unless the fast path equals
+               ``OffloadSession.submit``, then the same features through
+               ``simulate`` on ``default_linked_fleet(3, seed=0)`` (netsim
+               uplinks) once with ``queue_aware`` and once with
+               ``value_iteration``.  Fails unless the fast path equals
                the train phase's ``engine.decide`` bit for bit, the buffered
                path and the single frames hold within 1e-5 with decisions
                equal away from the threshold (flips near it counted), a
@@ -92,10 +96,35 @@ first use.  Phases, each printing one line of its own:
                flipped near the threshold, the realized ratio is within 0.02
                of 0.2 before and of 0.1 after the re-budget, and ``Obs``
                counts 2000 frames, a ``session.flush`` span a drain and the
-               wrappers' launches.  Prints frames/s through ``simulate``, the
-               host ms a drain (``session.score`` / ``session.decide``) and
-               the dispatcher's outcomes.
-7. ``lm``      the LM early-exit cascade, once per family at full width
+               wrappers' launches; each linked run on the CPU (the artifact)
+               holds its estimates within 1e-5 and its records equal up to
+               the first decision that flipped, and the card's
+               value-iteration tables are within 1e-4 of
+               ``value_iteration_ref``.  Prints frames/s through
+               ``simulate``, the host ms a drain (``session.score`` /
+               ``session.decide``), the dispatcher's outcomes, the linked
+               runs' realized ratios and latency decomposition, and the
+               host ms of one value-iteration solve on the card and on the
+               CPU.
+7. ``repro``   the paper's experiments, every launch count set to 0 first:
+               ``run_all(quick=True, force=True)`` into a temporary cache
+               dir (1200 / 400 / 500 images, WEAK 250 and STRONG 400 steps
+               at full width, context 400: Figs. 5, 6, 8, Table II, the
+               estimators, Figs. 9/10 with the baselines, the streaming
+               study), then on its state ``figure7_input_study``,
+               ``train_estimators`` again and ``token_bucket_study``, and
+               64 val frames one at a time through ``Cascade.from_engine``
+               (WEAK + NMS, one ``score_pipeline`` launch a frame, STRONG
+               when offloaded).  Fails unless the matching on the card
+               equals the CPU's exactly, the Adaptive Feeding SVM and a
+               2-epoch ``train_estimators`` agree with the CPU within 1e-4
+               (its two unbounded heads also within 128 float32 ulps of
+               the size of their last layer's summands), the repeated estimators give run_all's curves, every curve
+               at ratio 1.0 is the strong detector's mAP, ``oracle_ORIC``
+               is at least ``random`` below it, and the cascade decides as
+               ``engine.decide`` (estimates within 1e-5).  Prints the
+               curves, the figures and each stage's seconds.
+8. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
@@ -120,16 +149,17 @@ first use.  Phases, each printing one line of its own:
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-8. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+9. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
                launch of the main paths; for the IoU kernels, each route's
                source, launches and timed shapes).  The paths: detection,
-               train, stream (the detection stream and both LM streams) and
-               lm; the run fails if score_pipeline, estimator_mlp or
-               iou_matrix_batch never launched on the stream path.
+               train, stream (the detection stream and both LM streams),
+               repro and lm; the run fails if score_pipeline, estimator_mlp
+               or iou_matrix_batch never launched on the train, stream or
+               repro path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -425,7 +455,11 @@ def time_head(torch, timer, dev):
                            (N_VAL, F, HIDDEN, "OffloadEngine.fit's calibration estimates (train)"),
                            (LM_FIT_BATCHES * LM_BATCH, 12, LM_HIDDEN,
                             "LMCascade.fit's calibration estimates"),
-                           (STREAM_MICRO_BATCH, F, HIDDEN, "a stream's micro-batch drain")):
+                           (STREAM_MICRO_BATCH, F, HIDDEN, "a stream's micro-batch drain"),
+                           (REPRO_N_VAL, F, HIDDEN,
+                            "the quick pipeline's build_engine calibration estimates (repro)"),
+                           (REPRO_MICRO_BATCH, F, HIDDEN,
+                            "streaming_multi_edge_study's micro-batch drain (repro)")):
         x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
         mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
         sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
@@ -1397,6 +1431,10 @@ STREAM_SINGLE_FRAMES = 64
 STREAM_RATIO_TOL = 0.02  # realized ratio before / after the re-budget
 STREAM_EST_TOL = 1e-5  # estimator_mlp against score_pipeline: two kernels, two summation orders
 STREAM_PATH_KERNELS = ("score_pipeline", "estimator_mlp", "iou_matrix_batch")  # each must launch
+# the same frames through simulate behind netsim uplinks, once a policy
+STREAM_LINKED_POLICIES = ("queue_aware", "value_iteration")
+VI_REF_TOL = 1e-4  # the value-iteration table against the Python oracle (tests/test_netsim.py)
+VI_SOLVE_REPEATS = 5  # timed value-iteration solves on the card and on the CPU
 
 
 def hold_flips(what, got_est, got_offload, want_est, thresholds):
@@ -1434,8 +1472,15 @@ def stream(torch, smi, dev, trained):
     from repro_torch.kernels.score_pipeline import score_pipeline
     from repro_torch.kernels.wkv6 import wkv6
     from repro_torch.models.detector import decode_batch
+    from repro_torch.netsim import quantile_threshold, value_iteration_ref
+    from repro_torch.netsim.policy import ValueIterationPolicy, _estimate_bins
     from repro_torch.obs import Obs
-    from repro_torch.runtime import OffloadSession, default_edge_fleet, simulate
+    from repro_torch.runtime import (
+        OffloadSession,
+        default_edge_fleet,
+        default_linked_fleet,
+        simulate,
+    )
 
     sync = _sync(torch, dev)
     stage: Dict[str, float] = {}
@@ -1454,6 +1499,9 @@ def stream(torch, smi, dev, trained):
 
     def run_simulate(eng, x, obs=None):  # a fresh seeded fleet each run
         return simulate(eng, features=x, edges=default_edge_fleet(3, seed=0), obs=obs, **sim)
+
+    def run_linked(eng, x):  # the same stream behind netsim uplinks
+        return simulate(eng, features=x, edges=default_linked_fleet(3, seed=0), **sim)
 
     decode_batch(weak, val.images[:1])  # cuDNN's choice for one frame, outside the count
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
@@ -1485,6 +1533,14 @@ def stream(torch, smi, dev, trained):
         frames.append(wb1)
         singles += timed("single_submit_ms", lambda: single_session.submit(wb1))
     singles += single_session.flush()
+    # -- the link-fronted fleet under the two queue-aware policies
+    linked, linked_s = {}, {}
+    for policy in STREAM_LINKED_POLICIES:
+        eng_p = engine.with_policy(policy)
+        sync()
+        t0 = time.perf_counter()
+        linked[policy] = run_linked(eng_p, x)
+        linked_s[policy] = time.perf_counter() - t0
     sync()
     phase_s = time.perf_counter() - t_phase
     launches = {c.__name__: c.launches for c in counters}
@@ -1556,6 +1612,70 @@ def stream(torch, smi, dev, trained):
             or abs(realized["after"] - after_ratio) > STREAM_RATIO_TOL:
         fail(f"realized ratios {realized} not within {STREAM_RATIO_TOL} of "
              f"{STREAM_RATIO} / {after_ratio}")
+    # the linked runs on the CPU, from the artifact: estimates within 1e-5
+    # everywhere, records equal up to the first decision that flipped (at
+    # that step the fleet, queue and budget states are equal, so a flip
+    # means the estimate lies within the two runs' rounding, 1e-5, of the
+    # threshold in force)
+    linked_report = {}
+    for policy, trace_p in linked.items():
+        cpu_p = run_linked(cpu_engine.with_policy(policy), x.cpu())
+        est_p = np.array([r.estimate for r in trace_p.records])
+        est_c = np.array([r.estimate for r in cpu_p.records])
+        err = float(np.abs(est_p - est_c).max())
+        flips_p = np.flatnonzero([a.offload != b.offload
+                                  for a, b in zip(trace_p.records, cpu_p.records)])
+        first = int(flips_p[0]) if flips_p.size else N_VAL
+        if not err <= STREAM_EST_TOL:
+            fail(f"{policy} on the linked fleet: card and CPU estimates differ by {err}")
+        for a, b in zip(trace_p.records[:first], cpu_p.records[:first]):
+            a, b = a.as_dict(), b.as_dict()
+            a.pop("estimate"), b.pop("estimate")
+            if a != b:
+                fail(f"{policy} on the linked fleet: record {a['step']} differs from the CPU's "
+                     f"before any flip ({a} vs {b})")
+        if not flips_p.size and cpu_p.dispatcher != trace_p.dispatcher:
+            fail(f"{policy} on the linked fleet: dispatcher stats differ from the CPU's")
+        off_p = np.array([r.offload for r in trace_p.records])
+        summary = trace_p.summary()
+        linked_report[policy] = {
+            "simulate_s": linked_s[policy], "frames_per_s": N_VAL / linked_s[policy],
+            "realized_ratio": {"before": float(off_p[:cut].mean()),
+                               "after": float(off_p[cut:].mean())},
+            "outcomes": trace_p.outcome_counts(),
+            "mean_offload_latency": summary["mean_offload_latency"],
+            "latency_decomposition": trace_p.latency_decomposition(),
+            "cpu_vs_card": {"max_abs_err": err, "flips": int(flips_p.size),
+                            "first_flip": first if flips_p.size else None},
+        }
+        if any(not r.transmit_delay > 0.0 for r in trace_p.records
+               if r.outcome == "offloaded"):
+            fail(f"{policy} on the linked fleet: an offloaded frame paid no transit")
+    if not sum(r["outcomes"].get("offloaded", 0) for r in linked_report.values()):
+        fail("the linked fleet served no offload under either policy")
+    # the value-iteration tables the card solved, against the Python oracle
+    bins = _estimate_bins(cal, 32)
+    vi_err = 0.0
+    for ratio in (STREAM_RATIO, after_ratio):
+        theta = ValueIterationPolicy(cal, ratio, device=dev).theta
+        want_theta = value_iteration_ref(bins, quantile_threshold(cal, ratio))[1]
+        vi_err = max(vi_err, float(np.abs(theta - want_theta).max()))
+    if not vi_err <= VI_REF_TOL:
+        fail(f"value iteration on the card differs from value_iteration_ref by {vi_err}")
+    linked_report["value_iteration"]["theta_vs_ref_max_abs_err"] = vi_err
+    # one solve (a construction: set_ratio solves the same way) on the card
+    # and on the host CPU, host ms to the table, median of VI_SOLVE_REPEATS
+    solve_ms = {}
+    for where, label in ((dev, "card"), (torch.device("cpu"), "cpu")):
+        ValueIterationPolicy(cal, STREAM_RATIO, device=where)  # first-call costs, untimed
+        times = []
+        for _ in range(VI_SOLVE_REPEATS):
+            sync()
+            t0 = time.perf_counter()
+            ValueIterationPolicy(cal, STREAM_RATIO, device=where)
+            times.append((time.perf_counter() - t0) * 1e3)
+        solve_ms[label] = float(np.median(times))
+    linked_report["value_iteration"]["solve_ms"] = solve_ms
     # the observability plane
     processed = obs.metrics.snapshot().get('repro_frames_processed_total{stream="0"}')
     report = obs.profiler.report()
@@ -1579,12 +1699,260 @@ def stream(torch, smi, dev, trained):
         "profile": {k: {"total_ms": v["total_ms"], "count": v["count"]} for k, v in report.items()},
         "outcomes": trace.outcome_counts(), "dispatcher": trace.dispatcher,
         "telemetry": trace.telemetry.as_dict(),
+        "linked_fleet": dict(fleet="default_linked_fleet(3, seed=0)", **linked_report),
         "checks": {"fast_vs_train_decide_equal": True, "detections_equal_train": same_detections,
                    "buffered_vs_fast": buffered, "single_frames": single,
                    "card_rerun_equal": True, "cpu_vs_card": cpu,
                    "obs_frames_processed": processed, "obs_flush_spans": n_flush,
                    "obs_launches": obs_launches},
         "stage_ms": stage, "phase_s": phase_s, "launches": launches, "card": smi,
+    })
+    return launches, split
+
+
+# The repro phase: the paper's experiments as ``run_all(quick=True)`` runs
+# them (1200 / 400 / 500 images, WEAK 250 and STRONG 400 steps at full
+# width, context 400, the estimators' 20 epochs and the streaming study's
+# engine at 10), then Fig. 7 and the token-bucket study on that state, and
+# REPRO_CASCADE_FRAMES val frames one at a time through Cascade.from_engine.
+REPRO_N_VAL, REPRO_CTX, REPRO_EPOCHS, REPRO_STREAM_EPOCHS = 400, 400, 20, 10
+REPRO_MICRO_BATCH = 16  # streaming_multi_edge_study's micro-batch
+REPRO_CASCADE_FRAMES = 64
+REPRO_SHORT_EPOCHS = 2  # train_estimators held card against CPU
+# The unbounded heads' out-of-fold predictions are also held within this
+# many float32 ulps of the size of their last layer's summands (see
+# hold_estimators): the deterministic bound of an (n+1)-term float32 sum is
+# ~n+1 of them, n = 128 (the last hidden width).
+SUMMAND_ULPS = 128
+
+
+def record_engines(tdr):
+    """Swap ``tdr.OffloadEngine`` for a subclass that lists every engine it
+    fits, in fit order; returns the list and the function that restores it."""
+    engines, base = [], tdr.OffloadEngine
+
+    class Recorded(base):
+        def fit(self, *args, **kwargs):
+            engines.append(self)
+            return super().fit(*args, **kwargs)
+
+    tdr.OffloadEngine = Recorded
+
+    def restore():
+        tdr.OffloadEngine = base
+
+    return engines, restore
+
+
+def summand_scale(torch, engine, x):
+    """Per row of host features ``x``: the size of the terms that the fitted
+    MLP's last layer adds up, sum_j |w_j h_j| + |b|, on the CPU.  A feature
+    that is constant over the training folds has sigma 1e-6, so a held-out
+    row that differs there is standardized to ~1e6; its prediction is then
+    a difference of terms ~1e5 that float32 rounds at ~1e-2 however small
+    the result."""
+    est = engine.reward_model.estimator
+    h = torch.as_tensor((x - est._mu) / est._sigma, dtype=torch.float32)
+    layers = [{k: v.detach().cpu() for k, v in est.params[f"layer{i}"].items()}
+              for i in range(len(est.params))]
+    for p in layers[:-1]:
+        h = torch.nn.functional.gelu(h @ p["w"] + p["b"], approximate="tanh")
+    last = layers[-1]
+    return ((h * last["w"][:, 0]).abs().sum(1) + last["b"].abs()).numpy()
+
+
+def hold_estimators(torch, what, got, want, tol, engines, fold_ix, x):
+    """Two ``train_estimators`` runs of the same state (``got`` on the card,
+    ``want`` on the CPU) with the engines each fitted, in fit order (head by
+    head, fold by fold).  Each fold's weights agree within ``tol``; the
+    bounded (sigmoid) heads' out-of-fold predictions within ``tol``; the two
+    unbounded heads' within ``tol`` of 1 + their size plus SUMMAND_ULPS
+    float32 ulps of the size of the last layer's summands, from the CPU's
+    engine (``summand_scale``).  Returns the largest weight gap, each head's
+    largest gap and, for the unbounded heads, the largest gap in ulps of
+    that size, the rows where it is over 1e3 and the largest gap elsewhere."""
+    got_engines, want_engines = engines
+    folds = int(fold_ix.max()) + 1
+    weight_gap = 0.0
+    for a, b in zip(got_engines, want_engines, strict=True):
+        pa, pb = a.reward_model.estimator.params, b.reward_model.estimator.params
+        for name, layer in pb.items():
+            for k, v in layer.items():
+                weight_gap = max(weight_gap, float((pa[name][k].cpu() - v).abs().max()))
+    if not weight_gap <= tol:
+        fail(f"{what}: the fitted weights differ by {weight_gap} (tolerance {tol})")
+    gaps, per_summand = {"weights": weight_gap}, {}
+    for h, (k, v) in enumerate(want.preds.items()):
+        err = np.abs(got.preds[k] - v)
+        gaps[k] = float(err.max())
+        bound = np.full(len(v), tol)
+        if k in ("ORIC_vanilla", "ORI"):
+            scale = np.zeros(len(v))
+            for f in range(folds):
+                te = fold_ix == f
+                scale[te] = summand_scale(torch, want_engines[h * folds + f], x[te])
+            bound += tol * np.abs(v) + SUMMAND_ULPS * 2.0 ** -24 * scale
+            large = scale > 1e3
+            per_summand[k] = {
+                "ulps_of_summands": float((err / np.maximum(scale, 1e-30)).max() * 2.0 ** 24),
+                "rows_summands_over_1e3": int(large.sum()),
+                "max_gap_other_rows": float(err[~large].max()) if (~large).any() else 0.0,
+            }
+        bad = np.flatnonzero(err > bound)
+        if len(bad):
+            i = int(bad[np.argmax(err[bad])])
+            fail(f"{what}: {k} differs by {err[i]} at row {i} (value {v[i]}, "
+                 f"tolerance {bound[i]})")
+    return dict(gaps, unbounded=per_summand)
+
+
+def repro(torch, smi, dev):
+    """The paper's experiments on the card, counted: ``run_all(quick=True)``
+    into a temporary cache dir, then on its state ``figure7_input_study``,
+    ``train_estimators`` again (as a caller of ``token_bucket_study`` does)
+    and ``token_bucket_study``, and the first val frames one at a time
+    through ``Cascade.from_engine`` (WEAK + NMS, the engine's one-frame
+    ``score_pipeline`` launch, STRONG when offloaded).  Then, outside the
+    count: the matching on the card against the CPU (exact), the Adaptive
+    Feeding SVM and a short ``train_estimators`` against the CPU, the
+    repeated estimators against run_all's, the curves at ratio 1.0 against
+    the strong detector's mAP, the oracle against random, and the cascade
+    against ``engine.decide``.  Returns the launches of the counted run and
+    their split."""
+    from repro_torch.core import AdaptiveFeedingSVM, Cascade, cascade_map, match_pairs_batched
+    from repro_torch.core import ori_batch, topk_offload_mask
+    from repro_torch.data.shapes import ShapesDataset
+    from repro_torch.experiments import detection_repro as tdr
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.models.detector import STRONG, WEAK, decode_batch
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    with tempfile.TemporaryDirectory() as cache:
+        t_phase = time.perf_counter()
+        reset_counts(counters)
+        results = tdr.run_all(quick=True, force=True, device=dev, cache_dir=cache, stage_ms=stage)
+        state = timed("load_state_ms", lambda: tdr.build_pipeline(device=dev, cache_dir=cache))
+        fig7 = timed("figure7_ms", lambda: tdr.figure7_input_study(
+            state, context_size=REPRO_CTX, n_val=len(state.val_pairs), device=dev,
+            cache_dir=cache))
+        bundle = timed("train_estimators_again_ms", lambda: tdr.train_estimators(
+            state, context_size=REPRO_CTX, epochs=REPRO_EPOCHS, device=dev))
+        token_bucket = timed("token_bucket_ms", lambda: tdr.token_bucket_study(state, bundle))
+        # -- the cascade, a frame at a time: the streaming study's engine
+        engine = timed("cascade_engine_ms", lambda: tdr.build_engine(
+            state, context_size=REPRO_CTX, epochs=REPRO_STREAM_EPOCHS, device=dev))
+        weak = tdr.load_detector(WEAK, device=dev, cache_dir=cache)
+        strong = tdr.load_detector(STRONG, device=dev, cache_dir=cache)
+        images = ShapesDataset.generate(REPRO_CASCADE_FRAMES, seed=1).images  # val's first frames
+        cascade = Cascade.from_engine(lambda i: decode_batch(weak, images[i : i + 1]),
+                                      lambda i: decode_batch(strong, images[i : i + 1]), engine)
+        records = timed("cascade_ms", lambda: cascade.run(range(REPRO_CASCADE_FRAMES)))
+        sync()
+        phase_s = time.perf_counter() - t_phase
+        launches = {c.__name__: c.launches for c in counters}
+        split = split_counts(counters)
+        results_file = Path(cache) / "torch_repro_results.json"
+        if json.loads(results_file.read_text()) != json.loads(json.dumps(results)):
+            fail(f"{results_file.name} differs from run_all's return value")
+
+    # -- checks, outside the count
+    checks = {}
+    # the matching on the card (one match launch a call) against the CPU
+    card = match_pairs_batched(state.weak_dets_val, state.strong_dets_val, state.val_gts,
+                               device=dev)
+    host = match_pairs_batched(state.weak_dets_val, state.strong_dets_val, state.val_gts,
+                               device="cpu")
+    for a, b in zip(card, host):
+        for ea, eb in ((a.weak, b.weak), (a.strong, b.strong)):
+            if ea.gt_counts != eb.gt_counts or sorted(ea.per_class) != sorted(eb.per_class) \
+                    or any(not np.array_equal(ea.per_class[c][1], eb.per_class[c][1])
+                           or not np.array_equal(ea.matched_gt[c], eb.matched_gt[c])
+                           for c in eb.per_class):
+                fail("match_pairs_batched on the card differs from the CPU (tp / match_gt)")
+    checks["match_card_vs_cpu_equal"] = len(card)
+    # the Adaptive Feeding SVM: card against CPU
+    difficult = ori_batch(state.val_pairs) > 0
+    svm = [AdaptiveFeedingSVM(c_plus=1.0, epochs=60, device=d).fit(state.features_val, difficult)
+           for d in (dev, "cpu")]
+    svm_err = float(np.abs(svm[0].w - svm[1].w).max())
+    if not svm_err <= 1e-4 or abs(svm[0].b - svm[1].b) > 1e-4:
+        fail(f"AdaptiveFeedingSVM on the card vs the CPU: weights differ by {svm_err}")
+    checks["svm_card_vs_cpu_max_abs_err"] = svm_err
+    # a short train_estimators: card against CPU
+    short, fitted = [], []
+    for d in (dev, "cpu"):
+        engines, restore = record_engines(tdr)
+        try:
+            short.append(tdr.train_estimators(state, context_size=REPRO_CTX,
+                                              epochs=REPRO_SHORT_EPOCHS, device=d))
+        finally:
+            restore()
+        fitted.append(engines)
+    fold_rng = np.random.default_rng(0)  # train_estimators' folds: its seed, its draws
+    tdr._oric_and_ori(state, REPRO_CTX, fold_rng)
+    fold_ix = np.arange(len(state.val_pairs)) % 5
+    fold_rng.shuffle(fold_ix)
+    checks["estimators_card_vs_cpu"] = hold_estimators(
+        torch, "train_estimators on the card vs the CPU", short[0], short[1], SHORT_FIT_TOL,
+        fitted, fold_ix, state.features_val)
+    # the estimators again: the card repeats run_all's fit bit for bit
+    curves = results["figure9_10"]["curves"]
+    ratios = results["figure9_10"]["ratios"]
+    for k, preds in bundle.preds.items():
+        again = [cascade_map(state.val_pairs, topk_offload_mask(preds, r)) for r in ratios]
+        if again != curves[f"est_{k}"]["map"]:
+            fail(f"train_estimators repeated on the card gives another est_{k} curve")
+    # every curve at ratio 1.0 is the strong detector's mAP; the oracle
+    # beats random below it
+    full = ratios.index(1.0)
+    gaps = {k: abs(c["map"][full] - results["strong_map"]) for k, c in curves.items()}
+    if max(gaps.values()) > 1e-9:
+        fail(f"curves at ratio 1.0 differ from strong_map {results['strong_map']}: {gaps}")
+    below = [(r, o, q) for r, o, q in zip(ratios, curves["oracle_ORIC"]["map"],
+                                          curves["random"]["map"]) if r < 1.0 and o < q]
+    if below:
+        fail(f"oracle_ORIC below random at (ratio, oracle, random) {below}")
+    checks.update(curves_at_1_max_gap=max(gaps.values()), oracle_above_random=True)
+    # the cascade, frame by frame, against the engine on the same detections
+    blocks = [r.weak_output for r in records]
+    want = engine.decide(features=torch.cat([engine.features(b) for b in blocks]))
+    checks["cascade_vs_decide"] = hold_flips(
+        "Cascade.from_engine vs engine.decide", np.array([r.estimate for r in records]),
+        np.array([r.offloaded for r in records]), want.estimates.astype(np.float64),
+        np.full(len(records), engine.policy.threshold))
+
+    af = results["figure9_10"]["adaptive_feeding"]
+    emit("repro", {
+        "quick": True, "n_val": len(state.val_pairs), "context_size": REPRO_CTX,
+        "weak_map": results["weak_map"], "strong_map": results["strong_map"],
+        "figure9_10": {"ratios": ratios, "curves": {k: c["map"] for k, c in curves.items()},
+                       "adaptive_feeding": [(p["c_plus"], p["ratio"], p["map"]) for p in af],
+                       "dcsb": results["figure9_10"]["dcsb"]},
+        "figure5": results["figure5"]["curves"], "table2": results["table2"],
+        "figure6": {k: {c: v[c] for c in ("base_map", "cls", "loc", "cls_loc", "dupe", "bkg",
+                                           "miss")} for k, v in results["figure6"].items()},
+        "figure7": fig7["curves"], "token_bucket": token_bucket,
+        "streaming_multi_edge": {k: results["streaming_multi_edge"][k] for k in (
+            "decided_ratio", "served_ratio", "map_served", "map_unconstrained")},
+        "cascade": {"frames": len(records), "offload_ratio": cascade.offload_ratio(records)},
+        "checks": checks, "stage_s": {k.removesuffix("_ms") + "_s": v / 1e3
+                                      for k, v in stage.items()},
+        "phase_s": phase_s, "launches": launches, "card": smi,
     })
     return launches, split
 
@@ -2126,6 +2494,7 @@ FLASH_SOURCES = {
 }
 LM_PATH_KERNELS = ("flash_sdpa", "wkv6", "estimator_mlp")  # each must launch in the lm phase
 TRAIN_PATH_KERNELS = ("iou_matrix_batch", "estimator_mlp", "score_pipeline")  # ... in the train phase
+REPRO_PATH_KERNELS = ("iou_matrix_batch", "estimator_mlp", "score_pipeline")  # ... in the repro phase
 HEAD_KERNELS = ("estimator_mlp", "score_pipeline")  # the reward head: timed at each main-path shape
 
 
@@ -2154,14 +2523,15 @@ def main() -> None:
     train_launches, train_split, trained = train(torch, smi, dev)
     stream_launches, stream_split = stream(torch, smi, dev, trained)
     del trained
+    repro_launches, repro_split = repro(torch, smi, dev)
     lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
-             "lm": lm_launches}
+             "repro": repro_launches, "lm": lm_launches}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
-              "lm": lm_split}
+              "repro": repro_split, "lm": lm_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -2204,6 +2574,9 @@ def main() -> None:
     missing = [k for k in STREAM_PATH_KERNELS if paths["stream"][k] == 0]
     if missing:
         fail(f"kernels never launched on the stream path: {missing}")
+    missing = [k for k in REPRO_PATH_KERNELS if paths["repro"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the repro path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

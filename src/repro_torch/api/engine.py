@@ -127,10 +127,17 @@ class OffloadEngine:
             y = r
         self.reward_model.fit(x, y)
         self.calibration_scores = np.asarray(self.reward_model.predict(x), np.float64)
-        self.policy = make_policy(
-            self.policy_name, self.calibration_scores, self.ratio, **self.policy_kwargs
-        )
+        self.policy = self._make_policy()
         return self
+
+    def _make_policy(self) -> Policy:
+        """The policy of ``policy_name`` over the calibration scores.  A
+        policy that declares ``device`` among its ``context_params`` (the
+        value-iteration solve) runs on the engine's device."""
+        kwargs = dict(self.policy_kwargs)
+        if "device" in policy_context_params(self.policy_name):
+            kwargs.setdefault("device", self.device)
+        return make_policy(self.policy_name, self.calibration_scores, self.ratio, **kwargs)
 
     # ---------------------------------------------------------------- serve
 
@@ -207,10 +214,7 @@ class OffloadEngine:
         clone.transform = self.transform
         clone.calibration_scores = self.calibration_scores
         clone.extra_meta = dict(self.extra_meta)
-        clone.policy = make_policy(
-            clone.policy_name, clone.calibration_scores, clone.ratio,
-            **clone.policy_kwargs,
-        )
+        clone.policy = clone._make_policy()
         return clone
 
     # ------------------------------------------------------------ save/load
@@ -282,12 +286,7 @@ class OffloadEngine:
             )
         engine.extra_meta = meta.get("extra", {})
         engine.calibration_scores = np.asarray(arrays["calibration"], np.float64)
-        engine.policy = make_policy(
-            engine.policy_name,
-            engine.calibration_scores,
-            engine.ratio,
-            **engine.policy_kwargs,
-        )
+        engine.policy = engine._make_policy()
         return engine
 
     @classmethod

@@ -11,9 +11,12 @@ and exposes the common contract:
 Registered: ``threshold`` (the paper's deployable quantile threshold),
 ``topk`` (exact per-batch top-k, the oracle-style evaluation policy), and
 ``token_bucket`` (hard rate constraint with burst tolerance, [23]-style).
-Copied from the JAX package (``repro.api.policies``); the plugin policies
-registered there (netsim, video, online, fleet, mobility) come with their
-slices of the port.
+Copied from the JAX package (``repro.api.policies``).  The netsim policies
+(``queue_aware``, ``value_iteration`` — see :mod:`repro_torch.netsim.policy`)
+register themselves on first registry access, so engine-built runtimes get
+them without importing ``repro_torch.netsim``; the JAX package's other
+plugin policies (video, online, fleet, mobility) come with their slices of
+the port.
 
 Policies that consume *runtime wiring* — injected zero-arg callables like
 the simulation clock or a live congestion probe — declare the kwarg names
@@ -68,9 +71,11 @@ def register_policy(name: str):
 
 def _ensure_plugins() -> None:
     """Import the policy plugins that live outside ``repro_torch.api`` so
-    registry lookups see them.  The JAX package registers the netsim, video,
-    online, fleet and mobility policies here; none of them is ported yet, so
-    there is nothing to import."""
+    registry lookups see them.  Lazy — called at lookup time, when this
+    module is fully initialized — so there is no import cycle.  (The JAX
+    package also imports its video, online, fleet and mobility plugins here;
+    the port has not got them yet.)"""
+    import repro_torch.netsim.policy  # noqa: F401  (registers on import)
 
 
 def list_policies() -> List[str]:
@@ -124,6 +129,36 @@ def quantile_threshold(calibration_scores: np.ndarray, ratio: float) -> float:
     if r <= 0.0:
         return NEVER_THRESHOLD
     return float(np.quantile(cal, 1.0 - r))
+
+
+class BudgetTracker:
+    """Integral controller on the realized offload ratio, shared by the
+    stateful stream policies (netsim ``queue_aware``, the video temporal
+    policies): with ``deficit`` the running shortfall in frames
+    (``ratio * decided - offloaded``), the effective budget is
+    ``ratio + gain * deficit`` clipped to [0, 1].  Because the deficit
+    accumulates, any persistent suppression — congestion, stale-result
+    credit — is eventually paid back and the realized ratio converges to
+    the target.  The target's own degenerate budgets stay hard caps: the
+    controller may not push a ratio-0 stream into offloading."""
+
+    def __init__(self, gain: float):
+        self.gain = float(gain)
+        self._decided = 0
+        self._offloaded = 0
+
+    def threshold(self, sorted_calibration: np.ndarray, ratio: float) -> float:
+        if ratio <= 0.0:
+            return NEVER_THRESHOLD
+        if ratio >= 1.0:
+            return ALWAYS_THRESHOLD
+        deficit = ratio * self._decided - self._offloaded
+        r_adj = float(np.clip(ratio + self.gain * deficit, 0.0, 1.0))
+        return quantile_threshold(sorted_calibration, r_adj)
+
+    def account(self, offload: bool) -> None:
+        self._decided += 1
+        self._offloaded += int(offload)
 
 
 @register_policy("threshold")

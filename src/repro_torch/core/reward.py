@@ -32,7 +32,7 @@ from repro_torch.detection.map_engine import (
     Detections,
     GroundTruth,
     ImageEval,
-
+    match_detections,
 )
 
 
@@ -43,6 +43,25 @@ class MatchedImage:
 
     weak: ImageEval
     strong: ImageEval
+
+
+def match_pairs(
+    weak_dets: Sequence[Detections],
+    strong_dets: Sequence[Detections],
+    gts: Sequence[GroundTruth],
+    iou_thresholds: Sequence[float] = (0.5,),
+) -> List[MatchedImage]:
+    """Per-image host matching of both detector outputs (the numpy oracle
+    of :func:`match_pairs_batched`)."""
+    out = []
+    for dw, ds, gt in zip(weak_dets, strong_dets, gts):
+        out.append(
+            MatchedImage(
+                weak=match_detections(dw, gt, iou_thresholds),
+                strong=match_detections(ds, gt, iou_thresholds),
+            )
+        )
+    return out
 
 
 def match_pairs_batched(
@@ -127,6 +146,25 @@ class RewardOracle:
         strong = self._acc.map_with_images([im.strong for im in imgs])
         weak = self._acc.map_with_images([im.weak for im in imgs])
         return scale * (strong - weak)
+
+
+def ori(img: MatchedImage, iou_thresholds: Sequence[float] = (0.5,)) -> float:
+    """ORI (Eq. 1 difference): per-image mAPI_s − mAPI_w, no context."""
+    empty = APAccumulator(iou_thresholds)
+    return empty.map_with_image(img.strong) - empty.map_with_image(img.weak)
+
+
+def ori_batch(
+    imgs: Sequence[MatchedImage], iou_thresholds: Sequence[float] = (0.5,)
+) -> np.ndarray:
+    """Vectorized ORI via the same hoisted two-pass trick as ``oric_batch``:
+    the empty-context accumulator's base AP terms are shared across images
+    (trivially zero here), so the whole batch costs two
+    ``map_with_images`` passes instead of 2·N accumulator constructions."""
+    empty = APAccumulator(iou_thresholds)
+    strong = empty.map_with_images([im.strong for im in imgs])
+    weak = empty.map_with_images([im.weak for im in imgs])
+    return strong - weak
 
 
 class CdfTransform:

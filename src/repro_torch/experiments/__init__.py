@@ -1,2 +1,3 @@
-"""The reproduction pipeline (``detection_repro``): trained detectors, their
-matched outputs and the fitted engine."""
+"""End-to-end experiments reproducing the paper's tables/figures
+(``detection_repro``): trained detectors, their matched outputs, the fitted
+engine, and every figure and table with ``run_all``."""

@@ -9,8 +9,9 @@ made explicit:
   whole detection block, arrival-order policy state, rolling telemetry,
   mid-stream ``set_ratio``),
 - :class:`EdgeWorker` / :class:`EdgeLatencyModel` — a constrained edge
-  server (capacity, clock-driven token-bucket rate limit, latency model);
-  the ``link=`` uplink front-end comes with ROADMAP.md queue A item 4,
+  server (capacity, clock-driven token-bucket rate limit, latency model,
+  optional ``link=`` uplink front-end from :mod:`repro_torch.netsim` with a
+  bounded FIFO queue and per-frame :class:`LatencyBreakdown`),
 - :class:`MultiEdgeDispatcher` — routes accepted offloads across a
   heterogeneous fleet (``round_robin`` / ``least_loaded`` /
   ``score_weighted``) with drop-or-degrade on saturation,
@@ -19,8 +20,7 @@ made explicit:
 
 Every layer accepts an optional ``obs=`` :class:`repro_torch.obs.Obs`
 handle (re-exported here): metrics registry + manual-clock span tracing +
-host-phase profiling, noop-by-default.  ``default_congested_fleet`` and
-``default_linked_fleet`` are exported and raise until queue A item 4.
+host-phase profiling, noop-by-default.
 """
 from repro_torch.obs import Obs
 from repro_torch.runtime.clock import ManualClock

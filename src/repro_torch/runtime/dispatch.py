@@ -48,8 +48,7 @@ def list_strategies() -> List[str]:
 class DispatchResult:
     """Where one accepted offload went (or why it didn't).  ``breakdown``
     decomposes the latency of admitted frames into uplink queue wait,
-    transmission, and edge service (pure service on link-free edges, which
-    every edge is until ROADMAP.md queue A item 4)."""
+    transmission, and edge service (pure service on link-free edges)."""
 
     step: int
     estimate: float
@@ -162,6 +161,7 @@ class MultiEdgeDispatcher:
         *,
         prefer: Optional[int] = None,
         pin: bool = False,
+        size_bits: Optional[float] = None,
     ) -> DispatchResult:
         """Route one accepted offload; on fleet saturation apply the
         drop-or-degrade policy.
@@ -171,9 +171,9 @@ class MultiEdgeDispatcher:
         dispatchers use to favor a stream's serving base station while
         keeping the fleet as backup.  ``pin=True`` hardens that to *only*
         that edge (a mobile client's single radio talks to one station;
-        refusal degrades/drops rather than teleporting the frame).  (The
-        JAX package's ``size_bits``, a frame's size on a link, comes with
-        the links, ROADMAP.md queue A item 4.)"""
+        refusal degrades/drops rather than teleporting the frame).
+        ``size_bits`` overrides the frame's size on the uplink
+        (coverage-dependent links price a far client's frame higher)."""
         prof = self._profiler
         if prof is None:
             self.poll(now)
@@ -197,7 +197,7 @@ class MultiEdgeDispatcher:
             prof.add("dispatch.probe_order", t0)
             t0 = prof.begin()
         for i in order:
-            lat = self.edges[i].try_admit(now, step, estimate)
+            lat = self.edges[i].try_admit(now, step, estimate, size_bits)
             if lat is not None:
                 if prof is not None:
                     prof.add("dispatch.admit", t0)

@@ -225,7 +225,8 @@ class OffloadSession:
 
     Each injected callable reaches the policy constructor only when the
     policy's ``context_params`` declares it — runtime wiring, never part of
-    the engine artifact.
+    the engine artifact.  So does ``device`` (the engine's), for a policy
+    that solves on the device (``value_iteration``).
     """
 
     def __init__(
@@ -261,6 +262,7 @@ class OffloadSession:
             "staleness": staleness,
             "scene_change": scene_change,
             "coverage_ttl": coverage_ttl,
+            "device": engine.device,
         }
         kwargs.update(
             {k: v for k, v in context.items() if v is not None and k in accepted}

@@ -189,23 +189,97 @@ def default_edge_fleet(
     ]
 
 
-_LINKED_FLEET_MESSAGE = (
-    "{} puts netsim uplinks in front of the edges; the link and queue "
-    "models come with ROADMAP.md queue A item 4"
-)
+def default_congested_fleet(
+    n: int = 3,
+    seed: int = 0,
+    *,
+    transmit_time: float = 5.0,
+    queue_depth: int = 12,
+    p_gb: float = 0.08,
+    p_bg: float = 0.25,
+    bad_slowdown: float = 4.0,
+    prefix: str = "edge",
+) -> List[EdgeWorker]:
+    """A seeded fleet behind congested Gilbert–Elliott uplinks — the netsim
+    acceptance scenario.  Each edge's link pushes one frame in
+    ``transmit_time`` time units in the good state and ``bad_slowdown``×
+    that in fades, so with frames arriving every time unit the uplink
+    queues genuinely build and queue-aware policies have something to see.
+    Service itself is fast (the bottleneck is the link, as in the paper's
+    rate-constrained setting)."""
+    from repro_torch.netsim import GilbertElliottLink
+
+    return [
+        EdgeWorker(
+            f"{prefix}{i}",
+            capacity=queue_depth + 4,
+            latency=EdgeLatencyModel(base=0.2, per_inflight=0.02, jitter=0.02),
+            link=GilbertElliottLink(
+                bandwidth=1.0 / transmit_time,
+                bad_bandwidth=1.0 / (transmit_time * bad_slowdown),
+                p_gb=p_gb,
+                p_bg=p_bg,
+                slot=1.0,
+                seed=seed * 101 + i,
+            ),
+            queue_depth=queue_depth,
+            frame_bits=1.0,
+            seed=seed + i,
+        )
+        for i in range(n)
+    ]
 
 
-def default_congested_fleet(*args: Any, **kwargs: Any) -> List[EdgeWorker]:
-    """A seeded fleet behind congested Gilbert–Elliott uplinks (the netsim
-    acceptance scenario).  Raises until ROADMAP.md queue A item 4 brings
-    the link and queue models."""
-    raise NotImplementedError(_LINKED_FLEET_MESSAGE.format("default_congested_fleet"))
+def default_linked_fleet(
+    n: int = 3,
+    seed: int = 0,
+    *,
+    transmit_time: float = 0.08,
+    queue_depth: int = 64,
+    fading: bool = False,
+    p_gb: float = 0.05,
+    p_bg: float = 0.4,
+    bad_slowdown: float = 3.0,
+    prefix: str = "edge",
+) -> List[EdgeWorker]:
+    """The heterogeneous ``default_edge_fleet`` profiles with *real* netsim
+    uplinks in front of them: a fast ``ConstantRateLink`` per edge (one
+    frame in ``transmit_time`` time units) or, with ``fading=True``, a
+    seeded Gilbert–Elliott channel that slows to ``bad_slowdown``× in
+    fades.  Unlike ``default_congested_fleet`` the link is provisioned as
+    the *minor* cost — service still dominates — so scenarios built on the
+    latency-only fleet keep their character while every frame genuinely
+    pays transit (the fleet city scenario runs on this)."""
+    from repro_torch.netsim import ConstantRateLink, GilbertElliottLink
 
-
-def default_linked_fleet(*args: Any, **kwargs: Any) -> List[EdgeWorker]:
-    """The ``default_edge_fleet`` profiles behind netsim uplinks.  Raises
-    until ROADMAP.md queue A item 4 brings the link and queue models."""
-    raise NotImplementedError(_LINKED_FLEET_MESSAGE.format("default_linked_fleet"))
+    fleet = default_edge_fleet(n, seed, prefix=prefix)
+    out: List[EdgeWorker] = []
+    for i, e in enumerate(fleet):
+        if fading:
+            link = GilbertElliottLink(
+                bandwidth=1.0 / transmit_time,
+                bad_bandwidth=1.0 / (transmit_time * bad_slowdown),
+                p_gb=p_gb,
+                p_bg=p_bg,
+                slot=1.0,
+                seed=seed * 211 + i,
+            )
+        else:
+            link = ConstantRateLink(1.0 / transmit_time)
+        out.append(
+            EdgeWorker(
+                e.name,
+                capacity=e.capacity,
+                rate=e._bucket.rate if e._bucket is not None else None,
+                burst=e._bucket.depth if e._bucket is not None else 1.0,
+                latency=e.latency,
+                link=link,
+                queue_depth=queue_depth,
+                frame_bits=1.0,
+                seed=seed + i,
+            )
+        )
+    return out
 
 
 class OffloadRuntime:

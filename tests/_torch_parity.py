@@ -56,3 +56,137 @@ def seeded_detector_tree(cfg, seed, objectness_bias=3.0, class_scale=6.0):
     head["w"][..., 1 : 1 + cfg.num_classes] *= class_scale
     tree["head_out"] = head
     return tree
+
+
+# ------------------------------------------------- shared pipeline fixtures
+
+import pytest  # noqa: E402
+
+
+@pytest.fixture
+def repro_init(monkeypatch):
+    """The port's estimator starts from repro's draw for the same seed."""
+    import jax
+
+    from repro.core import estimator as jest
+    from repro_torch.convert import mlp_params_from_jax
+    from repro_torch.core import estimator as port_est
+
+    def mlp_init(generator, in_dim, hidden=(128, 64)):
+        key = jax.random.PRNGKey(generator.initial_seed())
+        tree = jax.tree.map(np.asarray, jest.mlp_init(key, in_dim, hidden))
+        return mlp_params_from_jax(tree, device="cpu")
+
+    monkeypatch.setattr(port_est, "mlp_init", mlp_init)
+
+
+@pytest.fixture
+def repro_cnn_init(monkeypatch):
+    """The port's CNN reward model starts from repro's draw for its seed."""
+    import jax
+
+    from repro.core import estimator as jest
+    from repro_torch.api import reward_model as port_rm
+    from repro_torch.convert import cnn_params_from_jax
+
+    def cnn_init(generator, in_channels, width=16):
+        key = jax.random.PRNGKey(generator.initial_seed())
+        tree = jax.tree.map(np.asarray, jest.cnn_init(key, in_channels, width))
+        return cnn_params_from_jax(tree, device="cpu")
+
+    monkeypatch.setattr(port_rm, "cnn_init", cnn_init)
+
+
+def detector_like(cfg):
+    """The shapes of ``repro``'s detector pytree for ``cfg``."""
+    import jax
+
+    from repro.models.detector import detector_init
+
+    return jax.eval_shape(lambda: detector_init(jax.random.PRNGKey(0), cfg))
+
+
+@pytest.fixture(scope="module")
+def pipelines(tmp_path_factory):
+    """repro's tiny pipeline, its 3-step detectors sharpened (objectness bias
+    raised) so that they detect; then the port's, whose trainer runs too but
+    whose detectors load repro's cached ``.npz`` weights: both packages
+    score, match and featurize with the same trained parameters.  Returns
+    (repro's state, the port's, the port's stage ms, the port's cache dir);
+    repro's cache dir is its sibling ``repro``."""
+    import jax
+    import jax.numpy as jnp
+
+    import repro.experiments.detection_repro as jdr
+    import repro_torch.experiments.detection_repro as tdr
+    from repro.train.checkpoint import load_pytree as j_load_pytree
+    from repro_torch.convert import detector_params_from_jax
+
+    base = tmp_path_factory.mktemp("pipelines")
+    jdir, tdir = base / "repro", base / "port"  # repro's cache: tdir.parent / "repro"
+    jdir.mkdir()
+    tdir.mkdir()
+    kw = dict(n_train=128, n_val=64, n_pool=64, steps_weak=3, steps_strong=3, force=True,
+              verbose=False)
+    real_j, real_t = jdr.train_detector, tdr.train_detector
+    mp = pytest.MonkeyPatch()
+    try:
+        def j_train(cfg, ds, steps, seed):
+            params, losses = real_j(cfg, ds, steps=steps, seed=seed, log_every=0)
+            w, b = np.array(params["head_out"]["w"]), np.array(params["head_out"]["b"])
+            w[..., 1 : 1 + cfg.num_classes] *= 6.0
+            b[0] = 3.0
+            return dict(params, head_out={"w": jnp.asarray(w), "b": jnp.asarray(b)}), losses
+
+        def t_train(cfg, ds, steps, seed, device):
+            det, losses = real_t(cfg, ds, steps=steps, seed=seed, log_every=0, device=device)
+            like = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), detector_like(cfg))
+            det.load_state_dict(detector_params_from_jax(
+                j_load_pytree(str(jdir / f"detector_{cfg.name}.npz"), like)))
+            return det, losses
+
+        mp.setattr(jdr, "ARTIFACTS", str(jdir))
+        mp.setattr(jdr, "train_detector", j_train)
+        mp.setattr(tdr, "train_detector", t_train)
+        jstate = jdr.build_pipeline(**kw)
+        stage = {}
+        tstate = tdr.build_pipeline(**kw, device="cpu", cache_dir=str(tdir), stage_ms=stage)
+    finally:
+        mp.undo()
+    return jstate, tstate, stage, tdir
+
+
+def port_evals(ev):
+    """A ``repro`` ``ImageEval`` as the port's, field by field."""
+    from repro_torch.detection.map_engine import ImageEval
+
+    return ImageEval(
+        per_class={c: (s.copy(), tp.copy()) for c, (s, tp) in ev.per_class.items()},
+        gt_counts=dict(ev.gt_counts),
+        matched_gt={c: m.copy() for c, m in ev.matched_gt.items()},
+    )
+
+
+def port_state(jstate):
+    """``repro``'s ``PipelineState`` as the port's: the same evaluations,
+    detections, ground truth, mAPs and features, so that the host numpy of
+    both packages sees identical inputs."""
+    from repro_torch.core.reward import MatchedImage
+    from repro_torch.detection.map_engine import Detections, GroundTruth
+    from repro_torch.experiments.detection_repro import PipelineState
+
+    def dets(ds):
+        return [Detections(d.boxes.copy(), d.scores.copy(), d.classes.copy()) for d in ds]
+
+    return PipelineState(
+        val_pairs=[MatchedImage(weak=port_evals(p.weak), strong=port_evals(p.strong))
+                   for p in jstate.val_pairs],
+        pool_weak_evals=[port_evals(e) for e in jstate.pool_weak_evals],
+        weak_dets_val=dets(jstate.weak_dets_val),
+        strong_dets_val=dets(jstate.strong_dets_val),
+        val_gts=[GroundTruth(g.boxes.copy(), g.classes.copy()) for g in jstate.val_gts],
+        weak_map=jstate.weak_map,
+        strong_map=jstate.strong_map,
+        features_val=np.array(jstate.features_val),
+        image_size=jstate.image_size,
+    )

@@ -755,3 +755,100 @@ def test_session_submit_needs_no_host_sync(dev, no_tf32):
     assert session._pending_rows == 8
     assert len(session.flush()) == 8
     assert len(session.submit(single)) == 0 and session._pending_rows == 1
+
+
+def test_value_iteration_on_card_matches_ref(dev):
+    """The value-iteration solve as float32 tensor sweeps on the card: within
+    1e-4 of the Python oracle (tests/test_netsim.py's tolerance) and 1e-5 of
+    the CPU solve; the ratio grid's sweep as each single solve."""
+    from repro_torch.netsim import (
+        quantile_threshold,
+        solve_value_iteration,
+        value_iteration_ref,
+        value_iteration_sweep,
+    )
+    from repro_torch.netsim.policy import _estimate_bins
+
+    cal = np.random.default_rng(5).uniform(0, 1, 400)
+    bins = _estimate_bins(cal, 32)
+    for r in (0.1, 0.35, 0.7):
+        lam = quantile_threshold(cal, r)
+        V, theta = solve_value_iteration(bins, lam, device=dev)
+        rV, rtheta = value_iteration_ref(bins, lam)
+        np.testing.assert_allclose(theta, rtheta, atol=1e-4)
+        np.testing.assert_allclose(V, rV, atol=1e-4)
+        np.testing.assert_allclose(theta, solve_value_iteration(bins, lam, device="cpu")[1],
+                                   atol=1e-5)
+    grid = value_iteration_sweep(cal, (0.1, 0.35, 0.7), device=dev)
+    np.testing.assert_allclose(grid, value_iteration_sweep(cal, (0.1, 0.35, 0.7), device="cpu"),
+                               atol=1e-5)
+
+
+def test_adaptive_feeding_svm_on_card_matches_cpu(dev, no_tf32):
+    """The SVM's full-batch hinge fit on the card and on the CPU: weights
+    within 1e-4, masks equal away from the decision boundary."""
+    from repro_torch.core import AdaptiveFeedingSVM
+
+    rng = np.random.default_rng(8)
+    x = rng.normal(0, 1, (400, F)).astype(np.float32) * (rng.uniform(0, 1, F) < 0.5)
+    x[:16] = x[0]
+    difficult = rng.uniform(size=400) < 0.3
+    for c_plus in (0.125, 2.0):
+        card = AdaptiveFeedingSVM(c_plus=c_plus, epochs=60, device=dev).fit(x, difficult)
+        cpu = AdaptiveFeedingSVM(c_plus=c_plus, epochs=60, device="cpu").fit(x, difficult)
+        np.testing.assert_allclose(card.w, cpu.w, atol=1e-4)
+        far = np.abs(cpu.decision(x)) >= 1e-3
+        np.testing.assert_array_equal(card.predict(x)[far], cpu.predict(x)[far])
+
+
+def test_cascade_from_engine_on_card(dev, no_tf32):
+    """``Cascade.from_engine`` over one-frame blocks: one score_pipeline
+    launch an item, estimates equal to the engine's whole-batch decide
+    (the same kernel) within 1e-5, decisions equal away from the
+    threshold."""
+    from repro_torch.core import Cascade
+
+    engine = _detection_engine(dev)
+    batch = _seeded_detections(np.random.default_rng(9), 24, 64, dev)
+    frames = [DetectionsBatch(boxes=batch.boxes[i : i + 1], scores=batch.scores[i : i + 1],
+                              classes=batch.classes[i : i + 1], mask=batch.mask[i : i + 1])
+              for i in range(24)]
+    sp = score_pipeline.launches
+    records = Cascade.from_engine(frames.__getitem__, lambda i: i, engine).run(range(24))
+    assert score_pipeline.launches == sp + 24
+    want = engine.decide(batch)
+    est = np.array([r.estimate for r in records])
+    np.testing.assert_allclose(est, want.estimates, atol=1e-5, rtol=0)
+    near = np.abs(want.estimates - engine.policy.threshold) <= 1e-5
+    off = np.array([r.offloaded for r in records])
+    np.testing.assert_array_equal(off[~near], want.offload[~near])
+
+
+@pytest.mark.parametrize("policy", ["queue_aware", "value_iteration"])
+def test_linked_fleet_simulate_on_card_matches_cpu(dev, no_tf32, tmp_path, policy):
+    """A seeded simulate over default_linked_fleet on the card and on the
+    CPU (the engine artifact loaded there): estimates within 1e-5, records
+    equal up to the first decision that flipped near the threshold."""
+    from repro_torch.api import OffloadEngine
+    from repro_torch.runtime import default_linked_fleet, simulate
+
+    engine = _detection_engine(dev).with_policy(policy)
+    engine.save(str(tmp_path / "engine.npz"))
+    cpu = OffloadEngine.load(str(tmp_path / "engine.npz"), device="cpu").with_policy(policy)
+    if policy == "value_iteration":
+        assert engine.policy.device.type == "cuda"
+        np.testing.assert_allclose(engine.policy.theta, cpu.policy.theta, atol=1e-5)
+    x = engine.features(_seeded_detections(np.random.default_rng(3), 200, 64, dev))
+    kw = dict(ratio=0.3, micro_batch=8, seed=0)
+    card = simulate(engine, features=x, edges=default_linked_fleet(3, seed=0), **kw)
+    host = simulate(cpu, features=x.cpu(), edges=default_linked_fleet(3, seed=0), **kw)
+    est_c = np.array([r.estimate for r in card.records])
+    est_h = np.array([r.estimate for r in host.records])
+    np.testing.assert_allclose(est_c, est_h, atol=1e-5, rtol=0)
+    flips = np.flatnonzero([a.offload != b.offload for a, b in zip(card.records, host.records)])
+    upto = int(flips[0]) if flips.size else len(card.records)
+    for a, b in zip(card.records[:upto], host.records[:upto]):
+        a, b = a.as_dict(), b.as_dict()
+        a.pop("estimate"), b.pop("estimate")
+        assert a == b
+    assert any(r.transmit_delay for r in card.records if r.transmit_delay is not None)

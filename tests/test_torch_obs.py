@@ -286,10 +286,19 @@ def run(engine, x, obs, rt=trt, n=128, micro_batch=16):
 
 
 def test_session_telemetry_byte_stable_under_obs(engines):
+    """On the congested netsim fleet, as repro's test runs it."""
     _, eng, x = engines
-    base = run(eng, x, None)
+
+    def run(obs):
+        return trt.simulate(
+            eng, features=x[:128], edges=trt.default_congested_fleet(3, seed=0),
+            ratio=0.3, micro_batch=16, seed=0, obs=obs,
+        )
+
+    base = run(None)
+    assert base.latency_decomposition()["transmit"] > 0.0
     for handle in (Obs(), Obs.noop(), Obs(metrics=False), Obs(tracing=False)):
-        trace = run(eng, x, handle)
+        trace = run(handle)
         assert trace.records == base.records
         for kwargs in (
             {},

@@ -12,7 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import both_detections, random_detection_arrays
+from _torch_parity import (  # noqa: F401  (pipelines, repro_init: shared fixtures)
+    both_detections,
+    detector_like,
+    pipelines,
+    random_detection_arrays,
+    repro_init,
+)
 
 import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
 import jax
@@ -24,13 +30,12 @@ from repro.core import estimator as jest
 from repro.detection.batch import DetectionsBatch as JDB
 from repro.models import lm as jlm
 from repro.serving.cascade_serving import LMCascade as JLMCascade
-from repro.train.checkpoint import load_pytree as j_load_pytree
 
 import repro_torch.experiments.detection_repro as tdr
 from repro_torch.api import CNNRewardModel, MLPRewardModel, OffloadEngine
 from repro_torch.api.features import DetectionBoxFeatures
 from repro_torch.configs import get_config
-from repro_torch.convert import detector_params_from_jax, lm_params_from_jax, mlp_params_from_jax
+from repro_torch.convert import lm_params_from_jax
 from repro_torch.core import estimator as port_est
 from repro_torch.data.lm_synth import synth_lm_batch
 from repro_torch.detection.batch import DetectionsBatch as TDB
@@ -39,18 +44,6 @@ from repro_torch.serving.cascade_serving import LMCascade
 from repro_torch.train.checkpoint import load_pytree
 
 NUM_CLASSES, TOP_K, SIZE = 8, 25, 64.0
-
-
-@pytest.fixture
-def repro_init(monkeypatch):
-    """The port's estimator starts from repro's draw for the same seed."""
-
-    def mlp_init(generator, in_dim, hidden=(128, 64)):
-        key = jax.random.PRNGKey(generator.initial_seed())
-        tree = jax.tree.map(np.asarray, jest.mlp_init(key, in_dim, hidden))
-        return mlp_params_from_jax(tree, device="cpu")
-
-    monkeypatch.setattr(port_est, "mlp_init", mlp_init)
 
 
 def near_threshold(est, policy, tol):
@@ -168,49 +161,6 @@ def test_lm_cascade_fit_equals_repro(repro_init, arch):
 # --------------------------------------------------------------- pipeline
 
 
-@pytest.fixture(scope="module")
-def pipelines(tmp_path_factory):
-    """repro's tiny pipeline, its 3-step detectors sharpened (objectness bias
-    raised) so that they detect; then the port's, whose trainer runs too but
-    whose detectors load repro's cached ``.npz`` weights: both packages
-    score, match and featurize with the same trained parameters."""
-    jdir, tdir = tmp_path_factory.mktemp("repro"), tmp_path_factory.mktemp("port")
-    kw = dict(n_train=128, n_val=64, n_pool=64, steps_weak=3, steps_strong=3, force=True,
-              verbose=False)
-    real_j, real_t = jdr.train_detector, tdr.train_detector
-    mp = pytest.MonkeyPatch()
-    try:
-        def j_train(cfg, ds, steps, seed):
-            params, losses = real_j(cfg, ds, steps=steps, seed=seed, log_every=0)
-            w, b = np.array(params["head_out"]["w"]), np.array(params["head_out"]["b"])
-            w[..., 1 : 1 + cfg.num_classes] *= 6.0
-            b[0] = 3.0
-            return dict(params, head_out={"w": jnp.asarray(w), "b": jnp.asarray(b)}), losses
-
-        def t_train(cfg, ds, steps, seed, device):
-            det, losses = real_t(cfg, ds, steps=steps, seed=seed, log_every=0, device=device)
-            like = jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), _like(cfg))
-            det.load_state_dict(detector_params_from_jax(
-                j_load_pytree(str(jdir / f"detector_{cfg.name}.npz"), like)))
-            return det, losses
-
-        mp.setattr(jdr, "ARTIFACTS", str(jdir))
-        mp.setattr(jdr, "train_detector", j_train)
-        mp.setattr(tdr, "train_detector", t_train)
-        jstate = jdr.build_pipeline(**kw)
-        stage = {}
-        tstate = tdr.build_pipeline(**kw, device="cpu", cache_dir=str(tdir), stage_ms=stage)
-    finally:
-        mp.undo()
-    return jstate, tstate, stage, tdir
-
-
-def _like(cfg):
-    from repro.models.detector import detector_init
-
-    return jax.eval_shape(lambda: detector_init(jax.random.PRNGKey(0), cfg))
-
-
 def _same_evals(got, want):
     assert got.gt_counts == want.gt_counts
     assert sorted(got.per_class) == sorted(want.per_class)
@@ -228,7 +178,7 @@ def test_build_pipeline_equals_repro(pipelines):
     for name in ("weak", "strong"):
         cfg = jdr.WEAK if name == "weak" else jdr.STRONG
         got = load_pytree(str(tdir / f"torch_detector_{name}.npz"),
-                          jax.tree.map(lambda a: torch.zeros(a.shape), _like(cfg)))
+                          jax.tree.map(lambda a: torch.zeros(a.shape), detector_like(cfg)))
         assert got["head_out"]["b"][0] == 3.0  # the port wrote the weights it scored with
     n_dets = 0
     for dets in ("weak_dets_val", "strong_dets_val"):

@@ -399,13 +399,27 @@ def test_edge_worker_load_dependent_latency():
 
 @pytest.mark.parametrize("kwarg", ["link", "downlink"])
 def test_edge_worker_links_wait_for_netsim(kwarg):
-    """The netsim uplink / downlink and the fleets built on them come with
-    ROADMAP queue A item 4 and raise until then."""
-    with pytest.raises(NotImplementedError, match="queue A item 4"):
-        EdgeWorker("e0", **{kwarg: object()})
+    """The netsim uplink / downlink (ported with ROADMAP queue A item 4)
+    front the edge: an admission pays the link's queue and transit on top
+    of service, as repro's does, and the two link fleets build."""
+    import repro.netsim as jns
+    import repro_torch.netsim as tns
+
+    out = []
+    for rt, ns in ((trt, tns), (jrt, jns)):
+        e = rt.EdgeWorker("e0", capacity=4, latency=rt.EdgeLatencyModel(base=0.5),
+                          **{kwarg: ns.ConstantRateLink(0.5)})
+        lats = [e.try_admit(0.0, i, 0.5) for i in range(3)]
+        out.append((lats, e.last_breakdown.as_dict(), e.predicted_uplink_delay(0.0),
+                    e.uplink_state(0.0), e.stats()))
+    assert out[0] == out[1]
+    lats, bd, wait, state, stats = out[0]
+    assert bd["transmit" if kwarg == "link" else "downlink"] > 0.0
+    assert lats[2] == pytest.approx(sum(bd.values()))
+    assert (wait > 0.0, state[0]) == ((True, 3) if kwarg == "link" else (False, 0))
+    assert ("uplink" in stats) == (kwarg == "link")
     for fleet in (trt.default_congested_fleet, trt.default_linked_fleet):
-        with pytest.raises(NotImplementedError, match="queue A item 4"):
-            fleet(3, seed=0)
+        assert all(e.uplink is not None for e in fleet(3, seed=0))
     e = EdgeWorker("e0")
     assert e.predicted_uplink_delay(5.0) == 0.0 and e.uplink_state(5.0) == (0, 0)
     lat = e.try_admit(0.0, 0, 0.5)
