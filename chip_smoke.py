@@ -2,7 +2,8 @@
 """Drive the PyTorch port's paths once on one NVIDIA H100: the detection
 serve path, the training slice (both detectors trained, the engine fitted),
 the streaming runtime over the trained engine (also behind netsim uplinks),
-the paper's experiments (``run_all``), and the LM early-exit cascade
+the paper's experiments (``run_all``), the temporal layer (video streams
+through the tracker, closed-loop adaptation), and the LM early-exit cascade
 (qwen2-7b and rwkv6-1.6b at full width, in batches and as streams).
 
     python3 chip_smoke.py
@@ -30,7 +31,7 @@ first use.  Phases, each printing one line of its own:
                the plain version's and (for flash_sdpa)
                ``scaled_dot_product_attention``'s time at the main-path
                prefill and decode shapes, and the bound; ``estimator_mlp``
-               and ``score_pipeline`` at each of the nine shapes the main
+               and ``score_pipeline`` at each shape the main
                paths launch them (``time_head``), back to back and right
                after the PyTorch op that precedes them on the path, with
                the host's microseconds a call and the launch plan (cluster
@@ -124,7 +125,33 @@ first use.  Phases, each printing one line of its own:
                is at least ``random`` below it, and the cascade decides as
                ``engine.decide`` (estimates within 1e-5).  Prints the
                curves, the figures and each stage's seconds.
-8. ``lm``      the LM early-exit cascade, once per family at full width
+8. ``video``   the temporal layer, every launch count set to 0 first:
+               ``default_video_scenario(8, 96)`` (calibration 4 x 48, the
+               estimator fitted on the card), ``temporal_hysteresis`` at
+               0.3 through ``VideoRuntime.serve_clip`` under ``Obs`` and
+               again through ``run_video_scenario``, ``keyframe``,
+               ``threshold`` at the five target ratios of ``repro``'s
+               headline, then ``default_shift_scenario()`` (4 x 160, shift
+               at 64) and its frozen and adaptive arms.  Fails unless the
+               tracker launched the IoU family's ``matrix`` route, the
+               tracker on the card equals the CPU's and ``track_clip_ref``
+               (the association fields exactly, boxes / vel / conf within
+               1e-6), the two card runs of ``temporal_hysteresis`` are bit
+               identical, a CPU serve of the card-fitted engine (its
+               artifact) gives equal records up to the first flipped
+               decision with estimates within 1e-5, the serve semantics of
+               ``tests/test_video.py`` hold (staleness exactly on the frames
+               served from an edge, over a fifth of the frames covered), and
+               the adaptive arm made incremental updates and refits and its
+               checkpoint, loaded on the card, replays 30 more observation
+               blocks bit for bit.  Prints each policy's realized ratio,
+               mean effective accuracy and covered fraction, each arm's
+               pre- and post-shift accuracy (reported, not asserted: the
+               card fits its own engines), ``serve_clip`` seconds and
+               frames/s, the host ms of one tracker step, the ``video.*``
+               and ``session.*`` profiler spans and the launches by route
+               and shape.
+9. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
@@ -149,17 +176,18 @@ first use.  Phases, each printing one line of its own:
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-9. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+10. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
                launch of the main paths; for the IoU kernels, each route's
-               source, launches and timed shapes).  The paths: detection,
-               train, stream (the detection stream and both LM streams),
-               repro and lm; the run fails if score_pipeline, estimator_mlp
-               or iou_matrix_batch never launched on the train, stream or
-               repro path.
+               source, launches and timed shapes, and the video path's
+               launches by shape).  The paths: detection, train, stream (the
+               detection stream and both LM streams), repro, video and lm;
+               the run fails if score_pipeline, estimator_mlp or
+               iou_matrix_batch never launched on the train, stream or repro
+               path, or estimator_mlp or iou_matrix_batch on the video path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -459,7 +487,12 @@ def time_head(torch, timer, dev):
                            (REPRO_N_VAL, F, HIDDEN,
                             "the quick pipeline's build_engine calibration estimates (repro)"),
                            (REPRO_MICRO_BATCH, F, HIDDEN,
-                            "streaming_multi_edge_study's micro-batch drain (repro)")):
+                            "streaming_multi_edge_study's micro-batch drain (repro)"),
+                           (1, VIDEO_F, VIDEO_HIDDEN,
+                            "a video / shift stream's submit, micro_batch 1 (video)"),
+                           (VIDEO_CAL_ROWS, VIDEO_F, VIDEO_HIDDEN,
+                            "the video / shift scenario's engine.fit calibration estimates "
+                            "(video)")):
         x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
         mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
         sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
@@ -746,13 +779,30 @@ def time_iou(torch, timer, dev):
         timed(B, "match", f"B={B} K=64 M=8 T={T}", where,
               lambda: greedy_match(*args, thr), lambda: greedy_match_ref(*args, thr),
               lambda: torch.mul(s0, 1.0, out=args[1]), match_cost(B, 64, 8, T))
+    for B, K, M, T, where in ((VIDEO_STREAMS * VIDEO_FRAMES, 16, 8, 1,
+                               "frame_accuracies of a video serve's frames (video)"),
+                              (SHIFT_STREAMS * SHIFT_FRAMES, 8, 8, 1,
+                               "the shift scenario's per-frame APs (video)")):
+        args = seeded_match(torch, rng, B, K, M, dev)
+        thr = torch.tensor((0.5,), device=dev)
+        s0 = args[1].clone()
+        timed(B, "match", f"B={B} K={K} M={M} T={T}", where,
+              lambda: greedy_match(*args, thr), lambda: greedy_match_ref(*args, thr),
+              lambda: torch.mul(s0, 1.0, out=args[1]), match_cost(B, K, M, T))
     for B, K, M, where in ((1, 64, 64, "standalone, a frame's slots"),
                            (REQUEST, 64, 64, "standalone, a request's slots"),
-                           (N_CAL, 64, 8, "standalone, match_batch's IoU")):
+                           (N_CAL, 64, 8, "standalone, match_batch's IoU"),
+                           (VIDEO_STREAMS, 16, 16,
+                            "the video tracker's step: streams x max_dets x max_tracks")):
         a = torch.tensor(seeded_boxes(rng, (B, K), IMAGE_SIZE), device=dev)
-        g = a if K == M else torch.tensor(seeded_boxes(rng, (B, M), IMAGE_SIZE), device=dev)
+        g = a if K == M and B != VIDEO_STREAMS else torch.tensor(
+            seeded_boxes(rng, (B, M), IMAGE_SIZE), device=dev)
+        g0 = g.clone()
         timed(B, "matrix", f"B={B} K={K} M={M}", where, lambda: iou_matrix_batch(a, g),
-              lambda: iou_matrix_batch_ref(a, g), None, matrix_cost(B, K, M))
+              lambda: iou_matrix_batch_ref(a, g),
+              # the tracker writes its predicted boxes (boxes + vel) right before
+              (lambda: torch.add(g0, 0.0, out=g)) if B == VIDEO_STREAMS else None,
+              matrix_cost(B, K, M))
     return routes
 
 
@@ -799,7 +849,7 @@ def check_iou_routes(torch, timer, dev):
     for dtype, tol in ((torch.float32, 1e-6), (torch.bfloat16, 2e-2)):
         tname = str(dtype).split(".")[-1]
         for B, K, M in ((1, 64, 64), (64, 64, 64), (512, 64, 8), (256, 64, 64), (1, 1, 1),
-                        (1, 511, 130), (3, 70, 33)):
+                        (1, 511, 130), (3, 70, 33), (VIDEO_STREAMS, 16, 16)):
             a = torch.tensor(seeded_boxes(rng, (B, K), IMAGE_SIZE), device=dev).to(dtype)
             g = a if K == M and B != 512 else torch.tensor(
                 seeded_boxes(rng, (B, M), IMAGE_SIZE), device=dev).to(dtype)
@@ -823,7 +873,8 @@ def check_iou_routes(torch, timer, dev):
     # match: the path's shape, then warp edges, COCO thresholds, chunked tiles
     for B, K, M, T in ((N_CAL, 64, 8, 1), (N_CAL, 64, 8, 2), (N_VAL, 64, 8, 1), (N_POOL, 64, 8, 1),
                        (REQUEST, 64, 8, 10), (3, 64, 1, 1), (3, 64, 32, 10), (3, 64, 33, 10),
-                       (2, 300, 1024, 2), (1, 5, 3, 1)):
+                       (2, 300, 1024, 2), (1, 5, 3, 1), (VIDEO_STREAMS * VIDEO_FRAMES, 16, 8, 1),
+                       (SHIFT_STREAMS * SHIFT_FRAMES, 8, 8, 1)):
         args = seeded_match(torch, rng, B, K, M, dev, empty_rows=int(B > 1))
         thr = torch.tensor(COCO_THRESHOLDS[:T] if T > 2 else (0.5, 0.75)[:T], device=dev)
         hold(B, "match", f"B={B} K={K} M={M} T={T}", greedy_match(*args, thr),
@@ -1957,6 +2008,242 @@ def repro(torch, smi, dev):
     return launches, split
 
 
+# --------------------------------------------------------------- the temporal layer
+
+# The video phase: default_video_scenario and default_shift_scenario at their
+# defaults (8 streams x 96 frames behind a congested 3-edge fleet; 4 x 160
+# with the weak detector's hard classes flipping at frame 64), each engine
+# fitted on the card from its 4 x 48 calibration clip.
+VIDEO_STREAMS, VIDEO_FRAMES, VIDEO_RATIO = 8, 96, 0.3
+VIDEO_THRESHOLD_RATIOS = (0.21, 0.24, 0.27, 0.30, 0.33)  # tests/test_video.py's headline grid
+SHIFT_STREAMS, SHIFT_FRAMES = 4, 160
+VIDEO_F, VIDEO_HIDDEN = 132, 32  # DetectionBoxFeatures(8 classes, top_k 8), hidden=(32,)
+VIDEO_CAL_ROWS = 4 * 48  # both scenarios' calibration clips
+VIDEO_TRACK_TOL = 1e-6  # the card's tracker against the CPU's: boxes, vel, conf
+VIDEO_EST_TOL = 1e-5  # estimates of one engine on the card and on the CPU (the MLP tolerance)
+VIDEO_REPLAY_BLOCKS = 30  # observation blocks of 6 replayed from an adaptive checkpoint
+VIDEO_PATH_KERNELS = ("iou_matrix_batch", "estimator_mlp")  # each must launch in the video phase
+TRACK_INT_FIELDS = ("ids", "active", "classes", "age", "det_track",
+                    "n_active", "n_matched", "n_new", "n_dead")
+# aten ops that make a view (no kernel): the rest of a tracker step's ops launch one each
+VIEW_OPS = ("view", "_unsafe_view", "unsqueeze", "squeeze", "select", "slice", "expand", "alias",
+            "t", "transpose", "permute", "as_strided", "unbind", "detach", "lift_fresh")
+
+
+def first_flip(got, want):
+    """Two ``VideoFleetTrace``s of one scenario, record by record in serve
+    order (frame-major, the streams of a frame in turn): the largest
+    estimate gap up to the first record that differs in anything but the
+    estimate, and that record's (frame, stream) and estimate gap, or None
+    where all are equal.  Fails if the first difference is not a flipped
+    decision: up to a flip the two runs saw the same frames."""
+    gap = 0.0
+    for t in range(want.n_frames):
+        for b, (gs, ws) in enumerate(zip(got.streams, want.streams)):
+            g, w = gs.records[t].as_dict(), ws.records[t].as_dict()
+            e = abs(g.pop("estimate") - w.pop("estimate"))
+            if g != w:
+                if g["offload"] == w["offload"]:
+                    fail(f"video card vs CPU: frame {t} stream {b} differs before any flip: "
+                         f"{g} vs {w}")
+                return {"max_abs_err": gap, "first_flip": [t, b], "flip_estimate_gap": e}
+            gap = max(gap, e)
+    return {"max_abs_err": gap, "first_flip": None, "flip_estimate_gap": None}
+
+
+def hold_staleness(what, trace, max_stale):
+    """``tests/test_video.py``'s serve semantics on a trace: every record
+    scored, staleness exactly on the frames served from an edge result and
+    within ``max_stale``, telemetry that counts them, no frame covered
+    before an offload came back, and over a fifth of the frames covered."""
+    covered = 0
+    for s in trace.streams:
+        for r in s.records:
+            edge = r.source == "edge"
+            ok = r.effective_accuracy is not None and 0.0 <= r.effective_accuracy <= 1.0 \
+                and (r.staleness is not None) == edge and r.source in ("edge", "weak") \
+                and (not edge or 0.0 <= r.staleness <= max_stale)
+            if not ok:
+                fail(f"{what}: record {r.as_dict()} breaks the serve semantics")
+            covered += edge
+        tel = s.telemetry
+        if tel.effective_frames != len(s.records) or \
+                tel.covered_frames != sum(r.source == "edge" for r in s.records):
+            fail(f"{what}: telemetry counts {tel} disagree with the records")
+    first = min((r.step for s in trace.streams for r in s.records if r.source == "edge"),
+                default=0)
+    frac = trace.summary()["staleness"]["covered_fraction"]
+    if not covered or first == 0 or frac <= 0.2:
+        fail(f"{what}: covered {covered} frames from frame {first}, fraction {frac}")
+    return frac
+
+
+def video(torch, smi, dev):
+    """The temporal layer on the card, counted: ``default_video_scenario``
+    at its defaults (engine fitted on the card), ``temporal_hysteresis`` at
+    0.3 twice (once through ``VideoRuntime`` under ``Obs`` for the
+    ``video.*`` spans, once through ``run_video_scenario``), ``keyframe``,
+    ``threshold`` over the headline's five target ratios; then
+    ``default_shift_scenario`` and its frozen and adaptive arms.  Then,
+    outside the count: the tracker on the card against the CPU's, a CPU
+    serve of the card-fitted engine against the card's, the two card runs
+    bit for bit, the serve semantics, the adaptive arm's updates and its
+    checkpoint replayed bit for bit on the card, and one tracker step's host
+    time.  Returns the launches of the counted run and their split."""
+    from repro_torch.api import OffloadEngine
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.obs import Obs
+    from repro_torch.online import AdaptiveEngine, default_shift_scenario, run_shift_scenario
+    from repro_torch.video import (
+        VideoRuntime,
+        VideoTracker,
+        default_video_scenario,
+        run_video_scenario,
+        track_clip,
+        track_clip_ref,
+    )
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    scenario = timed("video_scenario_ms", lambda: default_video_scenario(
+        VIDEO_STREAMS, VIDEO_FRAMES, device=dev))
+    obs = Obs(metrics=False, tracing=False)
+    engine = scenario.engine.with_policy("temporal_hysteresis", ratio=VIDEO_RATIO)
+    runtime = VideoRuntime(engine, scenario.fleet(), strategy="least_loaded",
+                           seed=scenario.seed, obs=obs)
+    hyst = timed("serve_clip_ms", lambda: runtime.serve_clip(
+        scenario.weak, scenario.strong, scenario.clip, ratio=VIDEO_RATIO,
+        max_stale=scenario.max_stale))
+    serve_s = stage["serve_clip_ms"] / 1e3
+    again = timed("run_video_scenario_ms", lambda: run_video_scenario(
+        scenario, "temporal_hysteresis", ratio=VIDEO_RATIO))
+    key = timed("run_video_scenario_ms", lambda: run_video_scenario(
+        scenario, "keyframe", ratio=VIDEO_RATIO))
+    thresh = [timed("run_video_scenario_ms", lambda: run_video_scenario(
+        scenario, "threshold", ratio=r)) for r in VIDEO_THRESHOLD_RATIOS]
+    shift = timed("shift_scenario_ms", lambda: default_shift_scenario(device=dev))
+    frozen = timed("shift_frozen_ms", lambda: run_shift_scenario(shift))
+    adaptive = timed("shift_adaptive_ms", lambda: run_shift_scenario(shift, adaptive=True))
+    sync()
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    for c in split.values():  # reset_counts keeps the keys of earlier phases at 0
+        c["by_shape"] = {k: n for k, n in c.get("by_shape", {}).items() if n}
+    spans = obs.profiler.report()
+
+    # -- checks, outside the count
+    checks = {}
+    if split["iou_matrix_batch"]["by_route"]["matrix"] == 0:
+        fail(f"the video path launched no matrix route: {split['iou_matrix_batch']}")
+    # the tracker on the card against the CPU's (and the numpy reference)
+    card = track_clip(scenario.weak, device=dev)
+    host = track_clip(scenario.weak, device="cpu")
+    for ref_name, ref in (("cpu", host), ("track_clip_ref", track_clip_ref(scenario.weak))):
+        for f in TRACK_INT_FIELDS:
+            if not np.array_equal(getattr(card, f), getattr(ref, f)):
+                fail(f"the tracker on the card differs from {ref_name} in {f}")
+        gap = max(float(np.abs(getattr(card, f) - getattr(ref, f)).max())
+                  for f in ("boxes", "vel", "conf"))
+        if not gap <= VIDEO_TRACK_TOL:
+            fail(f"the tracker on the card: boxes/vel/conf differ from {ref_name} by {gap}")
+        checks[f"tracker_card_vs_{ref_name}_max_abs_err"] = gap
+    # two card runs of one policy: bit for bit
+    for s1, s2 in zip(hyst.streams, again.streams):
+        if s1.records != s2.records:
+            fail("two card runs of temporal_hysteresis differ")
+    checks["card_runs_bit_identical"] = True
+    # a CPU serve of the card-fitted engine (its artifact) against the card's
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "video_engine")
+        scenario.engine.save(path)
+        cpu_scenario = dataclasses.replace(scenario, engine=OffloadEngine.load(path, device="cpu"))
+    cpu_run = run_video_scenario(cpu_scenario, "temporal_hysteresis", ratio=VIDEO_RATIO)
+    checks["card_vs_cpu_serve"] = first_flip(hyst, cpu_run)
+    if not checks["card_vs_cpu_serve"]["max_abs_err"] <= VIDEO_EST_TOL:
+        fail(f"card vs CPU serve: estimates differ by {checks['card_vs_cpu_serve']}")
+    checks["covered_fraction"] = hold_staleness("temporal_hysteresis on the card", hyst,
+                                                scenario.max_stale)
+    # the adaptive arm adapted; its checkpoint replays bit for bit on the card
+    up = adaptive.updates
+    if not (up["incremental_updates"] > 0 and up["refits"] > 0):
+        fail(f"the adaptive arm made no incremental update or refit: {up}")
+    ada = adaptive.adaptive
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "adaptive.npz")
+        ada.save(path)
+        back = AdaptiveEngine.load(path, device=dev)
+    x_host = shift.features.cpu().numpy()
+    rng = np.random.default_rng(0)
+    blocks = [(rng.integers(0, len(x_host), 6), rng.uniform(0, 1, 6), rng.uniform(-0.5, 1.5, 6))
+              for _ in range(VIDEO_REPLAY_BLOCKS)]
+    before = (ada.refits, ada.incremental_updates)
+    for arm in (ada, back):
+        for idx, est, rw in blocks:
+            arm.observe(x_host[idx], est, rw)
+            arm.maybe_update()
+    if (back.refits, back.incremental_updates) != (ada.refits, ada.incremental_updates) or \
+            ada.refits == before[0] or ada.incremental_updates == before[1]:
+        fail(f"adaptive replay: updates {before} -> {(ada.refits, ada.incremental_updates)} "
+             f"and {(back.refits, back.incremental_updates)}")
+    pa, pb = ada.engine.reward_model.estimator.params, back.engine.reward_model.estimator.params
+    if not all(torch.equal(pa[n][k], pb[n][k]) for n in pa for k in pa[n]) or not np.array_equal(
+            ada.engine.score(features=shift.features), back.engine.score(features=shift.features)):
+        fail("the adaptive checkpoint's replay on the card is not bit-identical")
+    checks["adaptive_replay_bit_identical"] = {
+        "refits": [before[0], ada.refits], "incremental_updates": [before[1], ada.incremental_updates]}
+    # one tracker step's host time: B streams, one step and its host copy
+    tracker = VideoTracker(VIDEO_STREAMS, device=dev)
+    frames = [scenario.weak.frame(t, device=dev) for t in range(VIDEO_FRAMES)]
+    tracker.update(frames[0])
+    sync()
+    t0 = time.perf_counter()
+    for fb in frames:
+        tracker.update(fb)
+    track_step_ms = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
+    step_ops = aten_ops(torch, lambda: tracker.update(frames[0]))
+    track_step_ops = {"aten_ops": len(step_ops),
+                      "not_views": sum(op not in VIEW_OPS for op in step_ops)}
+
+    def run_summary(tr):
+        return {"realized_ratio": tr.realized_ratio(),
+                "mean_effective_accuracy": tr.mean_effective_accuracy(),
+                "covered_fraction": tr.staleness_profile()["covered_fraction"]}
+
+    emit("video", {
+        "streams": VIDEO_STREAMS, "frames": VIDEO_FRAMES,
+        "headline": {
+            "temporal_hysteresis": run_summary(hyst), "keyframe": run_summary(key),
+            "threshold": {str(r): run_summary(tr) for r, tr in zip(VIDEO_THRESHOLD_RATIOS, thresh)},
+        },
+        "shift": {"frozen": frozen.summary(), "adaptive": adaptive.summary()},
+        "serve_clip_s": serve_s, "serve_clip_frames_per_s": VIDEO_STREAMS * VIDEO_FRAMES / serve_s,
+        "track_step_host_ms": track_step_ms, "track_step_aten_ops": track_step_ops,
+        "video_spans": {k: v for k, v in spans.items() if k.startswith("video.")},
+        "session_spans": {k: v for k, v in spans.items() if k.startswith("session.")},
+        "checks": checks, "stage_s": {k.removesuffix("_ms") + "_s": v / 1e3
+                                      for k, v in stage.items()},
+        "phase_s": phase_s, "launches": launches, "launches_split": split, "card": smi,
+    })
+    return launches, split
+
+
 def merge_split(into, split):
     """Add the by-route / by-shape counts of ``split`` into ``into``."""
     for k, parts in split.items():
@@ -2524,14 +2811,15 @@ def main() -> None:
     stream_launches, stream_split = stream(torch, smi, dev, trained)
     del trained
     repro_launches, repro_split = repro(torch, smi, dev)
+    video_launches, video_split = video(torch, smi, dev)
     lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
-             "repro": repro_launches, "lm": lm_launches}
+             "repro": repro_launches, "video": video_launches, "lm": lm_launches}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
-              "repro": repro_split, "lm": lm_split}
+              "repro": repro_split, "video": video_split, "lm": lm_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -2558,6 +2846,7 @@ def main() -> None:
             **({"sources_by_route": IOU_SOURCES,
                 "launches_by_route": {p: sp[name]["by_route"] for p, sp in splits.items()
                                       if p != "lm"},
+                "launches_by_shape": {"video": splits["video"][name]["by_shape"]},
                 **{k: r[k] for k in ("path_ms", "host_us", "routes")}}
                if name in IOU_KERNELS else {}),
         })
@@ -2577,6 +2866,9 @@ def main() -> None:
     missing = [k for k in REPRO_PATH_KERNELS if paths["repro"][k] == 0]
     if missing:
         fail(f"kernels never launched on the repro path: {missing}")
+    missing = [k for k in VIDEO_PATH_KERNELS if paths["video"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the video path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

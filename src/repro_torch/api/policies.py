@@ -12,11 +12,13 @@ Registered: ``threshold`` (the paper's deployable quantile threshold),
 ``topk`` (exact per-batch top-k, the oracle-style evaluation policy), and
 ``token_bucket`` (hard rate constraint with burst tolerance, [23]-style).
 Copied from the JAX package (``repro.api.policies``).  The netsim policies
-(``queue_aware``, ``value_iteration`` — see :mod:`repro_torch.netsim.policy`)
-register themselves on first registry access, so engine-built runtimes get
-them without importing ``repro_torch.netsim``; the JAX package's other
-plugin policies (video, online, fleet, mobility) come with their slices of
-the port.
+(``queue_aware``, ``value_iteration`` — see :mod:`repro_torch.netsim.policy`),
+the video policies (``temporal_hysteresis``, ``keyframe`` —
+:mod:`repro_torch.video.policy`) and the online ``adaptive_threshold``
+(:mod:`repro_torch.online.policy`) register themselves on first registry
+access, so engine-built runtimes get them without importing those packages;
+the JAX package's fleet and mobility policies come with their slices of the
+port.
 
 Policies that consume *runtime wiring* — injected zero-arg callables like
 the simulation clock or a live congestion probe — declare the kwarg names
@@ -73,9 +75,11 @@ def _ensure_plugins() -> None:
     """Import the policy plugins that live outside ``repro_torch.api`` so
     registry lookups see them.  Lazy — called at lookup time, when this
     module is fully initialized — so there is no import cycle.  (The JAX
-    package also imports its video, online, fleet and mobility plugins here;
-    the port has not got them yet.)"""
+    package also imports its fleet and mobility plugins here; the port has
+    not got them yet, ROADMAP.md queue A items 7 and 8.)"""
     import repro_torch.netsim.policy  # noqa: F401  (registers on import)
+    import repro_torch.online.policy  # noqa: F401
+    import repro_torch.video.policy  # noqa: F401
 
 
 def list_policies() -> List[str]:

@@ -19,7 +19,8 @@ A CUDA tensor launches the kernel (or raises: a size past a route's limit, a
 build or launch failure), a CPU tensor takes the plain version in ``ref.py``.
 A launch of any route over one image counts in ``iou_matrix.launches``, over
 more in ``iou_matrix_batch.launches``; each also counts in the wrapper's
-``launches_by_route``.  :func:`iou_plan` is the one owner of each route's
+``launches_by_route`` and, by route and shape (``"matrix B=8 K=16 M=16"``),
+in its ``launches_by_shape``.  :func:`iou_plan` is the one owner of each route's
 shared-memory layout; the kernels take its offsets.
 """
 from __future__ import annotations
@@ -207,10 +208,12 @@ def _launch(route: str, dtype: torch.dtype, device: torch.device, *args) -> None
     _build.check(rc, SOURCES[route], f"iou_matrix ({route} route)")
 
 
-def _count(B: int, route: str) -> None:
+def _count(B: int, route: str, shape: str) -> None:
     wrapper = iou_matrix if B == 1 else iou_matrix_batch
     wrapper.launches += 1
     wrapper.launches_by_route[route] += 1
+    key = f"{route} {shape}"
+    wrapper.launches_by_shape[key] = wrapper.launches_by_shape.get(key, 0) + 1
 
 
 def _check_boxes(t: torch.Tensor, name: str, dtypes=(torch.float32,)) -> None:
@@ -257,7 +260,7 @@ def _matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         _check_boxes(t, name, (torch.float32, torch.bfloat16))
     out = torch.empty((B, K, M), dtype=a.dtype, device=a.device)
     _launch("matrix", a.dtype, a.device, a.data_ptr(), b.data_ptr(), out.data_ptr(), B, K, M, plan_at)
-    _count(B, "matrix")
+    _count(B, "matrix", f"B={B} K={K} M={M}")
     return out
 
 
@@ -311,7 +314,7 @@ def nms_keep(
     keep = torch.empty((B, N), dtype=torch.bool, device=boxes.device)
     _launch("nms", torch.float32, boxes.device, boxes.data_ptr(), scores.data_ptr(),
             classes.data_ptr(), keep.data_ptr(), B, N, iou_threshold, score_threshold, plan_at)
-    _count(B, "nms")
+    _count(B, "nms", f"B={B} N={N}")
     return keep
 
 
@@ -362,10 +365,11 @@ def greedy_match(
             det_classes.data_ptr(), det_mask.data_ptr(), gt_boxes.data_ptr(),
             gt_classes.data_ptr(), gt_mask.data_ptr(), thresholds.data_ptr(), tp.data_ptr(),
             match_gt.data_ptr(), B, K, M, T, plan_at)
-    _count(B, "match")
+    _count(B, "match", f"B={B} K={K} M={M} T={T}")
     return tp, match_gt
 
 
 for _wrapper in (iou_matrix, iou_matrix_batch):
     _wrapper.launches = 0
     _wrapper.launches_by_route = dict.fromkeys(ROUTES, 0)
+    _wrapper.launches_by_shape = {}

@@ -204,7 +204,7 @@ class OffloadSession:
         by the mobile runtime from its motion trace + coverage map.
     tracker : object or None
         Optional temporal state carried with the stream (the video runtime's
-        tracker, ROADMAP.md queue A item 5).  The session itself never calls
+        :class:`repro_torch.video.VideoTracker`).  The session itself never calls
         it; it rides here so stream state travels as one object.
     obs : repro_torch.obs.Obs or None
         Observability handle.  The session's telemetry counters *are*

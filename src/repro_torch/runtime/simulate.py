@@ -52,7 +52,8 @@ class StepRecord:
     first two are 0 on link-free edges, the last is 0 on edges without a
     downlink).  Non-offloaded frames carry ``None`` for all four.
 
-    Video streams (ROADMAP.md queue A item 5) additionally stamp temporal fields:
+    Video streams (:meth:`repro_torch.video.VideoRuntime.serve_clip`)
+    additionally stamp temporal fields:
     ``source`` is what was actually served for the frame (``"weak"`` or
     ``"edge"`` for a propagated stale edge result), ``staleness`` the age of
     that result in frames (None when served weak), ``effective_accuracy``
@@ -285,8 +286,8 @@ def default_linked_fleet(
 class OffloadRuntime:
     """The served system: engine artifact + edge fleet + dispatch strategy.
 
-    ``net_state`` (a network estimator, ``repro.online.netstate`` in the
-    JAX package; ROADMAP.md queue A item 6) switches the congestion / state
+    ``net_state`` (a network estimator,
+    :class:`repro_torch.online.NetworkEstimator`) switches the congestion / state
     probes handed to queue-aware policies from the simulator's oracle
     signals to *measured* estimates fed purely by completed round trips —
     what a real device can actually observe.

@@ -852,3 +852,62 @@ def test_linked_fleet_simulate_on_card_matches_cpu(dev, no_tf32, tmp_path, polic
         a.pop("estimate"), b.pop("estimate")
         assert a == b
     assert any(r.transmit_delay for r in card.records if r.transmit_delay is not None)
+
+
+@pytest.mark.parametrize("B,T,p_cut", [(8, 48, 0.05), (3, 20, 0.2)])
+def test_video_tracker_on_card_matches_cpu(dev, B, T, p_cut):
+    """The tracker on the card: one matrix-route launch of iou_matrix_batch
+    a step (B streams x the clip's K slots x 16 tracks), the association
+    fields equal the CPU's exactly, boxes / vel / conf within 1e-6; the
+    streaming tracker the same."""
+    from repro_torch.video import (
+        SceneConfig, VideoTracker, generate_clip, synthesize_detections, track_clip,
+    )
+
+    weak = synthesize_detections(generate_clip(B, T, seed=11, config=SceneConfig(p_cut=p_cut)),
+                                 seed=12)
+    key = f"matrix B={B} K={weak.max_boxes} M=16"
+    shapes_before = iou_matrix_batch.launches_by_shape.get(key, 0)
+    before = _route_counts()
+    card = track_clip(weak, device=dev)
+    after = _route_counts()
+    assert after["iou_matrix_batch"]["matrix"] - before["iou_matrix_batch"]["matrix"] == T
+    assert iou_matrix_batch.launches_by_shape[key] - shapes_before == T
+    host = track_clip(weak, device="cpu")
+    for f in ("ids", "active", "classes", "age", "det_track", "n_active", "n_matched", "n_new",
+              "n_dead"):
+        np.testing.assert_array_equal(getattr(card, f), getattr(host, f), err_msg=f)
+    for f in ("boxes", "vel", "conf"):
+        np.testing.assert_allclose(getattr(card, f), getattr(host, f), atol=1e-6, rtol=0, err_msg=f)
+    vt = VideoTracker(B, device=dev)
+    for t in range(T):
+        tf = vt.update(weak.frame(t, device=dev))
+    np.testing.assert_array_equal(tf.ids, host.ids[-1])
+    np.testing.assert_allclose(tf.boxes, host.boxes[-1], atol=1e-6, rtol=0)
+
+
+def test_serve_clip_on_card_matches_cpu(dev, no_tf32, tmp_path):
+    """A small video scenario fitted on the card, served on the card and (its
+    artifact) on the CPU: estimates within 1e-5, records equal up to the
+    first decision that flipped; a second card serve is bit-identical."""
+    import dataclasses
+
+    from repro_torch.api import OffloadEngine
+    from repro_torch.video import default_video_scenario, run_video_scenario
+
+    scn = default_video_scenario(3, 32, seed=1, calibration_frames=16, device=dev)
+    scn.engine.save(str(tmp_path / "engine.npz"))
+    cpu = dataclasses.replace(scn, engine=OffloadEngine.load(str(tmp_path / "engine.npz"),
+                                                             device="cpu"))
+    card = run_video_scenario(scn, "temporal_hysteresis", ratio=0.3)
+    again = run_video_scenario(scn, "temporal_hysteresis", ratio=0.3)
+    host = run_video_scenario(cpu, "temporal_hysteresis", ratio=0.3)
+    assert [s.records for s in card.streams] == [s.records for s in again.streams]
+    for t in range(card.n_frames):
+        rows = [(c.records[t].as_dict(), h.records[t].as_dict())
+                for c, h in zip(card.streams, host.streams)]
+        for a, b in rows:
+            assert abs(a.pop("estimate") - b.pop("estimate")) <= 1e-5
+        if any(a["offload"] != b["offload"] for a, b in rows):
+            break
+        assert all(a == b for a, b in rows)
