@@ -3,8 +3,10 @@
 serve path, the training slice (both detectors trained, the engine fitted),
 the streaming runtime over the trained engine (also behind netsim uplinks),
 the paper's experiments (``run_all``), the temporal layer (video streams
-through the tracker, closed-loop adaptation), and the LM early-exit cascade
-(qwen2-7b and rwkv6-1.6b at full width, in batches and as streams).
+through the tracker, closed-loop adaptation), the city-scale fleet (the
+sharded plane, 1024 streams in four districts) and client mobility (moving
+clients, handover), and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b
+at full width, in batches and as streams).
 
     python3 chip_smoke.py
 
@@ -35,7 +37,10 @@ first use.  Phases, each printing one line of its own:
                paths launch them (``time_head``), back to back and right
                after the PyTorch op that precedes them on the path, with
                the host's microseconds a call and the launch plan (cluster
-               size, tile, grid, shared memory).
+               size, tile, grid, shared memory); ``FleetPlane``'s shard
+               launches (``plan=``, the whole batch's plan) at the fleet's
+               shapes, against the plain version and bit for bit the whole
+               batch's launch.
                Fails if
                flash_sdpa's qwen2-7b prefill / decode shapes miss the
                ``wgmma`` / ``decode`` routes.
@@ -151,7 +156,46 @@ first use.  Phases, each printing one line of its own:
                frames/s, the host ms of one tracker step, the ``video.*``
                and ``session.*`` profiler spans and the launches by route
                and shape.
-9. ``lm``      the LM early-exit cascade, once per family at full width
+9. ``fleet``   the city-scale fleet, every launch count set to 0 first:
+               ``FleetPlane`` over four logical shards of the card
+               (``[cuda:0] * 4``) with a fused engine at F 387, H 128 fitted
+               on the card on seeded features: ``score`` at B 7, 64, 250 and
+               2000 (one ``estimator_mlp`` launch a shard, on the global
+               batch's plan), ``score_detections`` at B 13 and 250 (one
+               ``score_pipeline`` launch a shard), ``match`` at (0.5, 0.75)
+               and B 13, 150 and 2000 (one ``match`` launch a shard) and
+               ``extract_features``; then ``default_city_scenario()`` at its
+               defaults (1024 streams, 48 ticks, 4096 calibration frames, 40
+               epochs, fitted on the card), ``run_city_scenario`` coordinated
+               and static on the default plane (one card: one shard), the
+               coordinated arm over the four-shard plane and once more under
+               ``Obs``.  Fails unless every plane result is bit for bit its
+               single-device call (and ``score``, ``score_detections`` and
+               ``match`` within 1e-5, 2e-6 and exactly of the plain
+               versions), the four-shard and the repeated
+               coordinated traces equal the first record for record, and a
+               CPU run of the card-fitted engine's artifact gives equal
+               records up to the first tick whose decisions flip, estimates
+               within 1e-5.  With several cards, the plane runs over every
+               card too (outside the count).  Prints the arms' summaries,
+               ``tests/test_fleet.py``'s headline asserts (reported: the card
+               fits its own engine), ticks/s, the host ms a tick by profiler
+               phase and the plane's site calls.
+10. ``mobility`` client mobility, every launch count set to 0 first: both
+               motion models rolled out on the card (64 clients, 160
+               steps), ``default_mobile_scenario()`` at its defaults (4
+               clients, 160 steps, 3 stations, fitted on the card),
+               ``run_mobile_scenario`` under ``Obs`` in handover and static
+               mode, and handover mode with the ``die`` and ``stale``
+               in-flight semantics.  Fails unless the waypoint rollout equals
+               ``rollout_ref`` exactly and the random walk within 1e-3, both
+               repeat bit for bit, a second handover serve repeats bit for
+               bit, and a CPU serve of the card-fitted artifact on the card's
+               positions gives equal records up to the first flipped
+               decision, estimates within 1e-5.  Prints the runs' summaries,
+               the handovers, ``tests/test_mobility.py``'s headline asserts
+               (reported), frames/s and the host ms a frame.
+11. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
@@ -176,18 +220,19 @@ first use.  Phases, each printing one line of its own:
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-10. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+12. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
                launch of the main paths; for the IoU kernels, each route's
-               source, launches and timed shapes, and the video path's
-               launches by shape).  The paths: detection, train, stream (the
-               detection stream and both LM streams), repro, video and lm;
-               the run fails if score_pipeline, estimator_mlp or
-               iou_matrix_batch never launched on the train, stream or repro
-               path, or estimator_mlp or iou_matrix_batch on the video path.
+               source, launches and timed shapes, and the video and fleet
+               paths' launches by shape).  The paths: detection, train, stream
+               (the detection stream and both LM streams), repro, video,
+               fleet, mobility and lm; the run fails if score_pipeline,
+               estimator_mlp or iou_matrix_batch never launched on the train,
+               stream, repro or fleet path, estimator_mlp or iou_matrix_batch
+               on the video path, or estimator_mlp on the mobility path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -467,7 +512,9 @@ def time_head(torch, timer, dev):
     version back to back.  Returns {kernel: [row, ...]}, each row with the
     bytes and operations of its bound."""
     from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+    from repro_torch.kernels.estimator_mlp.ops import head_plan
     from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
 
     rng = np.random.default_rng(7)
     f32 = 4
@@ -477,7 +524,10 @@ def time_head(torch, timer, dev):
 
     F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
     shapes = {"estimator_mlp": [], "score_pipeline": []}
-    for B, f, h, where in ((N_CAL, F, HIDDEN, "calibration estimates"),
+    # a row that ends in a batch size is a shard of that batch, launched (and
+    # timed) on the batch's plan, as FleetPlane launches it, and keyed
+    # "... of=<that batch size>" as the wrappers count such a launch
+    for B, f, h, where, *whole in ((N_CAL, F, HIDDEN, "calibration estimates"),
                            (REQUEST, F, HIDDEN, "decide(features=...)"),
                            (LM_BATCH, 12, LM_HIDDEN, "LM cascade decide"),
                            (N_VAL, F, HIDDEN, "OffloadEngine.fit's calibration estimates (train)"),
@@ -492,15 +542,32 @@ def time_head(torch, timer, dev):
                             "a video / shift stream's submit, micro_batch 1 (video)"),
                            (VIDEO_CAL_ROWS, VIDEO_F, VIDEO_HIDDEN,
                             "the video / shift scenario's engine.fit calibration estimates "
-                            "(video)")):
+                            "(video)"),
+                           (7, F, HIDDEN, "engine.score at B 7 (fleet)"),
+                           (2, F, HIDDEN, "FleetPlane.score's shard of B 7 (fleet)", 7),
+                           (16, F, HIDDEN, "FleetPlane.score's shard of B 64 (fleet)", 64),
+                           (250, F, HIDDEN, "engine.score at B 250 (fleet)"),
+                           (63, F, HIDDEN, "FleetPlane.score's shard of B 250 (fleet)", 250),
+                           (500, F, HIDDEN, "FleetPlane.score's shard of B 2000 (fleet)", 2000),
+                           (CITY_CAL, CITY_F, CITY_HIDDEN,
+                            "the city engine's calibration estimates (fleet)"),
+                           (CITY_STREAMS, CITY_F, CITY_HIDDEN, "a city tick on one device (fleet)"),
+                           (CITY_STREAMS // FLEET_SHARDS, CITY_F, CITY_HIDDEN,
+                            "a city tick's shard of four (fleet)", CITY_STREAMS),
+                           (MOBILE_CAL, MOBILE_F, MOBILE_HIDDEN,
+                            "the mobile engine's calibration estimates (mobility)"),
+                           (1, MOBILE_F, MOBILE_HIDDEN,
+                            "a client's frame, micro_batch 1 (mobility)")):
         x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
         mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
         sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
         w = seeded_mlp(torch, rng, f, h, dev)
-        path_ms = after(lambda: (x0 - mu) / sigma, lambda x: estimator_mlp(x, *w))
-        ms = timer(lambda: estimator_mlp(x0, *w))
+        plan = head_plan(whole[0], f, h, dev) if whole else None
+        path_ms = after(lambda: (x0 - mu) / sigma, lambda x: estimator_mlp(x, *w, plan=plan))
+        ms = timer(lambda: estimator_mlp(x0, *w, plan=plan))
         shapes["estimator_mlp"].append(dict(
-            key=f"B={B} F={f} H={h}", where=where, B=B, F=f, H=h, ms=ms, path_ms=path_ms,
+            key=f"B={B} F={f} H={h}" + (f" of={whole[0]}" if whole else ""), where=where, B=B,
+            of=whole[0] if whole else None, F=f, H=h, ms=ms, path_ms=path_ms,
             host_us=timer.host_us, plain_ms=timer(lambda: estimator_mlp_ref(x0, *w)),
             bytes=f32 * (B * f + f * h + 2 * h + 1 + B), ops=2 * B * f * h + 12 * B * h + 4 * B,
         ))
@@ -509,15 +576,22 @@ def time_head(torch, timer, dev):
                   mu=torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev),
                   sigma=torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev))
     kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
-    for B, K, where in ((REQUEST, 64, "a request"), (1, 64, "a single frame"),
-                        (N_VAL % REQUEST, 64, "the val split's last request (train)")):
+    for B, K, where, *whole in (
+            (REQUEST, 64, "a request"), (1, 64, "a single frame"),
+            (N_VAL % REQUEST, 64, "the val split's last request (train)"),
+            (13, FLEET_K, "engine.score_device at B 13 (fleet)"),
+            (4, FLEET_K, "FleetPlane.score_detections' shard of B 13 (fleet)", 13),
+            (250, FLEET_K, "engine.score_device at B 250 (fleet)"),
+            (63, FLEET_K, "FleetPlane.score_detections' shard of B 250 (fleet)", 250)):
         block = seeded_block(torch, rng, B, K, dev, empty_rows=B // 16)
         scores0 = block[1].clone()
+        plan = pipeline_plan(whole[0], K, TOP_K, F, HIDDEN, dev) if whole else None
         path_ms = after(lambda: torch.mul(scores0, 1.0, out=block[1]),
-                        lambda _: score_pipeline(block, params, **kw))
-        ms = timer(lambda: score_pipeline(block, params, **kw))
+                        lambda _: score_pipeline(block, params, **kw, plan=plan))
+        ms = timer(lambda: score_pipeline(block, params, **kw, plan=plan))
         shapes["score_pipeline"].append(dict(
-            key=f"B={B} K={K}", where=where, B=B, K=K, ms=ms, path_ms=path_ms,
+            key=f"B={B} K={K}" + (f" of={whole[0]}" if whole else ""), where=where, B=B,
+            of=whole[0] if whole else None, K=K, ms=ms, path_ms=path_ms,
             host_us=timer.host_us,
             plain_ms=timer(lambda: score_pipeline_ref(*block, *params.values(), IMAGE_SIZE,
                                                       NUM_CLASSES, TOP_K)),
@@ -555,10 +629,11 @@ def times_only(src: Path, kernels, time_fn) -> None:
 def check_kernels(torch, timer, dev):
     """Every kernel against its plain version on the card.  Returns per-kernel
     records with max error, times and bound at the main-path shape."""
+    from repro_torch.detection.batch import DetectionsBatch
     from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
-    from repro_torch.kernels.estimator_mlp.ops import device_clusters, mlp_plan
+    from repro_torch.kernels.estimator_mlp.ops import head_plan, shard_plan
     from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
-    from repro_torch.kernels.score_pipeline.ops import pipeline_scratch
+    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
 
     sync = _sync(torch, dev)
     rng = np.random.default_rng(1234)
@@ -616,18 +691,55 @@ def check_kernels(torch, timer, dev):
         cases.append({"kernel": "score_pipeline", "case": f"B={B} K=64 NaN box coordinates",
                       "max_abs_err": e, "tol": "NaN pattern exact, finite rows 2e-6"})
 
+    # FleetPlane's launches: FLEET_SHARDS shards of ceil(B / FLEET_SHARDS)
+    # rows (the last padded), each on the whole batch's plan, so a shard may
+    # start in the middle of one of the whole launch's tiles; each against
+    # the plain version, and bit for bit the whole batch's launch
+    def sharded(B, call, pad):
+        per = -(-B // FLEET_SHARDS)
+        padded = pad(per * FLEET_SHARDS)
+        return per, torch.cat([call([t[lo:lo + per] for t in padded])
+                               for lo in range(0, per * FLEET_SHARDS, per)])[:B]
+
+    for B, f, h in [(B, F, HIDDEN) for B in FLEET_SCORE_B] + [(CITY_STREAMS, CITY_F, CITY_HIDDEN)]:
+        x = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
+        w = seeded_mlp(torch, rng, f, h, dev)
+        whole, want = estimator_mlp(x, *w), estimator_mlp_ref(x, *w)
+        hold("estimator_mlp", f"B={B} F={f} H={h}", whole, want, 1e-5)
+        g = head_plan(B, f, h, dev)
+        per, got = sharded(B, lambda t: estimator_mlp(t[0], *w, plan=g),
+                           lambda n: [torch.cat([x, x.new_zeros((n - B, f))])])
+        hold("estimator_mlp", f"B={per} F={f} H={h} of={B} (shards on the whole batch's plan)",
+             got, want, 1e-5)
+        if not torch.equal(got, whole):
+            fail(f"estimator_mlp: shards of {per} on B {B}'s plan differ from the whole launch")
+    for B in FLEET_DETECT_B:
+        db = DetectionsBatch(**dict(zip(("boxes", "scores", "classes", "mask"), seeded_block(
+            torch, rng, B, FLEET_K, dev, empty_rows=B // 16))))
+        block = (db.boxes, db.scores, db.classes, db.mask)
+        whole, want = score_pipeline(block, params, **kw), ref(block)
+        hold("score_pipeline", f"B={B} K={FLEET_K}", whole, want, 2e-6)
+        g = pipeline_plan(B, FLEET_K, TOP_K, F, HIDDEN, dev)
+        per, got = sharded(B, lambda t: score_pipeline(tuple(t), params, **kw, plan=g),
+                           lambda n: [getattr(db.pad_images(n), a)
+                                      for a in ("boxes", "scores", "classes", "mask")])
+        hold("score_pipeline", f"B={per} K={FLEET_K} of={B} (shards on the whole batch's plan)",
+             got, want, 2e-6)
+        if not torch.equal(got, whole):
+            fail(f"score_pipeline: shards of {per} on B {B}'s plan differ from the whole launch")
+
     # times and bounds at the main-path shapes
     records = {}
     # estimator_mlp and score_pipeline at every shape the main paths launch
     # them; the first of each is the kernel's record in the kernels line
     shapes = time_head(torch, timer, dev)
-    for row in shapes["estimator_mlp"]:
-        plan = mlp_plan(row["B"], row["F"], row["H"], clusters=device_clusters(dev))
-        row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
-    for row in shapes["score_pipeline"]:
-        plan = mlp_plan(row["B"], F, HIDDEN, full_rows=True, clusters=device_clusters(dev),
-                        **pipeline_scratch(row["K"], TOP_K, F))
-        row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
+    for name, rows in shapes.items():  # the plan each row launched (a shard's: cut from its batch's)
+        for row in rows:
+            plan = (head_plan(row["of"] or row["B"], row["F"], row["H"], dev)
+                    if name == "estimator_mlp" else
+                    pipeline_plan(row["of"] or row["B"], row["K"], TOP_K, F, HIDDEN, dev))
+            plan = shard_plan(plan, row["B"]) if row["of"] else plan
+            row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
     for name, rows in shapes.items():
         for r in rows:
             r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
@@ -772,7 +884,11 @@ def time_iou(torch, timer, dev):
     for B, T, where in ((N_CAL, 1, "match_batch of the served images"),
                         (N_CAL, 2, "match_batch of the served images"),
                         (N_VAL, 1, "match_pairs_batched of the val split (train)"),
-                        (N_POOL, 1, "match_batch of the pool split (train)")):
+                        (N_POOL, 1, "match_batch of the pool split (train)"),
+                        *((B, 2, f"FleetPlane.match {what} (fleet)") for B, what in (
+                            (13, "at B 13"), (4, "a shard of B 13"), (150, "at B 150"),
+                            (38, "a shard of B 150"), (FLEET_ROWS, f"at B {FLEET_ROWS}"),
+                            (FLEET_ROWS // FLEET_SHARDS, f"a shard of B {FLEET_ROWS}")))):
         args = seeded_match(torch, rng, B, 64, 8, dev)
         thr = torch.tensor((0.5, 0.75)[:T], device=dev)
         s0 = args[1].clone()
@@ -874,7 +990,10 @@ def check_iou_routes(torch, timer, dev):
     for B, K, M, T in ((N_CAL, 64, 8, 1), (N_CAL, 64, 8, 2), (N_VAL, 64, 8, 1), (N_POOL, 64, 8, 1),
                        (REQUEST, 64, 8, 10), (3, 64, 1, 1), (3, 64, 32, 10), (3, 64, 33, 10),
                        (2, 300, 1024, 2), (1, 5, 3, 1), (VIDEO_STREAMS * VIDEO_FRAMES, 16, 8, 1),
-                       (SHIFT_STREAMS * SHIFT_FRAMES, 8, 8, 1)):
+                       (SHIFT_STREAMS * SHIFT_FRAMES, 8, 8, 1),
+                       # FleetPlane.match: each batch and its shards of ceil(B / 4) images
+                       *[(b, FLEET_K, FLEET_M, len(FLEET_THRESHOLDS)) for B in FLEET_MATCH_B
+                         for b in (B, -(-B // FLEET_SHARDS))]):
         args = seeded_match(torch, rng, B, K, M, dev, empty_rows=int(B > 1))
         thr = torch.tensor(COCO_THRESHOLDS[:T] if T > 2 else (0.5, 0.75)[:T], device=dev)
         hold(B, "match", f"B={B} K={K} M={M} T={T}", greedy_match(*args, thr),
@@ -2254,6 +2373,384 @@ def merge_split(into, split):
     return into
 
 
+FLEET_SHARDS = 4  # logical shards of the one card: [cuda:0] * 4
+FLEET_SCORE_B = (7, 64, 250, 2000)  # B 64: shards planned alone would run clusters of 4, not 2
+FLEET_DETECT_B = (13, 250)
+FLEET_MATCH_B = (13, 150, 2000)
+FLEET_THRESHOLDS = (0.5, 0.75)
+FLEET_ROWS, FLEET_K, FLEET_M = 2000, 64, 8  # seeded images a block, their boxes and GT boxes
+CITY_STREAMS, CITY_CAL, CITY_F, CITY_HIDDEN = 1024, 4096, 12, 32  # default_city_scenario's
+CITY_EST_TOL = 1e-5  # the card-fitted engine's estimates on the card and on the CPU (MLP)
+FLEET_PATH_KERNELS = ("estimator_mlp", "score_pipeline", "iou_matrix_batch")  # ... in the fleet phase
+MOBILE_STEPS, MOBILE_CAL, MOBILE_F, MOBILE_HIDDEN = 160, 256, 8, 16  # default_mobile_scenario's
+MOBILE_IN_FLIGHT = ("survive", "die", "stale")
+MOBILE_ROLLOUT_CLIENTS = 64  # clients of the two rollouts held against rollout_ref
+MOBILE_WALK_TOL = 1e-3  # the random walk against rollout_ref (tests/test_mobility.py's)
+MOBILE_EST_TOL = 1e-5
+MOBILE_PATH_KERNELS = ("estimator_mlp",)  # ... in the mobility phase
+
+
+def coordinated_kwargs(scenario):
+    """The arguments ``run_city_scenario(coordinated=True)`` passes
+    ``simulate_fleet`` (its defaults), for a run under ``Obs``."""
+    return dict(n_shards=scenario.n_shards, ratio=0.25, redistribute_every=8.0, min_share=0.25,
+                smooth=0.5, fleet_factory=scenario.fleet_factory, seed=scenario.seed)
+
+
+def same_fleet_bits(what, got, want):
+    """Two fleet traces record for record, bit for bit."""
+    if len(got.steps) != len(want.steps):
+        fail(f"{what}: {len(got.steps)} ticks against {len(want.steps)}")
+    for t, (g, w) in enumerate(zip(got.steps, want.steps)):
+        for f in ("estimates", "offload", "outcome", "latency"):
+            if not np.array_equal(getattr(g, f), getattr(w, f), equal_nan=f == "latency"):
+                fail(f"{what}: tick {t} differs in {f}")
+    if got.telemetry != want.telemetry or got.budget != want.budget or \
+            got.dispatcher != want.dispatcher:
+        fail(f"{what}: the telemetry, budget or dispatcher report differs")
+
+
+def fleet_first_flip(got, want):
+    """Two fleet traces tick by tick: the largest estimate gap up to the
+    first tick whose decisions differ, and that tick, or None where none
+    does.  Fails if anything else differs first."""
+    gap = 0.0
+    for t, (g, w) in enumerate(zip(got.steps, want.steps)):
+        gap = max(gap, float(np.abs(g.estimates - w.estimates).max()))
+        if not np.array_equal(g.offload, w.offload):
+            return {"max_abs_err": gap, "first_flip_tick": t,
+                    "flipped_streams": int((g.offload != w.offload).sum())}
+        if not (np.array_equal(g.outcome, w.outcome)
+                and np.array_equal(g.latency, w.latency, equal_nan=True)):
+            fail(f"fleet card vs CPU: tick {t} differs before any flip")
+    return {"max_abs_err": gap, "first_flip_tick": None, "flipped_streams": 0}
+
+
+def fleet_plane_checks(torch, dev, plane, engine, x, blocks, gts):
+    """The plane over ``plane``'s devices against the single-device calls:
+    ``score`` at FLEET_SCORE_B, ``score_detections`` at FLEET_DETECT_B,
+    ``match`` at FLEET_MATCH_B and ``extract_features``, each bit for bit;
+    and ``score`` (within 1e-5), ``score_detections`` (2e-6) and ``match``
+    (exactly) against the plain versions on the same inputs."""
+    from repro_torch.core.features import extract_features_batch
+    from repro_torch.detection.batch import match_batch
+    from repro_torch.kernels.estimator_mlp import estimator_mlp_ref
+    from repro_torch.kernels.iou_matrix import greedy_match_ref
+    from repro_torch.kernels.score_pipeline import score_pipeline_ref
+
+    def block(batch, B):
+        return type(batch)(**{f.name: getattr(batch, f.name)[:B]
+                              for f in dataclasses.fields(batch)})
+
+    def plain(what, B, got, want, tol):
+        e = float(np.abs(got - want.cpu().numpy()).max())
+        if not (got.shape == tuple(want.shape) and np.isfinite(e) and e <= tol):
+            fail(f"FleetPlane over {plane.devices}: {what} at B {B} differs from the plain "
+                 f"version by {e} (tolerance {tol})")
+        out[f"{what}_max_abs_err"] = max(out.get(f"{what}_max_abs_err", 0.0), e)
+
+    out = {}
+    p = engine.reward_model.pipeline_params()
+    head = (p["w1"], p["b1"], p["w2"], p["b2"])
+    for B in FLEET_SCORE_B:
+        got = plane.score(engine, x[:B])
+        if not np.array_equal(got, engine.score(features=x[:B])):
+            fail(f"FleetPlane over {plane.devices}: score at B {B} is not engine.score")
+        xt = torch.tensor(x[:B], device=dev)
+        if engine.reward_model.config.standardize:  # as predict_device does
+            xt = (xt - p["mu"]) / p["sigma"]
+        plain("score", B, got, estimator_mlp_ref(xt, *head), 1e-5)
+    for B in FLEET_DETECT_B:
+        db = block(blocks, B)
+        got = plane.score_detections(engine, db)
+        if not np.array_equal(got, engine.score_device(db).cpu().numpy()):
+            fail(f"FleetPlane over {plane.devices}: score_detections at B {B} is not "
+                 "engine.score_device")
+        plain("score_detections", B, got, score_pipeline_ref(
+            db.boxes, db.scores, db.classes, db.mask, *head, p["mu"], p["sigma"], IMAGE_SIZE,
+            NUM_CLASSES, TOP_K), 2e-6)
+        if not np.array_equal(plane.extract_features(db, NUM_CLASSES, TOP_K, IMAGE_SIZE),
+                              extract_features_batch(db, NUM_CLASSES, TOP_K,
+                                                     IMAGE_SIZE).cpu().numpy()):
+            fail(f"FleetPlane over {plane.devices}: extract_features at B {B} differs")
+    for B in FLEET_MATCH_B:
+        db, gb = block(blocks, B), block(gts, B)
+        got, want = plane.match(db, gb, FLEET_THRESHOLDS), match_batch(db, gb, FLEET_THRESHOLDS)
+        if not (np.array_equal(got.tp, want.tp) and np.array_equal(got.match_gt, want.match_gt)):
+            fail(f"FleetPlane over {plane.devices}: match at B {B} is not match_batch")
+        tp, mj = greedy_match_ref(db.boxes, db.scores, db.classes, db.mask, gb.boxes, gb.classes,
+                                  gb.mask, torch.tensor(FLEET_THRESHOLDS, device=dev))
+        if not (np.array_equal(got.tp, tp.cpu().numpy())
+                and np.array_equal(got.match_gt, mj.cpu().numpy())):
+            fail(f"FleetPlane over {plane.devices}: match at B {B} is not the plain version")
+        out[f"match_B{B}_tp"] = int(want.tp.sum())
+    out["devices"] = [str(d) for d in plane.devices]
+    return out
+
+
+def fleet(torch, smi, dev):
+    """The city-scale fleet on the card, counted: the sharded plane over
+    four logical shards of the card (a fused engine at F 387, H 128 fitted
+    on the card; ``score``, ``score_detections``, ``match``,
+    ``extract_features``, each against its single-device call), then
+    ``default_city_scenario()`` at its defaults fitted on the card and
+    ``run_city_scenario`` coordinated and static on the default plane, the
+    coordinated arm again over the four-shard plane and once more under
+    ``Obs``.  Then, outside the count: the traces against each other bit for
+    bit, a CPU run of the card-fitted engine's artifact, the plane over
+    every card where there are several, and the headline of
+    ``tests/test_fleet.py``.  Returns the launches of the counted run and
+    their split."""
+    from repro_torch.api import DetectionBoxFeatures, MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+    from repro_torch.core.features import extract_features_batch
+    from repro_torch.detection.batch import DetectionsBatch, GroundTruthBatch
+    from repro_torch.fleet import (
+        FleetPlane,
+        default_city_scenario,
+        run_city_scenario,
+        simulate_fleet,
+    )
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch.mesh import make_fleet_mesh
+    from repro_torch.obs import Obs, kernel_stats
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    rng = np.random.default_rng(20)
+
+    def detections(B):
+        boxes, scores, classes, mask = seeded_block(torch, rng, B, FLEET_K, dev, empty_rows=B // 16)
+        return DetectionsBatch(boxes=boxes, scores=scores, classes=classes, mask=mask)
+
+    def ground_truth(B):
+        boxes, _, classes, mask = seeded_block(torch, rng, B, FLEET_M, dev)
+        return GroundTruthBatch(boxes=boxes, classes=classes, mask=mask)
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    calls0 = dict(kernel_stats.CALLS)
+    # the plane: a fused engine at the deployable head, fitted on the card
+    cal = extract_features_batch(detections(FLEET_ROWS), NUM_CLASSES, TOP_K, IMAGE_SIZE)
+    engine = OffloadEngine(
+        feature_extractor=DetectionBoxFeatures(num_classes=NUM_CLASSES, top_k=TOP_K,
+                                               image_size=IMAGE_SIZE, device=dev),
+        reward_model=MLPRewardModel(config=EstimatorConfig(hidden=(HIDDEN,), epochs=2),
+                                    device=dev))
+    timed("plane_fit_ms", lambda: engine.fit(features=cal, rewards=rng.uniform(0, 1, FLEET_ROWS)))
+    blocks, gts = detections(FLEET_ROWS), ground_truth(FLEET_ROWS)
+    x = extract_features_batch(blocks, NUM_CLASSES, TOP_K, IMAGE_SIZE).cpu().numpy()
+    plane4 = FleetPlane(make_fleet_mesh(devices=[dev] * FLEET_SHARDS))
+    checks = {"plane_logical_shards": timed("plane_checks_ms", lambda: fleet_plane_checks(
+        torch, dev, plane4, engine, x, blocks, gts))}
+    # the city
+    scenario = timed("city_scenario_ms", lambda: default_city_scenario(device=dev))
+    coord = timed("city_coordinated_ms", lambda: run_city_scenario(scenario, coordinated=True))
+    static = timed("city_static_ms", lambda: run_city_scenario(scenario, coordinated=False))
+    sharded = timed("city_sharded_ms", lambda: run_city_scenario(
+        scenario, coordinated=True, plane=plane4))
+    obs = Obs(metrics=False, tracing=False)
+    t0 = time.perf_counter()
+    again = simulate_fleet(scenario.engine, scenario.features, obs=obs,
+                           **coordinated_kwargs(scenario))
+    sync()
+    traced_s = time.perf_counter() - t0
+    sync()
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    for c in split.values():
+        c["by_shape"] = {k: n for k, n in c.get("by_shape", {}).items() if n}
+    calls = {k: n - calls0.get(k, 0) for k, n in kernel_stats.CALLS.items()}
+    spans = obs.profiler.report()
+
+    # -- checks, outside the count
+    same_fleet_bits("the coordinated arm over four logical shards", sharded.trace, coord.trace)
+    same_fleet_bits("a second coordinated run", again, coord.trace)
+    checks["sharded_plane_bit_identical"] = checks["second_run_bit_identical"] = True
+    if torch.cuda.device_count() > 1:
+        checks["plane_every_card"] = fleet_plane_checks(
+            torch, dev, FleetPlane(make_fleet_mesh()), engine, x, blocks, gts)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "city_engine")
+        scenario.engine.save(path)
+        cpu_scenario = dataclasses.replace(scenario, engine=OffloadEngine.load(path, device="cpu"))
+    cpu_run = timed("city_cpu_ms", lambda: run_city_scenario(cpu_scenario, coordinated=True))
+    checks["card_vs_cpu"] = fleet_first_flip(coord.trace, cpu_run.trace)
+    if not checks["card_vs_cpu"]["max_abs_err"] <= CITY_EST_TOL:
+        fail(f"city card vs CPU: estimates differ by {checks['card_vs_cpu']}")
+    tel, stel = coord.trace.telemetry, static.trace.telemetry
+    headline = {  # tests/test_fleet.py's asserts, on the card's own fit: reported
+        "equal_budget_within_0.02": abs(coord.realized_ratio() - static.realized_ratio()) <= 0.02,
+        "coordinated_beats_static": coord.mean_effective() > static.mean_effective(),
+        "redistributions_at_least_2": tel.budget_redistributions >= 2,
+        "hardest_up_easiest_down": tel.shard_shares[-1] > 0.25 > tel.shard_shares[0],
+        "hardest_ratio_above_easiest": tel.shard_ratios[-1] > tel.shard_ratios[0],
+        "static_split_unmoved": stel.shard_shares == (0.25,) * 4,
+    }
+    ticks = len(coord.trace.steps)
+    emit("fleet", {
+        "streams": scenario.n_streams, "ticks": scenario.n_ticks, "shards": scenario.n_shards,
+        "plane_shards": FLEET_SHARDS,
+        "coordinated": coord.summary(), "static": static.summary(), "headline": headline,
+        "ticks_per_s": {k.removesuffix("_ms"): ticks / (stage[k] / 1e3) for k in
+                        ("city_coordinated_ms", "city_static_ms", "city_sharded_ms")}
+        | {"under_obs": ticks / traced_s},
+        "tick_host_ms_by_phase": {k: v["total_ms"] / ticks for k, v in spans.items()},
+        "tick_host_ms": traced_s * 1e3 / ticks,
+        "checks": checks, "stage_s": {k.removesuffix("_ms") + "_s": v / 1e3
+                                      for k, v in stage.items()},
+        "site_calls": calls, "phase_s": phase_s, "launches": launches, "launches_split": split,
+        "card": smi,
+    })
+    return launches, split
+
+
+def mobile_first_flip(got, want):
+    """Two mobile traces record by record (step-major): the largest estimate
+    gap up to the first flipped decision, and its (step, client)."""
+    gap = 0.0
+    for g, w in zip(got.records, want.records):
+        g, w = g.as_dict(), w.as_dict()
+        e = abs(g.pop("estimate") - w.pop("estimate"))
+        if g != w:
+            if g["offload"] == w["offload"]:
+                fail(f"mobility card vs CPU: {g} differs from {w} before any flip")
+            return {"max_abs_err": gap, "first_flip": [g["step"], g["client"]],
+                    "flip_estimate_gap": e}
+        gap = max(gap, e)
+    return {"max_abs_err": gap, "first_flip": None, "flip_estimate_gap": None}
+
+
+def mobility(torch, smi, dev):
+    """Client mobility on the card, counted: both motion models rolled out
+    on the card, ``default_mobile_scenario()`` at its defaults fitted on the
+    card, ``run_mobile_scenario`` under ``Obs`` in handover and static mode
+    and the handover mode under the two other in-flight semantics.  Then,
+    outside the count: the rollouts against ``rollout_ref`` and repeated,
+    the handover run repeated bit for bit, a CPU serve of the card-fitted
+    artifact on the card's positions, and the headline of
+    ``tests/test_mobility.py``.  Returns the launches of the counted run and
+    their split."""
+    from repro_torch.api import OffloadEngine
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.mobility import (
+        MobileRuntime,
+        MotionConfig,
+        default_mobile_scenario,
+        rollout,
+        rollout_ref,
+        run_mobile_scenario,
+    )
+    from repro_torch.obs import Obs
+
+    sync = _sync(torch, dev)
+    stage: Dict[str, float] = {}
+
+    def timed(name, fn):
+        sync()
+        t0 = time.perf_counter()
+        out = fn()
+        sync()
+        stage[name] = stage.get(name, 0.0) + (time.perf_counter() - t0) * 1e3
+        return out
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    scenario = timed("mobile_scenario_ms", lambda: default_mobile_scenario(device=dev))
+    motions = {"waypoint": scenario.motion,
+               "random_walk": dataclasses.replace(scenario.motion, model="random_walk")}
+    paths = {m: timed("rollout_ms", lambda: rollout(cfg, MOBILE_ROLLOUT_CLIENTS, MOBILE_STEPS,
+                                                     seed=scenario.seed, device=dev))
+             for m, cfg in motions.items()}
+    obs = Obs()
+    handover = timed("serve_handover_ms", lambda: run_mobile_scenario(scenario, "handover",
+                                                                      obs=obs))
+    static = timed("serve_static_ms", lambda: run_mobile_scenario(scenario, "static", obs=Obs()))
+    others = {m: timed(f"serve_{m}_ms", lambda: run_mobile_scenario(scenario, "handover",
+                                                                     in_flight=m))
+              for m in MOBILE_IN_FLIGHT[1:]}
+    sync()
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    for c in split.values():
+        c["by_shape"] = {k: n for k, n in c.get("by_shape", {}).items() if n}
+    spans = obs.profiler.report()
+
+    # -- checks, outside the count
+    checks = {}
+    for m, cfg in motions.items():
+        ref = rollout_ref(cfg, MOBILE_ROLLOUT_CLIENTS, MOBILE_STEPS, seed=scenario.seed)
+        err = float(np.abs(paths[m] - ref).max())
+        if not (err == 0.0 if m == "waypoint" else err <= MOBILE_WALK_TOL):
+            fail(f"rollout ({m}) on the card differs from rollout_ref by {err}")
+        if not np.array_equal(paths[m], rollout(cfg, MOBILE_ROLLOUT_CLIENTS, MOBILE_STEPS,
+                                                seed=scenario.seed, device=dev)):
+            fail(f"a second rollout ({m}) on the card differs")
+        checks[f"rollout_{m}_max_abs_err"] = err
+    again = run_mobile_scenario(scenario, "handover")
+    if [r.as_dict() for r in again.records] != [r.as_dict() for r in handover.records]:
+        fail("a second handover serve on the card differs")
+    checks["second_serve_bit_identical"] = True
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "mobile_engine")
+        scenario.engine.save(path)
+        cpu_engine = OffloadEngine.load(path, device="cpu")
+    cpu_scn = dataclasses.replace(scenario, engine=cpu_engine)
+    cpu_run = MobileRuntime(cpu_engine, cpu_scn.coverage, cpu_scn.fleet(), motion=cpu_scn.motion,
+                            mode="handover", seed=cpu_scn.seed).serve(
+        cpu_scn.features, cpu_scn.weak_acc, cpu_scn.strong_acc, positions=handover.positions)
+    checks["card_vs_cpu"] = mobile_first_flip(handover, cpu_run)
+    if not checks["card_vs_cpu"]["max_abs_err"] <= MOBILE_EST_TOL:
+        fail(f"mobility card vs CPU: estimates differ by {checks['card_vs_cpu']}")
+    headline = {  # tests/test_mobility.py's asserts, on the card's own fit: reported
+        "equal_realized_ratio": abs(handover.realized_ratio() - static.realized_ratio()) <= 1e-12,
+        "handover_beats_static":
+            handover.mean_effective_accuracy() > static.mean_effective_accuracy(),
+        "handovers_only_in_handover_mode": handover.n_handovers() >= 1
+            and static.n_handovers() == 0,
+        "same_positions": bool(np.array_equal(handover.positions, static.positions)),
+    }
+    steps, clients = scenario.features.shape[:2]
+    frames = steps * clients
+    serve_s = stage["serve_handover_ms"] / 1e3
+    emit("mobility", {
+        "clients": clients, "steps": steps,
+        "stations": len(scenario.coverage.stations),
+        "runs": {m: {k: v for k, v in tr.summary().items() if k not in ("telemetry", "dispatcher")}
+                 for m, tr in (("handover", handover), ("static", static), *others.items())},
+        "handovers": {"handover": handover.n_handovers(),
+                      **{m: tr.n_handovers() for m, tr in others.items()}},
+        "headline": headline,
+        "frames_per_s": frames / serve_s, "frame_host_ms": serve_s * 1e3 / frames,
+        "session_spans": {k: v for k, v in spans.items() if k.startswith("session.")},
+        "checks": checks, "stage_s": {k.removesuffix("_ms") + "_s": v / 1e3
+                                      for k, v in stage.items()},
+        "phase_s": phase_s, "launches": launches, "launches_split": split, "card": smi,
+    })
+    return launches, split
+
+
 LM_ARCHS = ("qwen2_7b", "rwkv6_1b6")
 LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
 LM_HIDDEN, LM_TOP_K = 64, 8
@@ -2812,14 +3309,18 @@ def main() -> None:
     del trained
     repro_launches, repro_split = repro(torch, smi, dev)
     video_launches, video_split = video(torch, smi, dev)
+    fleet_launches, fleet_split = fleet(torch, smi, dev)
+    mobility_launches, mobility_split = mobility(torch, smi, dev)
     lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
-             "repro": repro_launches, "video": video_launches, "lm": lm_launches}
+             "repro": repro_launches, "video": video_launches, "fleet": fleet_launches,
+             "mobility": mobility_launches, "lm": lm_launches}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
-              "repro": repro_split, "video": video_split, "lm": lm_split}
+              "repro": repro_split, "video": video_split, "fleet": fleet_split,
+              "mobility": mobility_split, "lm": lm_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -2846,7 +3347,7 @@ def main() -> None:
             **({"sources_by_route": IOU_SOURCES,
                 "launches_by_route": {p: sp[name]["by_route"] for p, sp in splits.items()
                                       if p != "lm"},
-                "launches_by_shape": {"video": splits["video"][name]["by_shape"]},
+                "launches_by_shape": {p: splits[p][name]["by_shape"] for p in ("video", "fleet")},
                 **{k: r[k] for k in ("path_ms", "host_us", "routes")}}
                if name in IOU_KERNELS else {}),
         })
@@ -2869,6 +3370,12 @@ def main() -> None:
     missing = [k for k in VIDEO_PATH_KERNELS if paths["video"][k] == 0]
     if missing:
         fail(f"kernels never launched on the video path: {missing}")
+    missing = [k for k in FLEET_PATH_KERNELS if paths["fleet"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the fleet path: {missing}")
+    missing = [k for k in MOBILE_PATH_KERNELS if paths["mobility"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the mobility path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

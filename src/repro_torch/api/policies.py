@@ -15,10 +15,10 @@ Copied from the JAX package (``repro.api.policies``).  The netsim policies
 (``queue_aware``, ``value_iteration`` — see :mod:`repro_torch.netsim.policy`),
 the video policies (``temporal_hysteresis``, ``keyframe`` —
 :mod:`repro_torch.video.policy`) and the online ``adaptive_threshold``
-(:mod:`repro_torch.online.policy`) register themselves on first registry
-access, so engine-built runtimes get them without importing those packages;
-the JAX package's fleet and mobility policies come with their slices of the
-port.
+(:mod:`repro_torch.online.policy`), the fleet's ``fleet_fair``
+(:mod:`repro_torch.fleet.budget`) and ``mobility_aware``
+(:mod:`repro_torch.mobility.policy`) register themselves on first registry
+access, so engine-built runtimes get them without importing those packages.
 
 Policies that consume *runtime wiring* — injected zero-arg callables like
 the simulation clock or a live congestion probe — declare the kwarg names
@@ -74,10 +74,12 @@ def register_policy(name: str):
 def _ensure_plugins() -> None:
     """Import the policy plugins that live outside ``repro_torch.api`` so
     registry lookups see them.  Lazy — called at lookup time, when this
-    module is fully initialized — so there is no import cycle.  (The JAX
-    package also imports its fleet and mobility plugins here; the port has
-    not got them yet, ROADMAP.md queue A items 7 and 8.)"""
-    import repro_torch.netsim.policy  # noqa: F401  (registers on import)
+    module is fully initialized — so there is no import cycle.  The same
+    plugins as the JAX package's: netsim, video, online, fleet and
+    mobility."""
+    import repro_torch.fleet.budget  # noqa: F401  (registers on import)
+    import repro_torch.mobility.policy  # noqa: F401
+    import repro_torch.netsim.policy  # noqa: F401
     import repro_torch.online.policy  # noqa: F401
     import repro_torch.video.policy  # noqa: F401
 

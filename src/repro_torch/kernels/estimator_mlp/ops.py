@@ -7,12 +7,20 @@ A CUDA tensor launches the kernel, a CPU tensor takes ``estimator_mlp_ref``.
 The kernel takes any F and H as they are (no padding).  Launches are counted
 in ``estimator_mlp.launches``, and by input shape (``"B=.. F=.. H=.."``) in
 ``estimator_mlp.launches_by_shape``.
+
+The order in which a row's float32 sums are taken follows the plan (the
+cluster size, its F-split, the tile and the F-chunks), and the plan follows
+B.  A caller that cuts one batch into shards and wants each row bit for bit
+as the whole batch gives it (``repro_torch.fleet.FleetPlane``) passes the
+whole batch's plan as ``plan=``: the wrapper launches it cut to the shard's
+rows (:func:`shard_plan`).
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from dataclasses import dataclass
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -21,7 +29,7 @@ from repro_torch.kernels.dispatch import resolve_path
 from repro_torch.kernels.estimator_mlp.ref import estimator_mlp_ref
 
 __all__ = ["MlpPlan", "PLANS", "estimator_mlp", "check_mlp_params", "check_aligned",
-           "device_clusters", "keep_plan", "mlp_plan"]
+           "device_clusters", "head_plan", "keep_plan", "mlp_plan", "shard_plan"]
 
 _LIB = "estimator_mlp"
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
@@ -194,6 +202,35 @@ def mlp_plan(B: int, F: int, H: int, *, full_rows: bool = False, extra_bytes: in
     )
 
 
+def shard_plan(plan: MlpPlan, rows: int) -> MlpPlan:
+    """``plan``, a whole batch's, cut to a shard of ``rows`` of its rows: the
+    same cluster size, F-split, tile, W1 staging and F-chunks (so a row's
+    sums are taken in the same order as in the whole batch's launch); only
+    the tiles and the grid shrink to the shard's."""
+    if rows < 1:
+        raise ValueError(f"a shard needs at least one row, got {rows}")
+    tiles = -(-rows // plan.tb)
+    return dataclasses.replace(plan, B=rows, tiles=tiles,
+                               grid=plan.cs * min(tiles, plan.grid // plan.cs))
+
+
+def check_plan(plan: MlpPlan, F: int, H: int, x_cols: int = 0, extra_bytes: int = 0,
+               row_bytes: int = 0) -> None:
+    """Raise unless ``plan`` is a plan of an (F, H) head (with ``x_cols``
+    columns of x a tile row, when given) whose shared memory holds the
+    caller's scratch of ``extra_bytes`` plus ``row_bytes`` a tile row."""
+    if not isinstance(plan, MlpPlan):
+        raise TypeError(f"plan must be an MlpPlan, got {type(plan).__name__}")
+    if (plan.F, plan.H) != (F, H) or (x_cols and plan.x_cols != x_cols):
+        raise ValueError(f"plan is for F={plan.F}, H={plan.H} (x_cols {plan.x_cols}); "
+                         f"the head is F={F}, H={H}" + (f" (x_cols {x_cols})" if x_cols else ""))
+    need = _layout(F, H, plan.cs, plan.tb, plan.slab_rows, plan.x_cols,
+                   extra_bytes + plan.tb * row_bytes)[-1]
+    if plan.smem < need:
+        raise ValueError(f"plan has {plan.smem} bytes of shared memory a CTA; "
+                         f"its layout with this scratch needs {need}")
+
+
 _CLUSTERS: Dict[int, Tuple[Tuple[int, int], ...]] = {}
 # each launch's plan by the wrapper's key (its shapes and device), so that a
 # call finds it with one dict lookup: on the serve paths the wrappers' host
@@ -221,6 +258,13 @@ def device_clusters(device: torch.device) -> Tuple[Tuple[int, int], ...]:
             got = tuple((cs, max(1, fn(cs, SMEM_LIMIT))) for cs in (1, 2, 4, 8))
         _CLUSTERS[index] = got
     return got
+
+
+def head_plan(B: int, F: int, H: int, device: torch.device) -> MlpPlan:
+    """The plan ``estimator_mlp`` launches for a (B, F) input and an (F, H)
+    W1 on the CUDA ``device`` (kept in ``PLANS``)."""
+    key = (B, F, H, device)
+    return PLANS.get(key) or keep_plan(key, mlp_plan(B, F, H, clusters=device_clusters(device)))
 
 
 def check_aligned(**tensors) -> None:
@@ -255,9 +299,19 @@ def estimator_mlp(
     b1: torch.Tensor,  # (H,)
     w2: torch.Tensor,  # (H,)
     b2: torch.Tensor,  # ()
+    *,
+    plan: Optional[MlpPlan] = None,
 ) -> torch.Tensor:
-    """``sigmoid(gelu_tanh(x @ w1 + b1) @ w2 + b2)`` -> (B,) float32."""
+    """``sigmoid(gelu_tanh(x @ w1 + b1) @ w2 + b2)`` -> (B,) float32.
+
+    ``plan``: a whole batch's plan (:func:`head_plan`) when ``x`` is a shard
+    of that batch; the kernel then launches it cut to ``x``'s rows, so each
+    row comes out bit for bit as in the whole batch's launch, and the launch
+    counts under ``"B=.. F=.. H=.. of=<the whole batch's B>"``.  The plain
+    version has no plan: on the CPU it is only checked against the head."""
     F, H = check_mlp_params(x.device, w1, b1, w2, b2)
+    if plan is not None:
+        check_plan(plan, F, H)
     if x.ndim != 2 or x.shape[1] != F:
         raise ValueError(f"x must be (B, {F}), got {tuple(x.shape)}")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -268,8 +322,8 @@ def estimator_mlp(
     if resolve_path(x) == "reference":
         return estimator_mlp_ref(x, w1, b1, w2, b2)
     check_aligned(w1=w1)  # x arrives by 4-byte cp.async: any float32 view will do
-    key = (B, F, H, x.device)
-    plan = PLANS.get(key) or keep_plan(key, mlp_plan(B, F, H, clusters=device_clusters(x.device)))
+    whole = None if plan is None else plan.B
+    plan = head_plan(B, F, H, x.device) if plan is None else shard_plan(plan, B)
     out = torch.empty((B,), dtype=torch.float32, device=x.device)
     fn = _build.function(_LIB, "estimator_mlp_f32", _ARGTYPES, x.device)
     with torch.cuda.device(x.device):
@@ -278,7 +332,7 @@ def estimator_mlp(
                 plan.slab_rows, plan.smem, _build.stream_ptr(x.device))
     _build.check(rc, _LIB, "estimator_mlp")
     estimator_mlp.launches += 1
-    key = f"B={B} F={F} H={H}"
+    key = f"B={B} F={F} H={H}" + (f" of={whole}" if whole is not None else "")
     estimator_mlp.launches_by_shape[key] = estimator_mlp.launches_by_shape.get(key, 0) + 1
     return out
 

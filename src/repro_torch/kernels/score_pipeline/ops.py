@@ -10,11 +10,14 @@ the reward head of ``kernels/csrc/mlp.cuh``, launched by ``mlp_plan`` with
 whole feature rows.  A CUDA block launches the kernel, a CPU block takes
 ``score_pipeline_ref``.  Launches are counted in ``score_pipeline.launches``,
 and by block shape (``"B=.. K=.."``) in ``score_pipeline.launches_by_shape``.
+As with ``estimator_mlp``, a shard of a batch launched with the whole
+batch's plan (``plan=``, from :func:`pipeline_plan`) gives each image's
+estimate bit for bit as the whole batch's launch does.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 
@@ -23,11 +26,12 @@ from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.kernels import _build
 from repro_torch.kernels.dispatch import resolve_path
 from repro_torch.kernels.estimator_mlp.ops import (
-    PLANS, check_aligned, check_mlp_params, device_clusters, keep_plan, mlp_plan,
+    PLANS, MlpPlan, check_aligned, check_mlp_params, check_plan, device_clusters, keep_plan,
+    mlp_plan, shard_plan,
 )
 from repro_torch.kernels.score_pipeline.ref import score_pipeline_ref
 
-__all__ = ["pipeline_params", "pipeline_scratch", "score_pipeline"]
+__all__ = ["pipeline_params", "pipeline_plan", "pipeline_scratch", "score_pipeline"]
 
 _LIB = "score_pipeline"
 _ARGTYPES = (
@@ -76,6 +80,15 @@ def pipeline_scratch(K: int, top_k: int, F: int) -> Dict[str, int]:
     return {"extra_bytes": 8 * ldx, "row_bytes": 4 * ((K + 3) & ~3) + 25 * K + 4 * top_k}
 
 
+def pipeline_plan(B: int, K: int, top_k: int, F: int, H: int, device: torch.device) -> MlpPlan:
+    """The plan ``score_pipeline`` launches for a (B, K) block and an (F, H)
+    head on the CUDA ``device`` (kept in ``PLANS``)."""
+    key = (B, K, int(top_k), F, H, device)
+    return PLANS.get(key) or keep_plan(key, mlp_plan(
+        B, F, H, full_rows=True, clusters=device_clusters(device),
+        **pipeline_scratch(K, int(top_k), F)))
+
+
 def _check_block(boxes, scores, classes, mask) -> Tuple[int, int]:
     if boxes.ndim != 3 or boxes.shape[-1] != 4:
         raise ValueError(f"boxes must be (B, K, 4), got {tuple(boxes.shape)}")
@@ -104,6 +117,7 @@ def score_pipeline(
     num_classes: int,
     top_k: int = 25,
     image_size: float = 1.0,
+    plan: Optional[MlpPlan] = None,
 ) -> torch.Tensor:
     """(B,) float32 reward estimates for a padded detection block, on the
     block's device.
@@ -111,7 +125,11 @@ def score_pipeline(
     ``batch`` is a :class:`DetectionsBatch` or a ``(boxes, scores, classes,
     mask)`` tuple of tensors; ``params`` comes from :func:`pipeline_params`
     and must lie on the same device.  Callers leave the device once, at the
-    policy boundary.
+    policy boundary.  ``plan``: a whole batch's plan (:func:`pipeline_plan`,
+    same K and top_k; a plan whose shared memory is too small for this
+    block's scratch raises) when the block is a shard of that batch; the
+    kernel launches it cut to the shard's images, counted under ``"B=..
+    K=.. of=<the whole batch's B>"``.
     """
     if isinstance(batch, DetectionsBatch):
         arrays = (batch.boxes, batch.scores, batch.classes, batch.mask)
@@ -131,6 +149,8 @@ def score_pipeline(
         t = p[name]
         if tuple(t.shape) != (F,) or t.dtype != torch.float32 or t.device != boxes.device:
             raise ValueError(f"{name} must be float32 ({F},) on {boxes.device}")
+    if plan is not None:
+        check_plan(plan, F, H, x_cols=(F + 3) & ~3, **pipeline_scratch(K, int(top_k), F))
     if B == 0:  # a zero-sized grid is refused by CUDA
         return torch.zeros((0,), dtype=torch.float32, device=boxes.device)
     if resolve_path(boxes) == "reference":
@@ -140,10 +160,9 @@ def score_pipeline(
             float(image_size), int(num_classes), int(top_k),
         )
     check_aligned(w1=p["w1"])
-    key = (B, K, int(top_k), F, H, boxes.device)
-    plan = PLANS.get(key) or keep_plan(key, mlp_plan(
-        B, F, H, full_rows=True, clusters=device_clusters(boxes.device),
-        **pipeline_scratch(K, int(top_k), F)))
+    whole = None if plan is None else plan.B
+    plan = (pipeline_plan(B, K, int(top_k), F, H, boxes.device) if plan is None
+            else shard_plan(plan, B))
     out = torch.empty((B,), dtype=torch.float32, device=boxes.device)
     fn = _build.function(_LIB, "score_pipeline_f32", _ARGTYPES, boxes.device)
     with torch.cuda.device(boxes.device):
@@ -157,7 +176,7 @@ def score_pipeline(
         )
     _build.check(rc, _LIB, "score_pipeline")
     score_pipeline.launches += 1
-    key = f"B={B} K={K}"
+    key = f"B={B} K={K}" + (f" of={whole}" if whole is not None else "")
     score_pipeline.launches_by_shape[key] = score_pipeline.launches_by_shape.get(key, 0) + 1
     return out
 

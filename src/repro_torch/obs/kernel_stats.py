@@ -17,6 +17,12 @@ bench or a serve run reports "this phase launched N kernels":
 On the CPU the wrappers take their plain versions and count nothing, so
 every launch count stays 0 there.
 
+A call site whose work is several launches or none (the sharded plane's
+``fleet_plane.score``: one launch a shard on the card, the plain version on
+the CPU) counts its calls itself with :func:`count_call`; ``snapshot`` reads
+those beside the launches, as ``repro.obs.jit_stats`` reads its
+``count_call`` sites.
+
 The counters are process-global (module-level wrappers are shared by every
 engine), so per-run scoping is by snapshot-delta:
 :class:`~repro_torch.obs.Obs` captures a baseline at construction and exports
@@ -39,11 +45,20 @@ KERNELS: Tuple[Tuple[str, str], ...] = (
 
 Snapshot = Dict[str, Dict[str, int]]
 
+#: calls counted by their sites (:func:`count_call`), by site name
+CALLS: Dict[str, int] = {}
+
+
+def count_call(site: str, n: int = 1) -> None:
+    """Count ``n`` calls of ``site`` (a dict update: no device work)."""
+    CALLS[site] = CALLS.get(site, 0) + n
+
 
 def snapshot() -> Snapshot:
-    """``{"launches": {kernel: n}, "builds": {source: n}}`` — the wrappers'
-    launch counters and the libraries ``build_all`` has compiled in this
-    process."""
+    """``{"launches": {kernel: n}, "builds": {source: n}, "calls": {site:
+    n}}`` — the wrappers' launch counters, the libraries ``build_all`` has
+    compiled in this process, and the calls of the sites that count their
+    own."""
     from repro_torch.kernels import _build
 
     return {
@@ -52,6 +67,7 @@ def snapshot() -> Snapshot:
             for module, name in KERNELS
         },
         "builds": dict(_build.BUILDS),
+        "calls": dict(CALLS),
     }
 
 

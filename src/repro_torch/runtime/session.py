@@ -658,7 +658,7 @@ class OffloadSession:
 
     def record_budget_share(self, share: float) -> None:
         """Stamp the stream's current share of the fleet-wide offload
-        budget (the fleet runtime's, ROADMAP.md queue A item 7)."""
+        budget (stamped by :class:`repro_torch.fleet.FleetRuntime`)."""
         self._budget_share.set(float(share))
 
     def record_redistribution(self) -> None:
@@ -671,8 +671,8 @@ class OffloadSession:
 
     def record_coverage(self, dbm: float) -> None:
         """Account one received-signal-strength sample from the stream's
-        serving base station (dBm; the mobility runtime's, ROADMAP.md queue A
-        item 8)."""
+        serving base station (dBm; stamped by
+        :class:`repro_torch.mobility.MobileRuntime`)."""
         self._coverage_sum.inc(float(dbm))
         self._coverage_samples.inc()
         self._coverage_dbm.set(float(dbm))

@@ -911,3 +911,167 @@ def test_serve_clip_on_card_matches_cpu(dev, no_tf32, tmp_path):
         if any(a["offload"] != b["offload"] for a, b in rows):
             break
         assert all(a == b for a, b in rows)
+
+
+# ---------------------------------------------------- the sharded fleet plane
+
+
+def _fused_engine(dev, F_in, H, rows=256, seed=0):
+    """A fused engine fitted on ``dev`` (2 epochs) on seeded features."""
+    from repro_torch.api import MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (rows, F_in)).astype(np.float32)
+    eng = OffloadEngine(reward_model=MLPRewardModel(
+        config=EstimatorConfig(hidden=(H,), epochs=2, batch_size=64), device=dev))
+    eng.fit(features=x, rewards=rng.normal(0, 1, rows))
+    assert eng.reward_model.fused
+    return eng, np.random.default_rng(seed + 1).normal(0, 1, (2000, F_in)).astype(np.float32)
+
+
+def _synth_dets(rng, n, kmax=64, num_classes=NUM_CLASSES, size=64.0):
+    from repro_torch.detection.map_engine import Detections, GroundTruth
+
+    dets, gts = [], []
+    for _ in range(n):
+        k, m = int(rng.integers(0, kmax + 1)), int(rng.integers(1, 9))
+        b = [rng.uniform(0, size - 25, (c, 2)) for c in (k, m)]
+        wh = [rng.uniform(5, 20, (c, 2)) for c in (k, m)]
+        dets.append(Detections(np.concatenate([b[0], b[0] + wh[0]], 1).astype(np.float32),
+                               rng.uniform(0.1, 1.0, k).astype(np.float32),
+                               rng.integers(0, num_classes, k).astype(np.int32)))
+        gts.append(GroundTruth(np.concatenate([b[1], b[1] + wh[1]], 1).astype(np.float32),
+                               rng.integers(0, num_classes, m).astype(np.int32)))
+    return dets, gts
+
+
+@pytest.mark.parametrize("B", [7, 64, 250])
+def test_fleet_plane_score_on_card_bit_identical(dev, no_tf32, B):
+    """Four logical shards of one card, each launched on the global batch's
+    plan: bit for bit ``engine.score`` at the deployable head (B 64: the
+    global plan runs clusters of 2, a shard planned alone clusters of 4)."""
+    from repro_torch.fleet import FleetPlane
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    eng, x = _fused_engine(dev, F, 128)
+    plane = FleetPlane(make_fleet_mesh(devices=[dev] * 4))
+    before = estimator_mlp.launches
+    out = plane.score(eng, x[:B])
+    assert estimator_mlp.launches - before == 4
+    assert np.array_equal(out, eng.score(features=x[:B]))
+
+
+def test_fleet_shard_on_its_own_plan_differs_on_card(dev, no_tf32):
+    """The reason for ``plan=``: B 64 at F 387 H 128 plans clusters of 2;
+    each shard of 16 planned for itself runs clusters of 4, which splits F
+    over 4 ranks and orders each row's sums differently; some rows then
+    differ in their last bits from the whole batch's launch, while the
+    shards on the global plan equal it."""
+    from repro_torch.kernels.estimator_mlp.ops import head_plan
+
+    rng = np.random.default_rng(3)
+    w = mlp(rng, F, 128, dev)
+    x = torch.tensor(rng.normal(0, 1, (64, F)).astype(np.float32), device=dev)
+    whole = estimator_mlp(x, *w)
+    g = head_plan(64, F, 128, dev)
+    own = torch.cat([estimator_mlp(x[i:i + 16], *w) for i in range(0, 64, 16)])
+    shared = torch.cat([estimator_mlp(x[i:i + 16], *w, plan=g) for i in range(0, 64, 16)])
+    assert (g.cs, head_plan(16, F, 128, dev).cs) == (2, 4)
+    assert torch.equal(shared, whole)
+    assert not torch.equal(own, whole)
+    torch.testing.assert_close(own, whole, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("B", [13, 150])
+def test_fleet_plane_detections_on_card_bit_identical(dev, no_tf32, B):
+    """``score_detections`` (one ``score_pipeline`` launch a shard, on the
+    global plan), ``match`` (one ``match`` launch a shard) and
+    ``extract_features`` over four logical shards of the card: bit for bit
+    the single-device calls."""
+    from repro_torch.api import DetectionBoxFeatures, MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+    from repro_torch.core.features import extract_features_batch
+    from repro_torch.fleet import FleetPlane
+
+    rng = np.random.default_rng(B)
+    cal, _ = _synth_dets(rng, 120)
+    fx = DetectionBoxFeatures(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=64.0, device=dev)
+    eng = OffloadEngine(feature_extractor=fx, reward_model=MLPRewardModel(
+        config=EstimatorConfig(hidden=(128,), epochs=2, batch_size=64), device=dev))
+    eng.fit(cal, rewards=rng.uniform(0, 1, 120))
+    dets, gts = _synth_dets(rng, B)
+    db = DetectionsBatch.from_list(dets, device=dev)
+    gb = GroundTruthBatch.from_list(gts, device=dev)
+    plane = FleetPlane([dev] * 4)
+    before = score_pipeline.launches, iou_matrix_batch.launches_by_route["match"]
+    out = plane.score_detections(eng, db)
+    ref_match = match_batch(db, gb, (0.5, 0.75))
+    got_match = plane.match(db, gb, (0.5, 0.75))
+    assert score_pipeline.launches - before[0] == 4
+    assert iou_matrix_batch.launches_by_route["match"] - before[1] == 5
+    assert np.array_equal(out, eng.score_device(db).cpu().numpy())
+    assert np.array_equal(got_match.tp, ref_match.tp)
+    assert np.array_equal(got_match.match_gt, ref_match.match_gt)
+    assert np.array_equal(plane.extract_features(db, NUM_CLASSES, TOP_K, 64.0),
+                          extract_features_batch(db, NUM_CLASSES, TOP_K, 64.0).cpu().numpy())
+
+
+@pytest.mark.parametrize("model", ["waypoint", "random_walk"])
+def test_rollout_on_card_matches_reference(dev, model):
+    """The motion rollout on the card against ``rollout_ref`` (numpy):
+    waypoints exactly, the random walk within ``tests/test_mobility.py``'s
+    1e-3 (float32 cos / sin); a repeat is bit-identical."""
+    from repro_torch.mobility import MotionConfig, rollout, rollout_ref
+
+    cfg = MotionConfig(model=model, area=(1200.0, 600.0), speed=14.0)
+    card = rollout(cfg, 16, 160, seed=5, device=dev)
+    ref = rollout_ref(cfg, 16, 160, seed=5)
+    assert np.array_equal(card, rollout(cfg, 16, 160, seed=5, device=dev))
+    if model == "waypoint":
+        assert np.array_equal(card, ref)
+    else:
+        np.testing.assert_allclose(card, ref, atol=1e-3, rtol=0)
+
+
+def test_fleet_plane_over_every_card_bit_identical(dev, no_tf32):
+    """The plane over every visible card (``make_fleet_mesh()``; needs two
+    or more): each shard's weights and rows are copied to its card, its
+    launches run there, and the results gather on the first card, bit for
+    bit the single-device calls."""
+    from repro_torch.api import DetectionBoxFeatures, MLPRewardModel, OffloadEngine
+    from repro_torch.core.estimator import EstimatorConfig
+    from repro_torch.core.features import extract_features_batch
+    from repro_torch.fleet import FleetPlane
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    plane = FleetPlane(make_fleet_mesh())
+    assert plane.devices == [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    rng = np.random.default_rng(11)
+    cal, _ = _synth_dets(rng, 200)
+    fx = DetectionBoxFeatures(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=64.0, device=dev)
+    eng = OffloadEngine(feature_extractor=fx, reward_model=MLPRewardModel(
+        config=EstimatorConfig(hidden=(128,), epochs=2, batch_size=64), device=dev))
+    eng.fit(cal, rewards=rng.uniform(0, 1, 200))
+    for B in (7, 64, 250):
+        dets, gts = _synth_dets(rng, B)
+        db = DetectionsBatch.from_list(dets, device=dev)
+        gb = GroundTruthBatch.from_list(gts, device=dev)
+        x = extract_features_batch(db, NUM_CLASSES, TOP_K, 64.0).cpu().numpy()
+        assert np.array_equal(plane.score(eng, x), eng.score(features=x)), B
+        assert np.array_equal(plane.score_detections(eng, db),
+                              eng.score_device(db).cpu().numpy()), B
+        got, want = plane.match(db, gb, (0.5, 0.75)), match_batch(db, gb, (0.5, 0.75))
+        assert np.array_equal(got.tp, want.tp) and np.array_equal(got.match_gt, want.match_gt)
+        assert np.array_equal(plane.extract_features(db, NUM_CLASSES, TOP_K, 64.0), x), B
+    # a city run over every card equals the one-card run record for record
+    from repro_torch.fleet import default_city_scenario, run_city_scenario
+
+    scn = default_city_scenario(256, 8, calibration_frames=512, estimator_epochs=2, device=dev)
+    one = run_city_scenario(scn, coordinated=True, plane=FleetPlane([dev]))
+    every = run_city_scenario(scn, coordinated=True, plane=plane)
+    for a, b in zip(one.trace.steps, every.trace.steps):
+        assert np.array_equal(a.estimates, b.estimates) and np.array_equal(a.offload, b.offload)
+    assert one.trace.telemetry == every.trace.telemetry

@@ -52,3 +52,22 @@ def test_every_module_imports_without_jax_or_repro():
     )
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.split()[-1]) >= len(modules)
+
+
+def test_fleet_and_mobility_stand_alone():
+    """The city-scale fleet and the mobility layer are covered: their
+    modules are among the sources checked above, and their entry points run
+    on ``cuda`` unless given the CPU."""
+    import inspect
+
+    names = {str(p.relative_to(PACKAGE)) for p in _sources() if PACKAGE in p.parents}
+    for module in ("fleet/__init__.py", "fleet/plane.py", "fleet/budget.py", "fleet/runtime.py",
+                   "fleet/experiment.py", "mobility/__init__.py", "mobility/motion.py",
+                   "mobility/coverage.py", "mobility/handover.py", "mobility/policy.py",
+                   "mobility/runtime.py", "launch/mesh.py"):
+        assert module in names, module
+    from repro_torch.fleet import default_city_scenario
+    from repro_torch.mobility import default_mobile_scenario, rollout
+
+    for fn in (default_city_scenario, default_mobile_scenario, rollout):
+        assert inspect.signature(fn).parameters["device"].default == "cuda", fn.__name__

@@ -22,11 +22,11 @@ from repro.kernels.estimator_mlp import estimator_mlp as j_mlp
 from repro.kernels.score_pipeline import score_pipeline as j_score
 from repro_torch.core.features import box_feature_stack, pad_box_axis
 from repro_torch.detection.batch import DetectionsBatch as TBatch
-from repro_torch.kernels.estimator_mlp import estimator_mlp_ref
+from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
 from repro_torch.kernels.estimator_mlp.ops import (
-    H100_CLUSTERS, MAX_CLUSTER, SMEM_LIMIT, SMS, TILE_ROWS, mlp_plan, slice_start,
+    H100_CLUSTERS, MAX_CLUSTER, SMEM_LIMIT, SMS, TILE_ROWS, mlp_plan, shard_plan, slice_start,
 )
-from repro_torch.kernels.score_pipeline import score_pipeline_ref
+from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
 from repro_torch.kernels.score_pipeline.ops import pipeline_scratch
 
 NUM_CLASSES, TOP_K = 8, 25
@@ -158,3 +158,93 @@ def test_emulated_order_matches_score_references(B, kmax, ties, frac_empty):
     want_j = np.asarray(j_score(JBatch.from_list(jd), {k: jnp.asarray(v) for k, v in p.items()},
                                 num_classes=NUM_CLASSES, top_k=TOP_K, image_size=1.0, path="lax"))
     np.testing.assert_allclose(got.numpy(), want_j, atol=2e-6, rtol=0)
+
+
+# (B, F, H, full_rows, shards): the sharded plane's launches (the card's plane
+# check at F 387 H 128, the city at F 12 H 32, score_pipeline's blocks), then
+# corners
+SHARDED = [(7, F_DET, 128, False, 4), (64, F_DET, 128, False, 4), (250, F_DET, 128, False, 4),
+           (2000, F_DET, 128, False, 4), (1024, 12, 32, False, 4), (13, F_DET, 128, True, 4),
+           (250, F_DET, 128, True, 4), (4096, 700, 300, False, 3), (5, 33, 17, False, 2)]
+SUMMATION_FIELDS = ("F", "H", "cs", "bounds", "tb", "ksplit", "slab_rows", "stage_rows",
+                    "stages", "x_cols", "smem")
+
+
+@pytest.mark.parametrize("B,F,H,full_rows,n", SHARDED)
+def test_shard_plan_keeps_the_global_summation(B, F, H, full_rows, n):
+    """A shard's plan keeps every field that orders a row's sums (cluster
+    size, F-split, tile, F-chunks, W1 staging) and the shared memory they
+    lay out; only its rows, tiles and grid are the shard's."""
+    g = plan_of(B, F, H, full_rows)
+    per = -(-B // n)
+    for rows in sorted({per, max(1, B - (n - 1) * per), 1}):
+        p = shard_plan(g, rows)
+        assert {f: getattr(p, f) for f in SUMMATION_FIELDS} == \
+            {f: getattr(g, f) for f in SUMMATION_FIELDS}
+        assert p.B == rows and p.tiles == -(-rows // g.tb)
+        assert p.grid % p.cs == 0 and p.cs <= p.grid <= g.grid
+        assert p.grid // p.cs <= p.tiles  # no cluster without a tile
+    with pytest.raises(ValueError):
+        shard_plan(g, 0)
+
+
+def test_shard_plan_differs_from_a_shard_planned_alone():
+    """Why the plane passes the global plan: at the deployable head a batch
+    of 64 runs clusters of 2, while a shard of 16 planned for itself would
+    run clusters of 4, splitting F (and so ordering each row's sums)
+    differently."""
+    g, own = plan_of(64, F_DET, 128, False), plan_of(16, F_DET, 128, False)
+    assert (g.cs, own.cs) == (2, 4) and g.bounds != own.bounds
+    assert shard_plan(g, 16).cs == 2 and shard_plan(g, 16).bounds == g.bounds
+    # the small heads keep one CTA a cluster, but the tile and F-chunks move
+    small_g, small_own = plan_of(1024, 12, 32, False), plan_of(256, 12, 32, False)
+    assert small_g.cs == small_own.cs == 1
+    assert (small_g.tb, small_g.ksplit) != (small_own.tb, small_own.ksplit)
+
+
+def test_wrappers_check_the_plan_on_the_cpu():
+    """``plan=`` must be a plan of the head; on the CPU the plain version
+    runs and the plan changes nothing."""
+    rng = np.random.default_rng(0)
+    w = [torch.tensor(v) for v in mlp_arrays(rng, 33, 17)]
+    x = torch.tensor(rng.normal(0, 1, (9, 33)).astype(np.float32))
+    ref = estimator_mlp(x, *w)
+    assert torch.equal(estimator_mlp(x, *w, plan=mlp_plan(40, 33, 17)), ref)
+    with pytest.raises(ValueError, match="F=34"):
+        estimator_mlp(x, *w, plan=mlp_plan(9, 34, 17))
+    with pytest.raises(TypeError):
+        estimator_mlp(x, *w, plan=(9, 33, 17))
+    arrays = random_detection_arrays(rng, 5, 30, NUM_CLASSES)
+    tb = TBatch.from_list(both_detections(arrays)[1], device="cpu")
+    params = {k: torch.tensor(v) for k, v in zip(("w1", "b1", "w2", "b2"),
+                                                  mlp_arrays(rng, F_DET, 128))}
+    params.update(mu=torch.zeros(F_DET), sigma=torch.ones(F_DET))
+    kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K)
+    full = plan_of(20, F_DET, 128, True)
+    assert torch.equal(score_pipeline(tb, params, **kw, plan=full), score_pipeline(tb, params, **kw))
+    with pytest.raises(ValueError, match="x_cols"):
+        score_pipeline(tb, params, **kw, plan=plan_of(20, F_DET, 128, False))
+
+
+@pytest.mark.parametrize("K_less,top_k_less", [(True, False), (False, True)])
+def test_score_pipeline_refuses_a_plan_too_small_for_its_block(K_less, top_k_less):
+    """A ``score_pipeline`` plan sizes its shared memory from K and top_k
+    (``pipeline_scratch``): a plan built for a smaller K or top_k passes
+    the head's checks but would launch with too little, so the wrapper
+    raises, on the CPU too."""
+    rng = np.random.default_rng(1)
+    arrays = random_detection_arrays(rng, 5, 30, NUM_CLASSES)
+    tb = TBatch.from_list(both_detections(arrays)[1], device="cpu")
+    K = tb.boxes.shape[1]
+    params = {k: torch.tensor(v) for k, v in zip(("w1", "b1", "w2", "b2"),
+                                                  mlp_arrays(rng, F_DET, 128))}
+    params.update(mu=torch.zeros(F_DET), sigma=torch.ones(F_DET))
+    kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K)
+    fits = mlp_plan(20, F_DET, 128, full_rows=True, **pipeline_scratch(K, TOP_K, F_DET))
+    assert torch.equal(score_pipeline(tb, params, **kw, plan=fits), score_pipeline(tb, params, **kw))
+    small = mlp_plan(20, F_DET, 128, full_rows=True,
+                     **pipeline_scratch(K // 4 if K_less else K,
+                                        TOP_K - 20 if top_k_less else TOP_K, F_DET))
+    assert small.x_cols == fits.x_cols and small.smem < fits.smem
+    with pytest.raises(ValueError, match="shared memory"):
+        score_pipeline(tb, params, **kw, plan=small)

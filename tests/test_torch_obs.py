@@ -213,7 +213,7 @@ def test_tracer_overflow_drops_not_grows():
 def test_kernel_stats_sites_cover_every_kernel():
     """Every ported Pallas kernel's wrapper is a counted site."""
     snap = kernel_stats.snapshot()
-    assert set(snap) == {"launches", "builds"}
+    assert set(snap) == {"launches", "builds", "calls"}
     assert set(snap["launches"]) == {"iou_matrix", "iou_matrix_batch", "estimator_mlp",
                                      "score_pipeline", "flash_sdpa", "wkv6"}
 
