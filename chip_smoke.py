@@ -5,8 +5,9 @@ the streaming runtime over the trained engine (also behind netsim uplinks),
 the paper's experiments (``run_all``), the temporal layer (video streams
 through the tracker, closed-loop adaptation), the city-scale fleet (the
 sharded plane, 1024 streams in four districts) and client mobility (moving
-clients, handover), and the LM early-exit cascade (qwen2-7b and rwkv6-1.6b
-at full width, in batches and as streams).
+clients, handover), the LM early-exit cascade (qwen2-7b and rwkv6-1.6b
+at full width, in batches and as streams, with the ring and int8 decode
+caches), and LM training (both families at full width).
 
     python3 chip_smoke.py
 
@@ -40,8 +41,16 @@ first use.  Phases, each printing one line of its own:
                size, tile, grid, shared memory); ``FleetPlane``'s shard
                launches (``plan=``, the whole batch's plan) at the fleet's
                shapes, against the plain version and bit for bit the whole
-               batch's launch.
-               Fails if
+               batch's launch.  ``check_lm`` also holds flash_sdpa's and
+               wkv6's autograd Functions (the kernel forward, the plain
+               version's backward) against plain autograd on the card
+               (flash_sdpa on the ``wgmma`` route, bf16 D 128 GQA 7, and the
+               ``simt`` route, float32 D 32, causal, with and without a
+               window; wkv6 in float32 and bf16, gradients of out and sT) at
+               1e-6 of the largest |g|, times their forward and backward at
+               the training shapes (B 2 x S 512), and checks that
+               estimator_mlp, score_pipeline and iou_matrix(_batch) raise on
+               a CUDA input that requires grad.  Fails if
                flash_sdpa's qwen2-7b prefill / decode shapes miss the
                ``wgmma`` / ``decode`` routes.
 4. ``serve``   the serve path with every launch count set to 0 first:
@@ -215,12 +224,40 @@ first use.  Phases, each printing one line of its own:
                estimates against ``mlp_apply`` (1e-5), decode
                against the forward, the weak logits against the plain
                versions (bf16 as served, and float32), and the decisions
-               against the CPU engine on the same features.  Launches are
+               against the CPU engine on the same features; for qwen2-7b
+               the two caches at full width and depth: the 8 x 512 batch
+               prefilled into the 256-slot ring of
+               ``long_context_variant(cfg, 256)`` (last logits against
+               ``forward`` under the window) and 16 decode steps on the
+               ``decode`` route (the first, past the boundary, against
+               ``forward`` over the extended tokens), then the int8 cache
+               (prefill logits bit-equal to the bf16 cache's, the first
+               decode step within 5% of the largest logit of the bf16
+               cache's, fewer bytes) and the bf16 cache, 16 steps each;
+               ms a decode step of each.  Launches are
                also split by route and shape; the run fails if qwen2-7b's
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
-12. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+12. ``lm_train`` LM training, once per family at full width (rwkv6-1.6b
+               whole; qwen2-7b with 2 of its 28 layers), bf16 compute over
+               float32 parameters, remat on: every launch count set to 0
+               first, 3 ``make_train_step`` steps at B 2 x S 512 on one
+               ``synth_lm_batch`` batch at lr 0.01 / the largest fan-in
+               (each loss finite and below the one before; launches must
+               equal layers x (forward + recompute) x steps), the last under
+               ``torch.profiler`` for the card's busy share.  Then, outside
+               the count: one step taken apart (forward, backward, update;
+               CUDA events); the gradients through the kernels against
+               ``plain=True`` leaf by leaf on the first 128 tokens (relative
+               L2; the kernels no farther than twice the plain bf16
+               gradient from the float32 plain gradient, + 1e-3); 3 steps on
+               the reduced float32 configs (lr 3e-4) on the card against the
+               CPU (within 2 lr_sum, at most 1% of elements beyond 1e-5);
+               ``python -m repro_torch.launch.train`` for 2 steps on the
+               card.  Prints step ms, tokens/s, peak memory, the busy and
+               backward shares.
+13. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
@@ -229,10 +266,11 @@ first use.  Phases, each printing one line of its own:
                source, launches and timed shapes, and the video and fleet
                paths' launches by shape).  The paths: detection, train, stream
                (the detection stream and both LM streams), repro, video,
-               fleet, mobility and lm; the run fails if score_pipeline,
+               fleet, mobility, lm and lm_train; the run fails if score_pipeline,
                estimator_mlp or iou_matrix_batch never launched on the train,
                stream, repro or fleet path, estimator_mlp or iou_matrix_batch
-               on the video path, or estimator_mlp on the mobility path.
+               on the video path, estimator_mlp on the mobility path, or
+               flash_sdpa or wkv6 on the lm_train path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -1557,12 +1595,8 @@ def train(torch, smi, dev):
 
 def step_device_ms(torch, cfg, ds, dev, steps=PROFILED_STEPS):
     """One training step's wall time (host clock, ``steps`` steps after a
-    warm-up, device synced) and its device time: the durations of the
-    kernels and copies ``torch.profiler`` records on the card over another
-    ``steps`` steps, summed (one stream: they do not overlap)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    warm-up, device synced) and its device time over another ``steps``
+    steps (``device_busy_ms``)."""
     from repro_torch.train.trainer import train_detector
 
     def run():
@@ -1575,16 +1609,11 @@ def step_device_ms(torch, cfg, ds, dev, steps=PROFILED_STEPS):
     run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / steps
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    on_card = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    device = sum(e.time_range.elapsed_us() for e in on_card) / 1e3 / steps
-    if not on_card:
-        device = None  # the profiler saw the card do nothing: not measured
+    busy, n_events = device_busy_ms(torch, run)
+    device = busy / steps if busy is not None else None  # None: not measured
     return {"steps": steps, "wall_ms": wall, "device_ms": device,
             "device_share": device / wall if device is not None else None,
-            "device_events_a_step": len(on_card) / steps}
+            "device_events_a_step": n_events / steps}
 
 
 
@@ -2866,6 +2895,9 @@ def check_lm_kernels(torch, timer, dev):
                  kernel_vs_f64=float((g.double() - x).abs().max()),
                  plain_vs_f64=float((w.double() - x).abs().max()))
 
+    grads, train_times = check_lm_grads(torch, timer, dev, normal, wkv_inputs)
+    refused = check_grad_refusals(torch, dev)
+
     # times and bounds at the prefill shapes (and flash_sdpa's decode step)
     records = {}
     pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs the kernel needs
@@ -2921,11 +2953,145 @@ def check_lm_kernels(torch, timer, dev):
         r["max_abs_err"] = err[name.split()[0]]
     times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms")}
              for k, r in {**records, **extra}.items()}
-    emit("check_lm", {"cases": len(cases), "max_abs_err": err, "times": times, "detail": cases})
+    emit("check_lm", {"cases": len(cases), "max_abs_err": err, "times": times,
+                      "grads": grads, "train_times": train_times, "no_grad_kernels_raise": refused,
+                      "detail": cases})
     for name, r in extra.items():  # the decode step's numbers ride on the kernel's record
         records[name.split()[0]]["decode"] = {
             kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+    for name, r in train_times.items():  # ... and the training shapes' forward and backward
+        records[name]["train"] = r
     return records
+
+
+# The Functions' backward is the plain version differentiated on the saved
+# inputs: on one card the same ops as plain autograd on the same inputs and
+# upstream gradient, so the two should be equal; held at 1e-6 of the largest
+# |g| (float32 summation order, should a library pick another algorithm)
+LM_GRAD_TOL = 1e-6
+
+
+def check_lm_grads(torch, timer, dev, normal, wkv_inputs):
+    """flash_sdpa's and wkv6's autograd Functions against the plain versions'
+    autograd on the card: flash_sdpa on the wgmma route (bf16, D 128, GQA 7)
+    and the simt route (float32, D 32), causal, with and without a window;
+    wkv6 in float32 and bf16, gradients of out and sT to r, k, v, w, u and s0.
+    Then the forward and backward times at the training shapes (lm_train:
+    B 2 x S 512).  Returns (cases, times)."""
+    from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    bf = torch.bfloat16
+    cases = []
+
+    def hold_grads(kernel, case, fn, ref, ins, upstream):
+        ins = [t.detach().requires_grad_() for t in ins]
+        got_out = fn(*ins)
+        got_out = got_out if isinstance(got_out, tuple) else (got_out,)
+        got = torch.autograd.grad(got_out, ins, upstream, allow_unused=True)
+        want_out = ref(*ins)
+        want_out = want_out if isinstance(want_out, tuple) else (want_out,)
+        want = torch.autograd.grad(want_out, ins, upstream, allow_unused=True)
+        _sync(torch, dev)()
+        errs = []
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                fail(f"{kernel} {case}: a gradient is None on one side only")
+            if g is None:
+                continue
+            e = float((g.float() - w.float()).abs().max())
+            scale = float(w.float().abs().max())
+            if g.dtype != w.dtype or not np.isfinite(e) or e > LM_GRAD_TOL * scale:
+                fail(f"{kernel} {case}: Function vs plain autograd gradient differs by {e} "
+                     f"(tolerance {LM_GRAD_TOL} x {scale})")
+            errs.append(e)
+        cases.append({"kernel": kernel, "case": case, "max_abs_err": max(errs),
+                      "tol_rel_to_max_g": LM_GRAD_TOL})
+
+    for route, dt, (B, S, H, K, D) in (("wgmma", bf, (2, 512, 28, 4, 128)),
+                                       ("simt", torch.float32, (2, 128, 4, 2, 32))):
+        for window in (0, S // 4):
+            q, k, v = normal((B, S, H, D), dt), normal((B, S, K, D), dt), normal((B, S, K, D), dt)
+            g = normal((B, S, H, D), dt)
+            before = flash_sdpa.launches_by_route[route]
+            hold_grads("flash_sdpa", f"{route} B={B} S=T={S} H={H} K={K} D={D} window={window}",
+                       lambda q, k, v: flash_sdpa(q, k, v, window=window),
+                       lambda q, k, v: flash_sdpa_ref(q, k, v, window=window), (q, k, v), (g,))
+            if flash_sdpa.launches_by_route[route] != before + 1:
+                fail(f"flash_sdpa's Function did not launch the {route} route")
+    for dt in (torch.float32, bf):
+        B, T, H, K = 2, 64, 4, 64
+        ins = wkv_inputs(B, T, H, K, K, dt, torch.float32)
+        up = (normal((B, T, H, K)), normal((B, H, K, K)))
+        hold_grads("wkv6", f"B={B} T={T} H={H} K=V={K} r/k/v {str(dt)[6:]} w f32, d(out, sT)",
+                   wkv6, wkv6_ref, ins, up)
+        hold_grads("wkv6", f"B={B} T={T} H={H} K=V={K} r/k/v {str(dt)[6:]} w f32, d(out) only",
+                   lambda *a: wkv6(*a)[0], lambda *a: wkv6_ref(*a)[0], ins, up[:1])
+
+    # forward (the kernel through the Function) and backward (the plain
+    # version's autograd) at the training shapes
+    times = {}
+    B, S, H, K, D = LM_TRAIN_BATCH, LM_TRAIN_SEQ, 28, 4, 128
+    q, k, v = (normal(shape, bf).requires_grad_() for shape in
+               ((B, S, H, D), (B, S, K, D), (B, S, K, D)))
+    out, g = flash_sdpa(q, k, v), normal((B, S, H, D), bf)
+    times["flash_sdpa"] = {
+        "shape": f"B={B} S=T={S} H={H} K={K} D={D} bf16 causal (qwen2-7b lm_train)",
+        "fwd_ms": timer(lambda: flash_sdpa(q, k, v)),
+        "bwd_ms": timer(lambda: torch.autograd.grad(out, (q, k, v), g, retain_graph=True),
+                        reps=5, windows=11),
+        "plain_fwd_ms": timer(lambda: flash_sdpa_ref(q, k, v), reps=5, windows=11),
+    }
+    del out
+    H, K = 32, 64
+    ins = [t.requires_grad_() for t in wkv_inputs(B, S, H, K, K, bf, torch.float32)]
+    out, _ = wkv6(*ins)
+    g = normal((B, S, H, K))
+    times["wkv6"] = {
+        "shape": f"B={B} T={S} H={H} K=V={K} r/k/v bf16 w f32 (rwkv6-1.6b lm_train)",
+        "fwd_ms": timer(lambda: wkv6(*ins)),
+        "bwd_ms": timer(lambda: torch.autograd.grad(out, ins, g, retain_graph=True),
+                        reps=1, windows=3),
+        "plain_fwd_ms": timer(lambda: wkv6_ref(*ins), reps=1, windows=3),
+    }
+    del out
+    return cases, times
+
+
+def check_grad_refusals(torch, dev):
+    """The kernels without a gradient raise on a CUDA input that requires
+    grad under grad mode, and run under torch.no_grad()."""
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+
+    rng = np.random.default_rng(77)
+    F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+    w1, b1, w2, b2 = seeded_mlp(torch, rng, F, HIDDEN, dev)
+    x = torch.tensor(rng.normal(0, 1, (4, F)).astype(np.float32), device=dev)
+    block = seeded_block(torch, rng, 2, 64, dev)
+    sp = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "mu": torch.zeros(F, device=dev),
+          "sigma": torch.ones(F, device=dev)}
+    a = torch.tensor(seeded_boxes(rng, (2, 8)), device=dev)
+    calls = {
+        "estimator_mlp": lambda req: estimator_mlp(x.detach().requires_grad_(req), w1, b1, w2, b2),
+        "score_pipeline": lambda req: score_pipeline(
+            block, dict(sp, w1=w1.detach().requires_grad_(req)), image_size=IMAGE_SIZE,
+            num_classes=NUM_CLASSES, top_k=TOP_K),
+        "iou_matrix": lambda req: iou_matrix(a[0].detach().requires_grad_(req), a[1]),
+        "iou_matrix_batch": lambda req: iou_matrix_batch(a.detach().requires_grad_(req), a),
+    }
+    out = {}
+    for name, call in calls.items():
+        try:
+            call(True)
+        except RuntimeError as e:
+            out[name] = str(e).split(":")[0]
+        else:
+            fail(f"{name} returned a detached result for a CUDA input that requires grad")
+        with torch.no_grad():
+            call(True)
+    return out
 
 
 def lm_engine_artifact(path, x_cal, scores_fn, exit_layer, cfg_name, rng):
@@ -3192,6 +3358,9 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         "cascade_generate_telemetry": gen["telemetry"],
     }
 
+    if cfg.arch_type == "dense":
+        checks["caches"] = lm_cache_checks(torch, dev, params, cfg, b0["tokens"])
+
     gen_total_ms = sum(sum(d.values()) for d in gen_ms.values())
     report = {
         "arch": cfg.name, "params": n_params, "layers": cfg.num_layers, "exit_layer": exit_layer,
@@ -3229,6 +3398,85 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     return report, launches
 
 
+LM_RING_WINDOW, LM_CACHE_STEPS = 256, 16  # the ring's slots; decode steps on each cache
+
+
+def lm_cache_checks(torch, dev, params, cfg, tokens):
+    """The two dense-attention caches at the width and depth of ``cfg``,
+    outside the count: ``long_context_variant(cfg, 256)`` prefilled with the
+    8 x 512 batch into a 256-slot ring, then 16 decode steps (the decode
+    route at q_offset min(pos, C - 1)); the int8 cache (``kv_quant``) and
+    the plain cache, 16 decode steps each on the same tokens.  Holds the
+    ring's prefill logits against ``forward`` under the window and its
+    first decode step (past the boundary) against ``forward`` over the
+    extended tokens, at the phase's bf16 tolerance; the int8 prefill logits
+    bit-equal to the plain cache's, its first decode step within 5% of the
+    largest logit (tests/test_perf_variants.py), and its bytes below the
+    plain cache's.  Returns the holds and the ms a decode step of each."""
+    from repro_torch.configs import long_context_variant
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.models import lm
+
+    sync = _sync(torch, dev)
+    out = {}
+
+    def decode_run(c, cache, nxt, start, feed=None):
+        """LM_CACHE_STEPS decode steps from ``start``, each fed the greedy
+        token of the step before (of ``feed``'s step, when given): (every
+        step's logits, ms a step over all but the first)."""
+        logits = []
+        for i in range(LM_CACHE_STEPS):
+            if i == 1:
+                sync()
+                t0 = time.perf_counter()
+            lg, cache = lm.decode_step(params, c, cache, nxt, start + i)
+            logits.append(lg)
+            nxt = (lg if feed is None else feed[i]).argmax(-1)
+        sync()
+        return logits, (time.perf_counter() - t0) * 1e3 / (LM_CACHE_STEPS - 1)
+
+    rcfg = long_context_variant(cfg, window=LM_RING_WINDOW)
+    last, cache = lm.prefill(params, rcfg, {"tokens": tokens}, capacity=LM_RING_WINDOW)
+    full, _ = lm.forward(params, rcfg, {"tokens": tokens})
+    out["ring_prefill_vs_forward"] = hold_rel(f"{cfg.name} ring prefill vs forward (window "
+                                              f"{LM_RING_WINDOW})", last, full[:, -1], LM_BF16_REL_TOL)
+    del full
+    nxt = last.argmax(-1)
+    routes = dict(flash_sdpa.launches_by_route)
+    ring_logits, out["ring_decode_ms_per_step"] = decode_run(rcfg, cache, nxt, tokens.shape[1])
+    if flash_sdpa.launches_by_route["decode"] - routes["decode"] != LM_CACHE_STEPS * cfg.num_layers:
+        fail(f"{cfg.name}: the ring decode did not take flash_sdpa's decode route every step")
+    ext, _ = lm.forward(params, rcfg, {"tokens": torch.cat([tokens, nxt[:, None]], 1)})
+    out["ring_first_step_vs_forward"] = hold_rel(
+        f"{cfg.name} ring decode at pos {tokens.shape[1]} vs forward", ring_logits[0], ext[:, -1],
+        LM_BF16_REL_TOL)
+    del ext, cache, ring_logits
+
+    C = tokens.shape[1] + LM_CACHE_STEPS
+    qcfg = dataclasses.replace(cfg, kv_quant=True)
+    last, cache = lm.prefill(params, cfg, {"tokens": tokens}, capacity=C)
+    qlast, qcache = lm.prefill(params, qcfg, {"tokens": tokens}, capacity=C)
+    if not torch.equal(qlast, last):
+        fail(f"{cfg.name}: the int8 cache's prefill logits differ from the plain cache's")
+    nbytes = {name: sum(t.numel() * t.element_size() for t in c.values())
+              for name, c in (("bf16", cache), ("int8", qcache))}
+    if not nbytes["int8"] < nbytes["bf16"]:
+        fail(f"{cfg.name}: the int8 cache is not smaller: {nbytes}")
+    nxt = last.argmax(-1)
+    plain_logits, out["bf16_decode_ms_per_step"] = decode_run(cfg, cache, nxt, tokens.shape[1])
+    # the same tokens into the int8 cache: the plain run's greedy choices
+    qlogits, out["int8_decode_ms_per_step"] = decode_run(qcfg, qcache, nxt, tokens.shape[1],
+                                                         feed=plain_logits)
+    out["int8_first_step_vs_bf16"] = hold_rel(f"{cfg.name} int8 cache decode vs bf16 cache",
+                                              qlogits[0], plain_logits[0], LM_BF16_REL_TOL)
+    rel = [float((q.float() - p.float()).abs().max() / p.float().abs().max())
+           for q, p in zip(qlogits, plain_logits)]
+    out.update({"int8_prefill_bit_equal": True, "cache_bytes": nbytes,
+                "int8_vs_bf16_rel_by_step_max": max(rel), "ring_slots": LM_RING_WINDOW,
+                "decode_steps": LM_CACHE_STEPS})
+    return out
+
+
 def lm_serve(torch, smi, dev):
     """The LM phase: each family in turn, its model freed before the next.
     Returns the launches of the two main-path runs, summed, and their
@@ -3259,6 +3507,289 @@ def lm_serve(torch, smi, dev):
         if dev.type == "cuda":
             torch.cuda.empty_cache()
     return total, split_total, stream_total, stream_split
+
+
+# --------------------------------------------------------------- LM training
+
+# lm_train: each family at full width (qwen2-7b cut to 2 of its 28 layers:
+# float32 parameters, gradients and the two moments, with the functional
+# AdamW's old and new trees at once, do not fit 80 GB for all 28), bf16
+# compute over float32 parameters, remat on; LM_TRAIN_STEPS make_train_step
+# steps on one synth_lm_batch batch, so that each step's loss is the loss of
+# the same batch after the steps before it
+LM_TRAIN_MODELS = (("rwkv6_1b6", {}), ("qwen2_7b", {"num_layers": 2}))
+LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
+LM_TRAIN_LR = 3e-4  # the launcher's default: the card-vs-CPU steps on the reduced configs
+# AdamW's first steps move every element by about lr (m_hat / sqrt(v_hat) is
+# +-1), with the sign of its gradient on this batch, so a layer of fan-in n
+# moves its output by about lr * n of itself: at 3e-4 that is 0.6 at d 2048
+# and 2.1 / 5.7 at rwkv6's / qwen2's d_ff, and the first card run saw
+# rwkv6's loss on the batch rise (11.48 -> 13.85).  The full-width steps
+# take lr = LM_TRAIN_SHIFT / the largest fan-in, a 1% move of each output
+LM_TRAIN_SHIFT = 0.01
+
+
+def train_lr(cfg) -> float:
+    """The full-width steps' learning rate (LM_TRAIN_SHIFT)."""
+    return LM_TRAIN_SHIFT / max(cfg.d_model, cfg.d_ff, cfg.num_heads * cfg.head_dim)
+LM_TRAIN_PARITY_STEPS, LM_TRAIN_PARITY_SEQ = 3, 64  # card vs CPU, reduced float32 configs
+# kernels against plain=True, one step's gradients leaf by leaf by relative L2
+# error.  In bf16 the two forwards differ by roundings that fall differently
+# (the wgmma route rounds P to bf16 where the plain version keeps it in
+# float32; wkv6's float32 summation order moves a value across a bf16
+# rounding), and a leaf whose gradient is a sum over the batch's tokens with
+# much cancellation (a mix or norm vector) then moves by a large share of
+# itself: the first card run saw rwkv6's cm_mix at 0.12 of its L2 norm.  The
+# bound is therefore each leaf's own bf16 noise, measured: the plain bf16
+# gradient's distance to the float32 plain gradient (the reference, only
+# float32 summation order from exact).  The kernels' bf16 gradient may be at
+# most LM_TRAIN_GRAD_NOISE times that distance from the reference, plus
+# LM_F32_REL_TOL; by the triangle inequality the kernels-vs-plain distance of
+# a leaf is then at most (LM_TRAIN_GRAD_NOISE + 1) times its noise, which is
+# the bound printed beside it.  Two runs with the same kind of noise over a
+# leaf of thousands of elements give distances of about the same size.
+LM_TRAIN_GRAD_NOISE = 2.0
+# the gradient check runs three backward passes (kernels, plain bf16, plain
+# float32); rwkv6's plain wkv6 backward is a host loop over the tokens (~7 s
+# a pass at 512), so the check takes the batch's first 128 tokens
+LM_GRAD_CHECK_SEQ = 128
+LM_TRAIN_PATH_KERNELS = ("flash_sdpa", "wkv6")  # each must launch in the lm_train phase
+
+
+def flat_leaves(tree, prefix=""):
+    """name -> tensor of a parameter tree (for hold_training)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flat_leaves(v, f"{prefix}{k}/"))
+        else:
+            out[f"{prefix}{k}"] = v
+    return out
+
+
+def device_busy_ms(torch, fn):
+    """The card's busy time over ``fn`` and its count of device events: the
+    durations of the kernels and copies ``torch.profiler`` records on the
+    card, summed (one stream: they do not overlap).  The raw events are
+    read, not ``prof.events()``: a plain wkv6 backward makes ~10^5 launches.
+    (None, 0) where the profiler saw the card do nothing (not measured)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ns = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return (sum(ns) / 1e6, len(ns)) if ns else (None, 0)
+
+
+def lm_train_family(torch, dev, cfg, seed, counters):
+    """One family's training at the width of ``cfg``: a short warm-up, the
+    counted steps (the last one profiled), then, outside the count, one step
+    taken apart and the gradient check (kernels vs plain).  Returns
+    (report, launches)."""
+    from repro_torch.core.estimator import value_and_grad
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.train.adamw import adamw_init, adamw_update
+
+    sync = _sync(torch, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
+                            dtype=torch.float32)
+    n_params = sum(t.numel() for t in lm.tree_leaves(params))
+    toks, labels = synth_lm_batch(np.random.default_rng(0), LM_TRAIN_BATCH, LM_TRAIN_SEQ,
+                                  cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    lr = train_lr(cfg)
+
+    def events():
+        return [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+
+    def grads_of(c, b, plain=False):
+        with torch.enable_grad():
+            return value_and_grad(lambda p, c_, b_: lm.loss_fn(p, c_, b_, plain=plain), params, c, b)[1]
+
+    # the library's first calls (kernel modules, cuBLAS handles) outside the
+    # count and the timings: one forward and backward at 16 tokens
+    grads_of(cfg, {k: v[:1, :16] for k, v in batch.items()})
+
+    # the counted main path: LM_TRAIN_STEPS make_train_step steps, the last
+    # one under torch.profiler for the card's busy time (the profiler
+    # launches nothing; its wall time is the host's, slowed by the profiler)
+    step = make_train_step(cfg, lr=lr)
+    opt = adamw_init(params)
+    sync()
+    reset_counts(counters)
+    losses, step_ms = [], []
+
+    def one_step():
+        nonlocal params, opt
+        s, t = events()[:2]
+        s.record()
+        params, opt, loss = step(params, opt, batch)
+        t.record()
+        t.synchronize()
+        step_ms.append(s.elapsed_time(t))
+        losses.append(float(loss))
+
+    for _ in range(LM_TRAIN_STEPS - 1):
+        one_step()
+    busy_ms, n_events = device_busy_ms(torch, one_step)
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    if not (np.isfinite(losses).all() and all(b < a for a, b in zip(losses, losses[1:]))):
+        fail(f"{cfg.name}: training losses on one batch do not fall step by step: {losses}")
+    # launches: forward + remat recompute a layer a step
+    kernel = "flash_sdpa" if cfg.arch_type == "dense" else "wkv6"
+    derived = cfg.num_layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS
+    if launches[kernel] != derived or sum(launches.values()) != derived:
+        fail(f"{cfg.name}: lm_train launches {launches}, derived {kernel} {derived}")
+
+    # one more step taken apart: forward, backward, update (CUDA events)
+    e = events()
+    with torch.enable_grad():
+        leaves = lm.tree_map(lambda t: t.detach().requires_grad_(True), params)
+        e[0].record()
+        loss = lm.loss_fn(leaves, cfg, batch)
+        e[1].record()
+        grads = grads_tree(params, torch.autograd.grad(loss, list(lm.tree_leaves(leaves))))
+        e[2].record()
+    del leaves, loss
+    new = adamw_update(grads, opt, params, lr)
+    e[3].record()
+    e[3].synchronize()
+    del new, grads, opt
+    parts = {"forward_ms": e[0].elapsed_time(e[1]), "backward_ms": e[1].elapsed_time(e[2]),
+             "update_ms": e[2].elapsed_time(e[3])}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+
+    # (b) the gradients through the kernels against plain=True, leaf by leaf,
+    # with the float32 plain gradient as the reference (LM_TRAIN_GRAD_NOISE),
+    # on the batch's first LM_GRAD_CHECK_SEQ tokens
+    cut = {k: v[:, :LM_GRAD_CHECK_SEQ] for k, v in batch.items()}
+    got, plain = flat_leaves(grads_of(cfg, cut)), flat_leaves(grads_of(cfg, cut, plain=True))
+    ref = flat_leaves(grads_of(dataclasses.replace(cfg, dtype="float32"), cut, plain=True))
+    leaves = {}
+    for name, g in got.items():
+        w, t = plain.pop(name), ref.pop(name)
+        n = float(t.norm())
+        r = {"kernels_vs_plain": float((g - w).norm()) / n, "kernels_vs_f32": float((g - t).norm()) / n,
+             "plain_vs_f32": float((w - t).norm()) / n}
+        r["bound_vs_f32"] = LM_TRAIN_GRAD_NOISE * r["plain_vs_f32"] + LM_F32_REL_TOL
+        r["bound_vs_plain"] = (LM_TRAIN_GRAD_NOISE + 1) * r["plain_vs_f32"] + LM_F32_REL_TOL
+        if not all(np.isfinite(list(r.values()))) or r["kernels_vs_f32"] > r["bound_vs_f32"]:
+            fail(f"{cfg.name}: gradient leaf {name}: kernels at relative L2 {r['kernels_vs_f32']} "
+                 f"from the float32 gradient, the plain version at {r['plain_vs_f32']} (bound "
+                 f"{r['bound_vs_f32']}); kernels vs plain {r['kernels_vs_plain']}")
+        leaves[name] = r
+    del got, plain, ref
+    worst = max(leaves, key=lambda k: leaves[k]["kernels_vs_plain"])
+
+    steady = step_ms[-2]  # the last step the profiler did not slow
+    report = {
+        "arch": cfg.name, "params": n_params, "layers": cfg.num_layers, "d_model": cfg.d_model,
+        "vocab": cfg.vocab_size, "dtype": cfg.dtype, "param_dtype": "float32", "remat": cfg.remat,
+        "batch": LM_TRAIN_BATCH, "seq": LM_TRAIN_SEQ, "lr": lr, "losses": losses,
+        "step_ms": step_ms, "tokens_per_s": LM_TRAIN_BATCH * LM_TRAIN_SEQ / (steady / 1e3),
+        "peak_memory_gib": peak_gib,
+        "step_parts_ms": parts,
+        "backward_share": parts["backward_ms"] / sum(parts.values()),
+        "device_busy_ms": busy_ms, "device_events": n_events,
+        "device_busy_share": busy_ms / steady if busy_ms is not None else None,
+        "profiled_step": LM_TRAIN_STEPS,
+        "grad_check_seq": LM_GRAD_CHECK_SEQ,
+        "grad_rel_l2": {"worst_kernels_vs_plain_leaf": worst, **leaves[worst],
+                        "max_kernels_vs_f32": max(r["kernels_vs_f32"] for r in leaves.values()),
+                        "max_plain_vs_f32": max(r["plain_vs_f32"] for r in leaves.values()),
+                        "leaves": leaves},
+        "launches": launches, "launches_derived": {kernel: derived}, "launches_split": split,
+    }
+    del params
+    return report, launches
+
+
+def grads_tree(params, grads):
+    """The flat gradients (``tree_leaves`` order) as a tree like ``params``."""
+    from repro_torch.models import lm
+
+    it = iter(grads)
+    order = {id(t): next(it) for t in lm.tree_leaves(params)}
+    return lm.tree_map(lambda t: order[id(t)], params)
+
+
+def lm_train_parity(torch, dev):
+    """Card against CPU on the reduced float32 configs: LM_TRAIN_PARITY_STEPS
+    steps from one start on the same batches, held with hold_training's
+    criterion (within 2 lr_sum, at most 1% of elements beyond 1e-5)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.train.adamw import adamw_init
+
+    out = {}
+    for i, arch in enumerate(LM_ARCHS):
+        cfg = lm.reduced(get_config(arch))
+        start = lm.init_params(cfg, torch.Generator().manual_seed(20 + i), device="cpu",
+                               dtype=torch.float32)
+        rng = np.random.default_rng(i)
+        batches = [synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, cfg.vocab_size)
+                   for _ in range(LM_TRAIN_PARITY_STEPS)]
+        got = {}
+        for d in (dev, torch.device("cpu")):
+            params = lm.tree_map(lambda t: t.to(d), start)
+            opt, step, losses = adamw_init(params), make_train_step(cfg, lr=LM_TRAIN_LR), []
+            for toks, labels in batches:
+                b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d)}
+                params, opt, loss = step(params, opt, b)
+                losses.append(float(loss))
+            got[d.type] = (flat_leaves(params), losses)
+        worst, share = hold_training(f"{cfg.name} lm_train card vs CPU", got["cuda"][0],
+                                     got["cpu"][0], LM_TRAIN_PARITY_STEPS * LM_TRAIN_LR)
+        out[cfg.name] = {"steps": LM_TRAIN_PARITY_STEPS, "seq": LM_TRAIN_PARITY_SEQ,
+                         "max_abs_diff": worst, "share_beyond_1e-5": share,
+                         "losses_card": got["cuda"][1], "losses_cpu": got["cpu"][1]}
+    return out
+
+
+def lm_train(torch, smi, dev):
+    """The lm_train phase: each family in turn (its model freed before the
+    next), counted; then card vs CPU on the reduced configs and the launcher
+    on the card, outside the count.  Returns the launches and their split."""
+    import dataclasses as dc
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import train as launcher
+
+    t_phase = time.perf_counter()
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    total = {c.__name__: 0 for c in counters}
+    split_total = {}
+    for i, (arch, cut) in enumerate(LM_TRAIN_MODELS):
+        cfg = dc.replace(get_config(arch), **cut)
+        t0 = time.perf_counter()
+        report, launches = lm_train_family(torch, dev, cfg, seed=30 + i, counters=counters)
+        report.update(cut=cut, seconds=time.perf_counter() - t0, card=smi)
+        emit("lm_train", report)
+        for k, n in launches.items():
+            total[k] += n
+        merge_split(split_total, report["launches_split"])
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parity = lm_train_parity(torch, dev)
+    _, losses = launcher.main(["--arch", "qwen2_7b", "--steps", "2", "--device", "cuda"])
+    emit("lm_train_checks", {"card_vs_cpu": parity, "launcher_losses": losses,
+                             "seconds": time.perf_counter() - t0,
+                             "phase_seconds": time.perf_counter() - t_phase, "card": smi})
+    return total, split_total
 
 
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
@@ -3312,15 +3843,16 @@ def main() -> None:
     fleet_launches, fleet_split = fleet(torch, smi, dev)
     mobility_launches, mobility_split = mobility(torch, smi, dev)
     lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
+    lm_train_launches, lm_train_split = lm_train(torch, smi, dev)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
              "repro": repro_launches, "video": video_launches, "fleet": fleet_launches,
-             "mobility": mobility_launches, "lm": lm_launches}
+             "mobility": mobility_launches, "lm": lm_launches, "lm_train": lm_train_launches}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
               "repro": repro_split, "video": video_split, "fleet": fleet_split,
-              "mobility": mobility_split, "lm": lm_split}
+              "mobility": mobility_split, "lm": lm_split, "lm_train": lm_train_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -3342,6 +3874,8 @@ def main() -> None:
             **({"launches_split": lm_split[name]}
                if name in lm_split and name not in HEAD_KERNELS + IOU_KERNELS else {}),
             **({"decode": r["decode"]} if "decode" in r else {}),
+            **({"train": r["train"], "lm_train_launches_split": lm_train_split.get(name)}
+               if "train" in r else {}),
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
             **({"sources_by_route": IOU_SOURCES,
@@ -3358,6 +3892,9 @@ def main() -> None:
     missing = [k for k in LM_PATH_KERNELS if paths["lm"][k] == 0]
     if missing:
         fail(f"kernels never launched on the LM path: {missing}")
+    missing = [k for k in LM_TRAIN_PATH_KERNELS if paths["lm_train"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the lm_train path: {missing}")
     missing = [k for k in TRAIN_PATH_KERNELS if paths["train"][k] == 0]
     if missing:
         fail(f"kernels never launched on the train path: {missing}")

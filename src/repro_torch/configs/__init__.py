@@ -2,11 +2,14 @@
 package's ten config files, re-pointed at the port's ``LMConfig``).
 
 ``get_config(name)`` returns the full-scale LMConfig; ``--arch <id>`` in the
-launchers resolves through here.  The sliding-window variant of the JAX
-package's registry comes with the ring cache (ROADMAP.md queue A item 9).
+launchers resolves through here.  ``long_context_variant`` swaps in the
+sliding-window attention config used for the long_500k shape (dense/MoE/VLM
+archs, whose decode then keeps a ring cache; SSM/hybrid run their native
+recurrent state).
 """
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from typing import Dict, List
 
@@ -45,3 +48,15 @@ def get_config(name: str) -> LMConfig:
     mod = importlib.import_module(f"repro_torch.configs.{mod_name}")
     return mod.CONFIG
 
+
+def long_context_variant(cfg: LMConfig, window: int = 8192) -> LMConfig:
+    """Sliding-window variant for long_500k decode on attention archs.
+    SSM/hybrid archs already decode in O(1) state; hybrid additionally
+    windows its shared attention block."""
+    if cfg.arch_type == "rwkv":
+        return cfg
+    return dataclasses.replace(cfg, window=window)
+
+
+def all_configs() -> Dict[str, LMConfig]:
+    return {a: get_config(a) for a in ARCH_IDS}

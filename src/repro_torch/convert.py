@@ -8,7 +8,7 @@ artifacts), so that either package reads what the other wrote.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -90,23 +90,26 @@ def cnn_params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[
 _F32_LEAVES = ("bonus",)
 
 
-def lm_params_from_jax(tree: Mapping[str, Any], cfg, device: DeviceLike = "cuda") -> Dict[str, Any]:
+def lm_params_from_jax(tree: Mapping[str, Any], cfg, device: DeviceLike = "cuda", *,
+                       dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """A ``repro.models.lm`` parameter pytree, as nested dicts of numpy
     arrays with the same key paths and stacked ``(L, ...)`` layers, to the
     port's tensors on ``device``.
 
-    Each leaf is stored in the type ``repro`` casts it to where it is used:
-    ``cfg.act_dtype`` for matmul weights, norms, embeddings and mix factors,
-    float32 for the RWKV6 ``bonus``.  That is the value of the reference's
-    cast at every use, made once here instead of on every call."""
+    By default each leaf is stored in the type ``repro`` casts it to where it
+    is used: ``cfg.act_dtype`` for matmul weights, norms, embeddings and mix
+    factors, float32 for the RWKV6 ``bonus``.  That is the value of the
+    reference's cast at every use, made once here instead of on every call.
+    ``dtype`` stores every leaf in that type instead: training keeps
+    ``torch.float32`` leaves, as ``repro`` does, and casts at each use."""
     check_arch(cfg)
     dev = resolve_device(device)
 
     def conv(name: str, v):
         if isinstance(v, Mapping):
             return {k: conv(k, x) for k, x in v.items()}
-        dtype = torch.float32 if name in _F32_LEAVES else cfg.act_dtype
+        dt = dtype or (torch.float32 if name in _F32_LEAVES else cfg.act_dtype)
         arr = np.array(v, np.float32)  # a writable float32 copy
-        return torch.from_numpy(arr).to(device=dev, dtype=dtype)
+        return torch.from_numpy(arr).to(device=dev, dtype=dt)
 
     return {k: conv(k, v) for k, v in tree.items()}

@@ -13,6 +13,13 @@ kernel: asking for either raises instead of falling back.
 ``resolve_device`` is the rule every entry point of the port follows: it
 runs on ``cuda`` unless the caller asks for the CPU, and asking for ``cuda``
 on a host without a GPU raises.
+
+Gradients: a kernel writes its output through ``ctypes`` into a fresh
+tensor, which autograd cannot see.  ``flash_sdpa`` and ``wkv6`` wrap their
+launch in a ``torch.autograd.Function`` whose backward differentiates the
+plain version (:func:`wants_grad` picks that route); the other kernels have
+no gradient, and :func:`refuse_grad` makes them raise on a CUDA input that
+needs one instead of returning a detached result.
 """
 from __future__ import annotations
 
@@ -37,6 +44,23 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return dev
+
+
+def wants_grad(*tensors: torch.Tensor) -> bool:
+    """Whether a call on ``tensors`` must be differentiable: grad mode is on
+    and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise if a kernel without a gradient is asked for one: a CUDA input
+    that requires grad, under grad mode.  (On the CPU the wrapper takes the
+    plain version, which autograd differentiates.)"""
+    if tensors[0].device.type == "cuda" and wants_grad(*tensors):
+        raise RuntimeError(
+            f"{kernel} has no gradient: its kernel's output is not differentiable; "
+            "call it under torch.no_grad() or on inputs that do not require grad"
+        )
 
 
 def resolve_path(x: torch.Tensor, path: Optional[str] = None) -> str:

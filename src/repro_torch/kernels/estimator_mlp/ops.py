@@ -25,7 +25,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.dispatch import refuse_grad, resolve_path
 from repro_torch.kernels.estimator_mlp.ref import estimator_mlp_ref
 
 __all__ = ["MlpPlan", "PLANS", "estimator_mlp", "check_mlp_params", "check_aligned",
@@ -316,6 +316,7 @@ def estimator_mlp(
         raise ValueError(f"x must be (B, {F}), got {tuple(x.shape)}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise TypeError(f"x must be contiguous float32, got {x.dtype}")
+    refuse_grad("estimator_mlp", x, w1, b1, w2, b2)
     B = x.shape[0]
     if B == 0:  # a zero-sized grid is refused by CUDA
         return torch.zeros((0,), dtype=torch.float32, device=x.device)

@@ -17,7 +17,14 @@ never by catching a failure:
               float32 products on the CUDA cores.
 
 Every kernel reads GQA K/V in the model's (B, T, K, D) layout: no repeat, no
-transpose, no padding of S or T.  ``flash_sdpa.launches`` counts kernel
+transpose, no padding of S or T.
+
+Under grad mode, when q, k or v requires grad, the call goes through a
+``torch.autograd.Function`` (on either device): its forward is the same
+launch (or, on the CPU, the plain version), it saves only its inputs, and
+its backward recomputes ``flash_sdpa_ref`` and differentiates that.  The
+TPU kernel has no backward kernel either: ``repro`` differentiates its jnp
+attention.  ``flash_sdpa.launches`` counts kernel
 launches, ``flash_sdpa.launches_by_route`` the same by route and
 ``flash_sdpa.launches_by_shape`` by shape (``"prefill"``: S > 1,
 ``"decode"``: S = 1).
@@ -32,7 +39,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.dispatch import resolve_path, wants_grad
 from repro_torch.kernels.flash_sdpa.ref import flash_sdpa_ref
 
 __all__ = ["flash_sdpa", "flash_route", "decode_plan", "DecodePlan"]
@@ -164,6 +171,38 @@ def _launch(route: str, q, k, v, out, causal: bool, window: int, q_offset: int) 
     flash_sdpa.launches += len(kernels)
 
 
+def _forward(q, k, v, causal: bool, window: int, q_offset: int) -> torch.Tensor:
+    """The plain version on the CPU, one of the kernels on the card."""
+    if resolve_path(q) == "reference":
+        return flash_sdpa_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    B, S, H, D = q.shape
+    T, K = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if out.numel() == 0 or T == 0:
+        return out.zero_()
+    _launch(flash_route(q.dtype, S, D, H // K), q, k, v, out, causal, window, q_offset)
+    return out
+
+
+class _FlashSdpaGrad(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return _forward(q, k, v, causal, window, q_offset)
+
+    @staticmethod
+    def backward(ctx, grad):
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            out = flash_sdpa_ref(*xs, *ctx.mask)
+            got = iter(torch.autograd.grad(out, [x for x in xs if x.requires_grad], grad))
+        return (*(next(got) if x.requires_grad else None for x in xs), None, None, None)
+
+
 def flash_sdpa(
     q: torch.Tensor,  # (B, S, H, D)
     k: torch.Tensor,  # (B, T, K, D), H % K == 0
@@ -175,17 +214,11 @@ def flash_sdpa(
     """Masked softmax attention -> (B, S, H, D) in q's dtype.  Query ``i``
     sits at position ``q_offset + i``; ``causal`` hides later keys and
     ``window > 0`` keys at or before ``position - window``.  A row that sees
-    no key gives 0."""
+    no key gives 0, and a gradient of 0."""
     _check(q, k, v, window, q_offset)
-    B, S, H, D = q.shape
-    T, K = k.shape[1], k.shape[2]
-    if resolve_path(q) == "reference":
-        return flash_sdpa_ref(q, k, v, causal=causal, window=window, q_offset=q_offset)
-    out = torch.empty_like(q)
-    if out.numel() == 0 or T == 0:
-        return out.zero_()
-    _launch(flash_route(q.dtype, S, D, H // K), q, k, v, out, causal, window, q_offset)
-    return out
+    if wants_grad(q, k, v):
+        return _FlashSdpaGrad.apply(q, k, v, causal, window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
 
 
 flash_sdpa.launches = 0

@@ -32,7 +32,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.dispatch import refuse_grad, resolve_path
 from repro_torch.kernels.iou_matrix.ref import (
     greedy_match_ref,
     iou_matrix_batch_ref,
@@ -268,6 +268,7 @@ def iou_matrix_batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Per-image pairwise IoU, image i matched only against its own row:
     ``out[i] = iou(a[i], b[i])`` with shape (B, K, M)."""
     _check_pair(a, b, 3)
+    refuse_grad("iou_matrix_batch", a, b)
     if resolve_path(a) == "reference":
         return iou_matrix_batch_ref(a, b)
     if a.numel() == 0 or b.numel() == 0:
@@ -278,6 +279,7 @@ def iou_matrix_batch(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def iou_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise IoU ``(N, 4) x (M, 4) -> (N, M)``."""
     _check_pair(a, b, 2)
+    refuse_grad("iou_matrix", a, b)
     if resolve_path(a) == "reference":
         return iou_matrix_ref(a, b)
     if a.numel() == 0 or b.numel() == 0:

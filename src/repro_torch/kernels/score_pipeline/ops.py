@@ -24,7 +24,7 @@ import torch
 from repro_torch.core.features import feature_dim
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.dispatch import refuse_grad, resolve_path
 from repro_torch.kernels.estimator_mlp.ops import (
     PLANS, MlpPlan, check_aligned, check_mlp_params, check_plan, device_clusters, keep_plan,
     mlp_plan, shard_plan,
@@ -151,6 +151,8 @@ def score_pipeline(
             raise ValueError(f"{name} must be float32 ({F},) on {boxes.device}")
     if plan is not None:
         check_plan(plan, F, H, x_cols=(F + 3) & ~3, **pipeline_scratch(K, int(top_k), F))
+    refuse_grad("score_pipeline", boxes, scores,
+                *(p[k] for k in ("w1", "b1", "w2", "b2", "mu", "sigma")))
     if B == 0:  # a zero-sized grid is refused by CUDA
         return torch.zeros((0,), dtype=torch.float32, device=boxes.device)
     if resolve_path(boxes) == "reference":

@@ -7,6 +7,14 @@ may be float32 or bfloat16 and w float32 or bfloat16 (the RWKV6 layer passes
 its bfloat16 projections and its float32 decay as they are); u and s0 are
 taken as float32.  Launches are counted in ``wkv6.launches``, and by shape
 (``"prefill"``: T > 1, ``"decode"``: T = 1) in ``wkv6.launches_by_shape``.
+
+Under grad mode, when an input requires grad, the call goes through a
+``torch.autograd.Function`` (on either device): its forward is the same
+launch (or, on the CPU, the plain version), it saves only its inputs, and
+its backward recomputes ``wkv6_ref`` and differentiates that, for the
+gradients of ``out`` and of ``sT`` that are given.  The TPU kernel has no
+backward kernel either: ``repro`` differentiates its ``lax.scan``
+recurrence.  The plain backward is a Python loop over T.
 """
 from __future__ import annotations
 
@@ -16,7 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path
+from repro_torch.kernels.dispatch import resolve_path, wants_grad
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 __all__ = ["wkv6"]
@@ -49,17 +57,8 @@ def _check(r, k, v, w, u, s0) -> None:
         raise ValueError("r, k, v, w must be contiguous")
 
 
-def wkv6(
-    r: torch.Tensor,  # (B, T, H, K)
-    k: torch.Tensor,
-    v: torch.Tensor,  # (B, T, H, V)
-    w: torch.Tensor,  # (B, T, H, K) decay in (0, 1)
-    u: torch.Tensor,  # (H, K) per-head bonus
-    s0: torch.Tensor,  # (B, H, K, V) incoming state
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The RWKV6 recurrence; returns (out (B, T, H, V), sT (B, H, K, V)),
-    both float32."""
-    _check(r, k, v, w, u, s0)
+def _forward(r, k, v, w, u, s0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version on the CPU, the kernel on the card."""
     B, T, H, K = r.shape
     V = v.shape[3]
     if resolve_path(r) == "reference":
@@ -79,6 +78,46 @@ def wkv6(
     wkv6.launches += 1
     wkv6.launches_by_shape["prefill" if T > 1 else "decode"] += 1
     return out, sT
+
+
+class _Wkv6Grad(torch.autograd.Function):
+    """The kernel's forward with the plain version's gradient."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.save_for_backward(r, k, v, w, u, s0)
+        ctx.set_materialize_grads(False)  # an unused sT gives None, not zeros
+        return _forward(r, k, v, w, u, s0)
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        given = [(i, g) for i, g in enumerate((g_out, g_state)) if g is not None]
+        if not given:
+            return (None,) * 6
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            outs = wkv6_ref(*xs)
+            got = iter(torch.autograd.grad([outs[i] for i, _ in given],
+                                           [x for x in xs if x.requires_grad],
+                                           [g for _, g in given], allow_unused=True))
+        return tuple(next(got) if x.requires_grad else None for x in xs)
+
+
+def wkv6(
+    r: torch.Tensor,  # (B, T, H, K)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, T, H, V)
+    w: torch.Tensor,  # (B, T, H, K) decay in (0, 1)
+    u: torch.Tensor,  # (H, K) per-head bonus
+    s0: torch.Tensor,  # (B, H, K, V) incoming state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The RWKV6 recurrence; returns (out (B, T, H, V), sT (B, H, K, V)),
+    both float32."""
+    _check(r, k, v, w, u, s0)
+    if wants_grad(r, k, v, w, u, s0):
+        return _Wkv6Grad.apply(r, k, v, w, u, s0)
+    return _forward(r, k, v, w, u, s0)
 
 
 wkv6.launches = 0

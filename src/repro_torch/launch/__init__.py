@@ -1,1 +1,2 @@
-"""Launchers (``python -m repro_torch.launch.serve``)."""
+"""Launchers (``python -m repro_torch.launch.serve``, ``python -m
+repro_torch.launch.train``) and the step builders they use (``steps``)."""

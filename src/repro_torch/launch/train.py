@@ -1,0 +1,82 @@
+"""Training launcher (``repro.launch.train``), local mode: trains the reduced
+variant of ``--arch`` on synthetic tokens with ``launch.steps``'
+``make_train_step``.
+
+  python -m repro_torch.launch.train --arch yi_6b --steps 30
+  python -m repro_torch.launch.train --arch rwkv6_1b6 --steps 4 --device cpu
+
+Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are float32,
+as ``repro``'s are; ``--ckpt`` writes them in ``repro``'s ``save_pytree``
+format.  ``--dryrun`` (the production-mesh lowering) comes with the rest of
+``launch/`` (ROADMAP.md queue A item 9g).
+"""
+from __future__ import annotations
+
+import argparse
+import time
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.data.lm_synth import synth_lm_batch
+from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch.steps import make_train_step
+from repro_torch.models.lm import init_params, reduced
+from repro_torch.train.adamw import adamw_init
+from repro_torch.train.checkpoint import save_pytree
+
+# the batch fields repro's launcher adds for these families, and the ROADMAP
+# item that brings each family
+_LATER_FIELDS = {
+    "vlm": ("vision_embeds / positions_3d", "9d"),
+    "encdec": ("audio_frames", "9f"),
+}
+
+
+def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
+    """The trained parameters and the losses of the steps."""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--steps", type=int, default=30)
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dryrun", action="store_true")
+    args = ap.parse_args(argv)
+    if args.dryrun:
+        raise NotImplementedError("--dryrun (the production-mesh lowering) comes with the rest "
+                                  "of launch/ (ROADMAP.md queue A item 9g)")
+
+    dev = resolve_device(args.device)
+    cfg = reduced(get_config(args.arch))
+    if cfg.arch_type in _LATER_FIELDS:
+        fields, item = _LATER_FIELDS[cfg.arch_type]
+        raise NotImplementedError(f"the {fields} batch fields ({cfg.arch_type}) come with the "
+                                  f"port's LM stack (ROADMAP.md queue A item {item})")
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                         dtype=torch.float32)
+    opt = adamw_init(params)
+    step = make_train_step(cfg, lr=args.lr)
+    rng = np.random.default_rng(0)
+    losses: List[float] = []
+    t0 = time.time()
+    for it in range(args.steps):
+        toks, labels = synth_lm_batch(rng, args.batch, args.seq, cfg.vocab_size)
+        batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        params, opt, loss = step(params, opt, batch)
+        losses.append(float(loss))
+        if it % 10 == 0 or it == args.steps - 1:
+            print(f"[{cfg.name}] step {it} loss {losses[-1]:.4f} "
+                  f"({(it + 1) / (time.time() - t0):.2f} it/s)")
+    if args.ckpt:
+        save_pytree(args.ckpt, params)
+        print("saved", args.ckpt)
+    return params, losses
+
+
+if __name__ == "__main__":
+    main()

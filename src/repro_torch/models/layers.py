@@ -1,26 +1,32 @@
-"""Transformer and RWKV6 layers for the LM serve path (the dense and RWKV
-families of ``repro.models.layers``).
+"""Transformer and RWKV6 layers for the LM (the dense and RWKV families of
+``repro.models.layers``).
 
 Everything is functional, as in the JAX package: parameters are nested dicts
 of tensors under ``repro``'s keys, and ``*_apply(params, x, ...)`` computes in
-the activation type of ``x``, casting each weight to it where it is used
-(a no-op for weights that ``convert.lm_params_from_jax`` or
-``lm.init_params`` already store in that type).
+the activation type of ``x``, casting each weight to it where it is used (a
+no-op for weights stored in that type; training keeps float32 leaves and
+differentiates through the casts, as ``repro`` does).
 
 Attention runs on the ``flash_sdpa`` kernel and the RWKV6 time-mix on the
-``wkv6`` kernel.  ``attention_apply`` and ``rwkv6_time_mix`` take ``plain``:
-``True`` calls the kernel's plain PyTorch version instead, whatever the
-device, so that a forward on the card can be held against the same forward
-without the kernels.  (The wrappers themselves only take the plain version
-for CPU tensors.)
+``wkv6`` kernel; under grad mode both differentiate their plain versions
+(see the kernels' ``ops.py``).  ``attention_apply`` and ``rwkv6_time_mix``
+take ``plain``: ``True`` calls the kernel's plain PyTorch version instead,
+whatever the device, so that a forward on the card can be held against the
+same forward without the kernels.  (The wrappers themselves only take the
+plain version for CPU tensors.)
 
-The JAX package's sharding hints (``constrain``, ``seq_shard``), query
-chunking (``attn_chunk``) and remat/chunked scans (``jax.checkpoint``,
-``chunked_scan``) bound memory or place data on a TPU mesh without changing
-any value of the forward; the flash kernel never forms the (S, T) logits, so
-they have no counterpart here.  MoE, MLA, Mamba2, M-RoPE, the int8 KV cache
-and the sliding-window ring cache come with ROADMAP queue A item 9 and raise
-until then.
+The decode cache may be a ring (``window > 0``: slot ``pos % C``) and may
+hold int8 keys and values with per-(slot, head) scales (``cache_scales``,
+:func:`kv_quantize`), as in the JAX package.
+
+The JAX package's sharding hints (``constrain``, ``seq_shard``) and query
+chunking (``attn_chunk``) bound memory or place data on a TPU mesh without
+changing any value of the forward; the flash kernel never forms the (S, T)
+logits, so they have no counterpart here.  Its remat (``jax.checkpoint``
+around a layer) is ``torch.utils.checkpoint`` in ``models.lm.forward``, and
+``chunked_scan``'s chunk checkpoints have no counterpart: the ``wkv6``
+Function saves only its inputs.  MoE, MLA, Mamba2 and M-RoPE come with
+ROADMAP queue A item 9 and raise until then.
 """
 from __future__ import annotations
 
@@ -207,6 +213,24 @@ def attention_apply(
     return out
 
 
+def kv_quantize(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(slot, head) symmetric int8 quantisation, k ~ q * s: k (..., K, D)
+    -> (q int8 (..., K, D), s float32 (..., K)).  Both divisions are by
+    tensors: CUDA turns a Python divisor into a multiply by its reciprocal,
+    which can move ``round`` across .5; this way the card's values and scales
+    equal the CPU's (and the JAX package's) bit for bit.  ``torch.round``
+    rounds half to even, as ``jnp.round`` does."""
+    kf = k.float()
+    amax = kf.abs().amax(dim=-1)
+    s = amax.clamp_min(1e-8) / torch.tensor(127.0, device=k.device)
+    q = torch.round(kf / s[..., None]).clamp(-127, 127)
+    return q.to(torch.int8), s
+
+
+def kv_dequantize(q: torch.Tensor, s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return (q.float() * s[..., None].float()).to(dtype)
+
+
 def attention_decode(
     params: PyTree,
     cfg: AttnConfig,
@@ -214,24 +238,49 @@ def attention_decode(
     cache_k: torch.Tensor,  # (B, C, K, D), C = cache capacity
     cache_v: torch.Tensor,
     pos: int,  # global position of this token
+    cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B, C, K) each
 ):
     """One-token decode against a KV cache.  This token's k/v are written
-    into slot ``pos`` of ``cache_k``/``cache_v`` IN PLACE (the JAX package's
+    into slot ``pos`` (``pos % C`` for a ring, ``cfg.window > 0``) of
+    ``cache_k``/``cache_v`` IN PLACE (the JAX package's
     ``dynamic_update_slice`` returns new arrays; here the preallocated cache
     is updated), then the kernel attends over slots 0..pos through its
-    causal mask at ``q_offset = pos``.  Returns (out, cache_k, cache_v)."""
-    if cfg.window > 0:
-        raise _not_ported("the sliding-window ring cache")
+    causal mask at ``q_offset = pos``.
+
+    A ring holds every slot up to ``min(pos, C - 1)`` valid, as the JAX
+    package does, and keys carry their positions from RoPE at write time: the
+    kernel attends at ``q_offset = min(pos, C - 1)`` with no window.  Softmax
+    does not depend on the slots' order, so only the summation order differs
+    from the tokens' order.
+
+    ``cache_scales`` = (k_s, v_s) makes the cache int8 with per-(slot, head)
+    scales: this token's k/v are quantized into it, and the whole cache is
+    dequantized to ``x``'s type before attention, as in the JAX package.
+    Returns (out, cache_k, cache_v), and the scales when given."""
     B = x.shape[0]
     C = cache_k.shape[1]
-    if not 0 <= pos < C:
+    ring = cfg.window > 0
+    if pos < 0 or (not ring and pos >= C):
         raise ValueError(f"position {pos} outside the cache's {C} slots")
+    slot = pos % C if ring else pos
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions)
-    cache_k[:, pos] = k[:, 0]
-    cache_v[:, pos] = v[:, 0]
-    out = _sdpa(q, cache_k, cache_v, window=0, q_offset=pos)
-    return out @ params["wo"].to(x.dtype), cache_k, cache_v
+    if cache_scales is not None:
+        k_s, v_s = cache_scales
+        (k_q, k_sc), (v_q, v_sc) = kv_quantize(k[:, 0]), kv_quantize(v[:, 0])
+        cache_k[:, slot], k_s[:, slot] = k_q, k_sc
+        cache_v[:, slot], v_s[:, slot] = v_q, v_sc
+        k_full = kv_dequantize(cache_k, k_s, x.dtype)
+        v_full = kv_dequantize(cache_v, v_s, x.dtype)
+    else:
+        cache_k[:, slot] = k[:, 0]
+        cache_v[:, slot] = v[:, 0]
+        k_full, v_full = cache_k, cache_v
+    out = _sdpa(q, k_full, v_full, window=0, q_offset=min(pos, C - 1) if ring else pos)
+    out = out @ params["wo"].to(x.dtype)
+    if cache_scales is not None:
+        return out, cache_k, cache_v, (k_s, v_s)
+    return out, cache_k, cache_v
 
 
 # ---------------------------------------------------------------------------

@@ -14,12 +14,19 @@ is a view and never a copy of the weights.
 API (all functional, as in ``repro``):
   init_params(cfg, generator, device)  seeded params on ``device``
   forward(params, cfg, batch)          (logits (B, S, V), aux)
+  loss_fn(params, cfg, batch)          mean token cross-entropy (+ aux)
   init_cache(cfg, B, capacity, device) decode cache
   prefill(params, cfg, batch, capacity) -> (last_logits, cache)
   decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
 
-``plain=True`` on ``forward`` runs the kernels' plain PyTorch versions
-instead of the kernels (see ``models.layers``).
+``forward`` and ``loss_fn`` are differentiable: training holds float32
+parameters (``init_params(..., dtype=torch.float32)``) and differentiates
+through the casts to ``cfg.act_dtype``; with ``cfg.remat`` each layer is
+recomputed in the backward pass.  The decode cache may be a ring
+(``cfg.window > 0``, capacity below the prompt) and may be int8
+(``cfg.kv_quant``).  ``plain=True`` on ``forward`` / ``loss_fn`` runs the
+kernels' plain PyTorch versions instead of the kernels (see
+``models.layers``).
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
@@ -38,6 +46,7 @@ from repro_torch.models.layers import (
     attention_decode,
     attention_init,
     dense_init,
+    kv_quantize,
     layernorm,
     layernorm_init,
     rmsnorm,
@@ -59,10 +68,6 @@ def check_arch(cfg: "LMConfig") -> None:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) comes with the port's LM "
             f"stack (ROADMAP.md queue A item 9); ported: {PORTED_ARCHS}"
-        )
-    if cfg.kv_quant:
-        raise NotImplementedError(
-            "the int8 KV cache comes with the port's LM stack (ROADMAP.md queue A item 9)"
         )
 
 
@@ -108,7 +113,8 @@ class LMConfig:
     mrope_sections: Optional[Tuple[int, int, int]] = None
     vision_tokens: int = 0
     use_rope: bool = True
-    # numerics / execution (remat, scan_chunk, attn_chunk, attn_seq_shard and
+    # numerics / execution (remat: each layer recomputed in the backward pass,
+    # torch.utils.checkpoint; scan_chunk, attn_chunk, attn_seq_shard and
     # layer_unroll steer the JAX package's compilation and sharding only)
     dtype: str = "bfloat16"
     remat: bool = True
@@ -183,16 +189,18 @@ def reduced(cfg: LMConfig, **overrides) -> LMConfig:
 # init
 # ===========================================================================
 
-def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = "cuda") -> PyTree:
+def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = "cuda", *,
+                dtype: Optional[torch.dtype] = None) -> PyTree:
     """Seeded parameters with the shapes and scales of ``repro``'s
     ``init_params``, drawn on ``device`` from ``generator`` (which must live
-    there) and stored in the type each is used in: ``cfg.act_dtype``, and
-    float32 for the RWKV6 ``bonus``.  The numbers differ from ``repro``'s
-    (another generator); tests carry weights across with
+    there) and stored in ``dtype``: by default the type each is used in,
+    ``cfg.act_dtype`` (float32 for the RWKV6 ``bonus``); training passes
+    ``torch.float32``, the type of ``repro``'s leaves.  The numbers differ
+    from ``repro``'s (another generator); tests carry weights across with
     ``convert.lm_params_from_jax``."""
     check_arch(cfg)
     dev = resolve_device(device)
-    dt, L, M = cfg.act_dtype, cfg.num_layers, cfg.d_model
+    dt, L, M = dtype or cfg.act_dtype, cfg.num_layers, cfg.d_model
     p: PyTree = {
         "embed": dense_init(generator, (cfg.vocab_size, M), dt, scale=0.02, device=dev),
         "final_norm": (layernorm_init(M, dt, device=dev) if cfg.arch_type == "rwkv"
@@ -273,21 +281,53 @@ def _layers(params, cfg: LMConfig):
     return (layer_params(params["layers"], i) for i in range(n))
 
 
-@torch.no_grad()
+def _remat(body, on: bool):
+    """``body`` recomputed in the backward pass when ``on`` (the JAX
+    package's ``jax.checkpoint`` around a layer, ``_maybe_remat``): only the
+    layer's input is kept.  ``wkv6``'s Function saves only its own inputs,
+    which is what ``chunked_scan``'s chunk checkpoints bound in the JAX
+    package, so no ``scan_chunk`` code is needed."""
+    if not on:
+        return body
+    return lambda *args: checkpoint(body, *args, use_reentrant=False)
+
+
 def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, V), aux = 0)."""
+    """Full-sequence forward.  Returns (logits (B, S, V), aux = 0).
+    Differentiable; with ``cfg.remat``, each layer is checkpointed when a
+    parameter requires grad under grad mode (serving builds no graph)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
+    remat = cfg.remat and torch.is_grad_enabled() and any(
+        t.requires_grad for t in tree_leaves(params))
     if cfg.arch_type == "dense":
         positions = _positions(B, S, h.device)
-        for lp in _layers(params, cfg):
-            h, _ = _dense_block(lp, cfg, h, positions, plain)
+        body = _remat(lambda hh, lp: _dense_block(lp, cfg, hh, positions, plain)[0], remat)
     else:
-        for lp in _layers(params, cfg):
-            h, _, _, _ = _rwkv_block(lp, cfg, h, None, None, None, plain)
+        body = _remat(lambda hh, lp: _rwkv_block(lp, cfg, hh, None, None, None, plain)[0], remat)
+    for lp in _layers(params, cfg):
+        h = body(h, lp)
     return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+
+
+def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) -> torch.Tensor:
+    """Mean cross-entropy over the tokens whose label is >= 0, plus aux (0 for
+    the dense and RWKV families).  The logits go to float32 first; the gold
+    logit is a gather (``repro`` sums an iota mask over a vocab-sharded axis,
+    which adds exact zeros to the same logit)."""
+    logits, aux = forward(params, cfg, batch, plain=plain)
+    labels = batch["labels"]
+    if not isinstance(labels, torch.Tensor):
+        labels = torch.from_numpy(np.asarray(labels))
+    labels = labels.to(device=logits.device, dtype=torch.int64)
+    valid = labels >= 0
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    nll = (lse - gold) * valid
+    return nll.sum() / valid.sum().clamp_min(1) + aux
 
 
 # ===========================================================================
@@ -296,13 +336,20 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "cuda") -> PyTree:
     """Zeroed decode cache: ``k``/``v`` (L, B, C, K, D) in the activation type
-    for dense stacks; for RWKV the float32 wkv ``state`` (L, B, H, hd, hd)
-    and the last token of each mix, ``tm_x``/``cm_x`` (L, B, M)."""
+    for dense stacks (``capacity`` C is the window for a ring cache); with
+    ``cfg.kv_quant`` ``k``/``v`` int8 and their scales ``k_s``/``v_s`` float32
+    (L, B, C, K).  For RWKV the float32 wkv ``state`` (L, B, H, hd, hd) and
+    the last token of each mix, ``tm_x``/``cm_x`` (L, B, M)."""
     check_arch(cfg)
     dev = resolve_device(device)
     L, B, C, dt = cfg.num_layers, batch, capacity, cfg.act_dtype
     if cfg.arch_type == "dense":
         shape = (L, B, C, cfg.num_kv_heads, cfg.head_dim)
+        if cfg.kv_quant:
+            return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "v": torch.zeros(shape, dtype=torch.int8, device=dev),
+                    "k_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev),
+                    "v_s": torch.zeros(shape[:-1], dtype=torch.float32, device=dev)}
         return {"k": torch.zeros(shape, dtype=dt, device=dev),
                 "v": torch.zeros(shape, dtype=dt, device=dev)}
     H, hd, M = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size, cfg.d_model
@@ -328,8 +375,9 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int
     if cfg.arch_type == "dense":
         acfg = cfg.attn()
         for i, lp in enumerate(_layers(params, cfg)):
-            a, _, _ = attention_decode(lp["attn"], acfg, rmsnorm(lp["norm1"], h),
-                                       cache["k"][i], cache["v"][i], pos)
+            scales = (cache["k_s"][i], cache["v_s"][i]) if cfg.kv_quant else None
+            a = attention_decode(lp["attn"], acfg, rmsnorm(lp["norm1"], h),
+                                 cache["k"][i], cache["v"][i], pos, scales)[0]
             h = h + a
             h = h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
     else:
@@ -342,28 +390,41 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int
     return _logits(params, cfg, h)[:, 0, :], cache
 
 
+def _fill_slots(arr: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """(B, S, ...) sequence -> the (B, C, ...) cache slots ``out``.  When
+    S > C (a ring cache) the last C tokens land at their ring slots pos % C."""
+    S, C = arr.shape[1], out.shape[1]
+    if S > C:
+        slots = torch.arange(S - C, S, device=arr.device) % C
+        out[:, slots] = arr[:, S - C:]
+    else:
+        out[:, :S] = arr
+    return out
+
+
 @torch.no_grad()
 def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] = None
             ) -> Tuple[torch.Tensor, PyTree]:
     """Parallel prefill: the full forward, filling a decode cache of
-    ``capacity`` slots (default S) in the same pass.  Returns (last-token
-    logits (B, V), cache ready for ``decode_step`` at position S)."""
+    ``capacity`` slots (default S) in the same pass; a capacity below S
+    keeps the last ``capacity`` tokens at their ring slots (a window model's
+    ring cache).  Returns (last-token logits (B, V), cache ready for
+    ``decode_step`` at position S)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
     C = capacity or S
-    if C < S:
-        raise NotImplementedError(
-            "a cache smaller than the prompt needs the sliding-window ring cache "
-            "(ROADMAP.md queue A item 9)"
-        )
     cache = init_cache(cfg, B, C, device=h.device)
     if cfg.arch_type == "dense":
         positions = _positions(B, S, h.device)
         for i, lp in enumerate(_layers(params, cfg)):
             h, (k, v) = _dense_block(lp, cfg, h, positions, return_kv=True)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
+            if cfg.kv_quant:
+                (k, k_s), (v, v_s) = kv_quantize(k), kv_quantize(v)
+                _fill_slots(k_s, cache["k_s"][i])
+                _fill_slots(v_s, cache["v_s"][i])
+            _fill_slots(k, cache["k"][i])
+            _fill_slots(v, cache["v"][i])
     else:
         for i, lp in enumerate(_layers(params, cfg)):
             h, st, xt, xc = _rwkv_block(lp, cfg, h, None, None, None)
@@ -382,6 +443,7 @@ __all__ = [
     "tree_leaves",
     "tree_map",
     "forward",
+    "loss_fn",
     "init_cache",
     "decode_step",
     "prefill",

@@ -3,6 +3,7 @@ arrays, made from a seed, for ``repro`` (JAX) and ``repro_torch``."""
 import numpy as np
 
 import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
+import jax
 from repro.detection.map_engine import Detections as JDetections
 from repro_torch.detection.map_engine import Detections as TDetections
 
@@ -189,4 +190,14 @@ def port_state(jstate):
         strong_map=jstate.strong_map,
         features_val=np.array(jstate.features_val),
         image_size=jstate.image_size,
+    )
+
+
+def perturbed(tree, seed, scale=0.02):
+    """A numpy copy of a JAX pytree with N(0, scale) added to every leaf, so
+    that biases, norm scales and the RWKV6 bonus are not trivially 0 or 1."""
+    rng = np.random.default_rng(seed)
+    return jax.tree.map(
+        lambda a: (np.asarray(a, np.float32) + rng.normal(0, scale, a.shape)).astype(np.float32),
+        tree,
     )

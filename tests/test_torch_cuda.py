@@ -591,6 +591,162 @@ def test_lm_decode_matches_forward_on_card(dev, arch):
     torch.testing.assert_close(dl, full[:, -1], atol=5e-4, rtol=0)
 
 
+# ------------------------------------------------------------------ gradients and caches (LM)
+
+
+def _grads(fn, ins, upstream):
+    ins = [t.detach().requires_grad_() for t in ins]
+    outs = fn(*ins)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    got = torch.autograd.grad(outs[:len(upstream)], ins, upstream, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g for x, g in zip(ins, got)]
+
+
+@pytest.mark.parametrize("route,dtype,B,S,H,K,D", [
+    ("wgmma", torch.bfloat16, 2, 512, 28, 4, 128),  # qwen2-7b's training shape, GQA 7
+    ("simt", torch.float32, 2, 128, 4, 2, 32),
+])
+@pytest.mark.parametrize("window", [0, 32])
+def test_flash_sdpa_function_gradients_match_plain_on_card(dev, route, dtype, B, S, H, K, D, window):
+    """The Function's forward launches the route, its backward differentiates
+    the plain version on the saved inputs: the gradients are plain autograd's
+    (held at 1e-6 of the largest |g|)."""
+    rng = np.random.default_rng(S + D + window)
+    q, k, v = _flash_inputs(rng, B, S, S, H, K, D, dev, dtype)
+    g = torch.tensor(rng.normal(0, 1, (B, S, H, D)).astype(np.float32), device=dev).to(dtype)
+    got = _route_launches(route, lambda: _grads(lambda *a: flash_sdpa(*a, window=window),
+                                                (q, k, v), (g,)))
+    want = _grads(lambda *a: flash_sdpa_ref(*a, window=window), (q, k, v), (g,))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6 * float(b.float().abs().max()),
+                                   rtol=0)
+
+
+@pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("upstream", ["out", "both"])
+def test_wkv6_function_gradients_match_plain_on_card(dev, xdt, upstream):
+    rng = np.random.default_rng(5)
+    B, T, H, K = 2, 40, 3, 64
+
+    def arr(shape, scale=1.0):
+        return torch.tensor(rng.normal(0, scale, shape).astype(np.float32), device=dev)
+
+    w = torch.tensor(rng.uniform(0.5, 0.99, (B, T, H, K)).astype(np.float32), device=dev)
+    ins = (arr((B, T, H, K)).to(xdt), arr((B, T, H, K)).to(xdt), arr((B, T, H, K)).to(xdt), w,
+           arr((H, K), 0.2), arr((B, H, K, K), 0.1))
+    up = (arr((B, T, H, K)), arr((B, H, K, K)))[:1 if upstream == "out" else 2]
+    before = wkv6.launches
+    got = _grads(wkv6, ins, up)
+    assert wkv6.launches == before + 1
+    for a, b in zip(got, _grads(wkv6_ref, ins, up)):
+        assert a.dtype == b.dtype and torch.isfinite(a.float()).all()
+        torch.testing.assert_close(a.float(), b.float(), atol=1e-6 * float(b.float().abs().max()),
+                                   rtol=0)
+
+
+def test_kernels_without_gradient_raise_on_card(dev):
+    """estimator_mlp, score_pipeline and iou_matrix(_batch) give no gradient:
+    a CUDA input that requires grad raises under grad mode, and runs under
+    torch.no_grad()."""
+    rng = np.random.default_rng(6)
+    w1, b1, w2, b2 = mlp(rng, F, 32, dev)
+    x = torch.tensor(rng.normal(0, 1, (4, F)).astype(np.float32), device=dev)
+    a = torch.tensor(boxes(rng, (2, 8)), device=dev)
+    det = DetectionsBatch(boxes=a, scores=torch.rand((2, 8), device=dev),
+                          classes=torch.zeros((2, 8), dtype=torch.int32, device=dev),
+                          mask=torch.ones((2, 8), dtype=torch.bool, device=dev))
+    params = {"w1": w1, "b1": b1, "w2": w2, "b2": b2, "mu": torch.zeros(F, device=dev),
+              "sigma": torch.ones(F, device=dev)}
+    calls = {
+        "estimator_mlp": lambda: estimator_mlp(x.detach().requires_grad_(), w1, b1, w2, b2),
+        "score_pipeline": lambda: score_pipeline(det, dict(params, b1=b1.detach().requires_grad_()),
+                                                 num_classes=NUM_CLASSES, top_k=TOP_K),
+        "iou_matrix": lambda: iou_matrix(a[0].detach().requires_grad_(), a[1]),
+        "iou_matrix_batch": lambda: iou_matrix_batch(a, a.detach().requires_grad_()),
+    }
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no gradient"):
+            call()
+        with torch.no_grad():
+            assert not call().requires_grad
+
+
+def test_kv_quantize_on_card_bit_equal_to_cpu(dev):
+    from repro_torch.models.layers import kv_quantize
+
+    rng = np.random.default_rng(7)
+    k = rng.normal(0, 2, (8, 64, 4, 128)).astype(np.float32)
+    k[0, 0] = 0.0
+    k[1, 1, 0] = np.tile(np.array([127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5], np.float32), 16)
+    for dt in (torch.float32, torch.bfloat16):
+        kt = torch.from_numpy(k).to(dt)
+        (gq, gs), (wq, ws) = kv_quantize(kt.to(dev)), kv_quantize(kt)
+        assert torch.equal(gq.cpu(), wq) and torch.equal(gs.cpu(), ws)
+
+
+@pytest.mark.parametrize("window,kv_quant", [(8, False), (0, True), (8, True)])
+def test_ring_and_int8_decode_on_card_match_cpu(dev, no_tf32, window, kv_quant):
+    """A reduced float32 qwen2-7b: prefill of 12 tokens (into a ring of 8
+    slots for window 8), then decode past the boundary, on the card against
+    the CPU (2e-4 / 5e-4, the CPU tests' tolerances against repro)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = dataclasses.replace(lm.reduced(get_config("qwen2_7b")), window=window, kv_quant=kv_quant)
+    params = lm.init_params(cfg, torch.Generator().manual_seed(1), device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 12)))
+    C = window or 16
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        p = lm.tree_map(lambda t: t.to(d), params)
+        last, cache = lm.prefill(p, cfg, {"tokens": toks.to(d)}, capacity=C)
+        out, nxt = [last], last.argmax(-1)
+        for pos in range(12, 15):
+            logits, cache = lm.decode_step(p, cfg, cache, nxt.to(d), pos)
+            out.append(logits)
+            nxt = logits.argmax(-1)
+        runs[d.type] = out
+    for i, (a, b) in enumerate(zip(runs["cuda"], runs["cpu"])):
+        torch.testing.assert_close(a.cpu(), b, atol=2e-4 if i == 0 else 5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
+    """make_train_step on a reduced float32 model, card against CPU from one
+    start: losses at 1e-4 relative, parameters within 2 lr_sum, at most 1%
+    of elements beyond 1e-5 (tests/test_torch_train.py's criterion)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.train.adamw import adamw_init
+
+    cfg, steps, lr = lm.reduced(get_config(arch)), 3, 1e-3
+    start = lm.init_params(cfg, torch.Generator().manual_seed(2), device="cpu", dtype=torch.float32)
+    rng = np.random.default_rng(2)
+    batches = [synth_lm_batch(rng, 2, 32, cfg.vocab_size) for _ in range(steps)]
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        params = lm.tree_map(lambda t: t.to(d), start)
+        opt, step, losses = adamw_init(params), make_train_step(cfg, lr=lr), []
+        for toks, labels in batches:
+            b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d)}
+            params, opt, loss = step(params, opt, b)
+            losses.append(float(loss))
+        runs[d.type] = (list(lm.tree_leaves(params)), losses)
+    np.testing.assert_allclose(runs["cuda"][1], runs["cpu"][1], rtol=1e-4)
+    far = total = 0
+    for a, b in zip(*(runs[k][0] for k in ("cuda", "cpu"))):
+        d = (a.cpu() - b).abs()
+        assert float(d.max()) <= 2 * steps * lr
+        far += int((d > 1e-5).sum())
+        total += d.numel()
+    assert far <= 0.01 * total, (far, total)
+
+
 @pytest.fixture
 def no_tf32():
     """Full float32 convolutions and products, as chip_smoke.py sets them."""

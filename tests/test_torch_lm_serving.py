@@ -150,8 +150,8 @@ def test_cascade_views_and_ratio(fitted, tmp_path):
 
 
 def test_unported_entry_points_raise(fitted):
-    """The streaming entry points take the families the port runs; MoE (and
-    the int8 KV cache) come with ROADMAP queue A item 9 and raise naming it."""
+    """The streaming entry points take the families the port runs; MoE comes
+    with ROADMAP queue A item 9 and raises naming it."""
     _, _, tcascade, tparams, tcfg = fitted
     moe = tlm.reduced(get_config("deepseek_moe_16b"), num_layers=2)
     moe_cascade = LMCascade(cfg=moe, exit_layer=1, engine=tcascade.engine)
