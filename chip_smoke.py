@@ -5,9 +5,10 @@ the streaming runtime over the trained engine (also behind netsim uplinks),
 the paper's experiments (``run_all``), the temporal layer (video streams
 through the tracker, closed-loop adaptation), the city-scale fleet (the
 sharded plane, 1024 streams in four districts) and client mobility (moving
-clients, handover), the LM early-exit cascade (qwen2-7b and rwkv6-1.6b
-at full width, in batches and as streams, with the ring and int8 decode
-caches), and LM training (both families at full width).
+clients, handover), the LM early-exit cascade (qwen2-7b, rwkv6-1.6b,
+deepseek-moe-16b and deepseek-v2-lite-16b at full width, in batches and as
+streams, with the ring and int8 decode caches), and LM training (three
+families at full width).
 
     python3 chip_smoke.py
 
@@ -51,8 +52,9 @@ first use.  Phases, each printing one line of its own:
                the training shapes (B 2 x S 512), and checks that
                estimator_mlp, score_pipeline and iou_matrix(_batch) raise on
                a CUDA input that requires grad.  Fails if
-               flash_sdpa's qwen2-7b prefill / decode shapes miss the
-               ``wgmma`` / ``decode`` routes.
+               flash_sdpa's qwen2-7b (G = 7) or deepseek-moe-16b (G = 1)
+               prefill / decode shapes miss the ``wgmma`` / ``decode``
+               routes; both G = 1 shapes are held and timed too.
 4. ``serve``   the serve path with every launch count set to 0 first:
                1024 seeded shapes images; the WEAK detector + NMS and the
                reward model calibrate on the first 512; an engine artifact
@@ -205,7 +207,9 @@ first use.  Phases, each printing one line of its own:
                the handovers, ``tests/test_mobility.py``'s headline asserts
                (reported), frames/s and the host ms a frame.
 11. ``lm``      the LM early-exit cascade, once per family at full width
-               (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6), every
+               (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6;
+               deepseek-moe-16b: MoE, flash_sdpa at G = 1;
+               deepseek-v2-lite-16b: MoE under MLA, no LM kernel), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
                8 x 512 calibration batch through the weak stack, the
@@ -224,7 +228,20 @@ first use.  Phases, each printing one line of its own:
                estimates against ``mlp_apply`` (1e-5), decode
                against the forward, the weak logits against the plain
                versions (bf16 as served, and float32), and the decisions
-               against the CPU engine on the same features; for qwen2-7b
+               against the CPU engine on the same features.  For the MoE
+               families first an ``lm_routing`` line: each MoE layer's
+               dropped share at capacity_factor 1.25 in a full-depth
+               prefill (the grouped path) and a decode step (B 8, the flat
+               path, capacity 1), and MLA's latent cache bytes against the
+               expanded K / V's; decode / prefill against the forward run
+               on a drop-free copy (capacity_factor E / K), the float32
+               kernels-vs-plain check on the weak stack's first two layers,
+               and each held run replays the routing of the run it is held
+               against (``RoutingLog``: a bf16 rounding can flip a token's
+               expert set, after which the two runs compute different
+               functions by the reference's own rule; the flips of free
+               runs are counted and printed).  For
+               qwen2-7b and deepseek-moe-16b
                the two caches at full width and depth: the 8 x 512 batch
                prefilled into the 256-slot ring of
                ``long_context_variant(cfg, 256)`` (last logits against
@@ -240,7 +257,8 @@ first use.  Phases, each printing one line of its own:
                steps the ``decode`` route, or RWKV's prefill or decode
                missed ``wkv6``.
 12. ``lm_train`` LM training, once per family at full width (rwkv6-1.6b
-               whole; qwen2-7b with 2 of its 28 layers), bf16 compute over
+               whole; qwen2-7b with 2 of its 28 layers; deepseek-v2-lite-16b
+               with 2 of its 27, one dense and one MoE), bf16 compute over
                float32 parameters, remat on: every launch count set to 0
                first, 3 ``make_train_step`` steps at B 2 x S 512 on one
                ``synth_lm_batch`` batch at lr 0.01 / the largest fan-in
@@ -252,7 +270,7 @@ first use.  Phases, each printing one line of its own:
                ``plain=True`` leaf by leaf on the first 128 tokens (relative
                L2; the kernels no farther than twice the plain bf16
                gradient from the float32 plain gradient, + 1e-3); 3 steps on
-               the reduced float32 configs (lr 3e-4) on the card against the
+               the four reduced float32 configs (lr 3e-4) on the card against the
                CPU (within 2 lr_sum, at most 1% of elements beyond 1e-5);
                ``python -m repro_torch.launch.train`` for 2 steps on the
                card.  Prints step ms, tokens/s, peak memory, the busy and
@@ -2780,7 +2798,7 @@ def mobility(torch, smi, dev):
     return launches, split
 
 
-LM_ARCHS = ("qwen2_7b", "rwkv6_1b6")
+LM_ARCHS = ("qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b")
 LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
 LM_HIDDEN, LM_TOP_K = 64, 8
 LM_REBUDGET = {16: 0.5}  # the LM stream's re-budget: request -> ratio
@@ -2799,16 +2817,104 @@ LM_F32_REL_TOL = 1e-3
 BF16_P_ATOL = 2 ** -8
 
 
-def hold_rel(name, got, want, tol):
-    """max |got - want| / max |want| <= tol; returns the relative and the
-    absolute difference and the share of rows whose argmax agrees."""
+def rel_diff(got, want):
+    """max |got - want| / max |want|, the absolute difference and the share
+    of rows whose argmax agrees."""
     got, want = got.float(), want.float()
     err = float((got - want).abs().max())
     rel = err / max(float(want.abs().max()), 1e-30)
-    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
-    if not np.isfinite(rel) or rel > tol:
-        fail(f"{name}: max |diff| {err} is {rel:.4g} of the largest logit (tolerance {tol})")
-    return {"rel": rel, "abs": err, "argmax_agree": agree}
+    return {"rel": rel, "abs": err, "argmax_agree": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+
+
+def hold_rel(name, got, want, tol):
+    """rel_diff, failing past ``tol`` (only measured when ``tol`` is None)."""
+    out = rel_diff(got, want)
+    if tol is not None and not (np.isfinite(out["rel"]) and out["rel"] <= tol):
+        fail(f"{name}: max |diff| {out['abs']} is {out['rel']:.4g} of the largest logit "
+             f"(tolerance {tol})")
+    return out
+
+
+# the keys of the kernels line that carry the times at the LM path's other shapes
+EXTRA_SHAPES = {"decode": "decode", "prefill G=1": "prefill_G1", "decode G=1": "decode_G1"}
+
+
+class RoutingLog:
+    """The MoE routing of every ``moe_routing`` call while the log is active
+    (it wraps ``repro_torch.models.layers.moe_routing``; checks only, never
+    on a counted or timed run: each call copies its routing to the host).
+    ``calls`` holds each call's expert ids and kept mask, token-major (T, K).
+
+    With ``replay`` (one (T, K) array of expert ids a call, from another
+    run), each call routes its tokens to those experts instead of its top K:
+    its own probabilities give the gate, and the positions and the keep mask
+    follow (``layers.moe_assign``).  Two forwards of one batch then route
+    alike and differ only in their arithmetic.  In bf16 a rounding that
+    falls differently moves a near-tied router logit and flips a token's
+    expert set; from there the two forwards compute different functions, by
+    the reference's own rule.  So the logit holds of the MoE families replay
+    the first run's routing in the second, and the flips of the free runs
+    are counted and printed."""
+
+    def __init__(self, replay=None):
+        self.calls, self.replay = [], replay
+
+    def __enter__(self):
+        from repro_torch.models import layers
+
+        self._layers, self._routing = layers, layers.moe_routing
+
+        def route(params, cfg, tok, G):
+            r = self._routing(params, cfg, tok, G)
+            if self.replay is not None:
+                ids = r.expert_ids.new_tensor(self.replay[len(self.calls)]).reshape(r.expert_ids.shape)
+                r = layers.moe_assign(r.probs, ids, r.capacity, r.gate.dtype)
+            K = r.expert_ids.shape[-1]
+            self.calls.append((r.expert_ids.reshape(-1, K).cpu().numpy(),
+                               r.keep.reshape(-1, K).cpu().numpy()))
+            return r
+
+        layers.moe_routing = route
+        return self
+
+    def __exit__(self, *exc):
+        self._layers.moe_routing = self._routing
+
+    @classmethod
+    def along(cls, B, *parts):
+        """One log over the tokens of ``parts`` ((log, its S) each), joined
+        along the sequence call by call: the routing of a prefill and a
+        decode step, as a forward over their tokens would replay it."""
+        out = cls()
+        for calls in zip(*(log.calls for log, _ in parts)):
+            ids, keep = (np.concatenate([c[i].reshape(B, S, -1) for c, (_, S) in zip(calls, parts)], 1)
+                         for i in (0, 1))
+            out.calls.append((ids.reshape(-1, ids.shape[-1]), keep.reshape(-1, keep.shape[-1])))
+        return out
+
+    def replay_ids(self):
+        """Each call's expert ids, token-major: a ``replay`` of this run."""
+        return [ids for ids, _ in self.calls]
+
+    def flipped(self, other, B, S):
+        """(B, S) bool: the tokens whose expert set or kept set differs from
+        ``other``'s in some call (None without a MoE call)."""
+        if not self.calls:
+            return None
+
+        def sets(log):
+            return np.stack([np.concatenate([np.sort(ids, -1), np.sort(np.where(keep, ids, -1), -1)], -1)
+                             .reshape(B, S, -1) for ids, keep in log.calls])
+
+        return (sets(self) != sets(other)).any(axis=(0, 3))
+
+    def dropped_share(self):
+        """Each call's share of dropped assignments."""
+        return [float(1.0 - keep.mean()) for _, keep in self.calls]
+
+
+def flip_count(flipped):
+    return None if flipped is None else {"tokens_flipped": int(flipped.sum()), "tokens": int(flipped.size)}
 
 
 def check_lm_kernels(torch, timer, dev):
@@ -2867,6 +2973,21 @@ def check_lm_kernels(torch, timer, dev):
     taken = {r: flash_sdpa.launches_by_route[r] - n for r, n in routes.items()}
     if taken != {"wgmma": 1, "decode": 1, "decode_combine": 1, "simt": 0}:
         fail(f"flash_sdpa at qwen2-7b's prefill and decode shapes took the routes {taken}")
+    # deepseek-moe-16b's attention is MHA: G = 1 (16 query heads over 16 KV
+    # heads), D 128, bf16; the same routes and bounds
+    H1 = K1 = 16
+    q1, k1, v1 = normal((B, S, H1, D), bf), normal((B, S, K1, D), bf), normal((B, S, K1, D), bf)
+    hold("flash_sdpa", f"prefill B={B} S=T={S} H={H1} K={K1} D={D} bf16 (G=1)",
+         flash_sdpa(q1, k1, v1), flash_sdpa_ref(q1, k1, v1),
+         BF16_P_ATOL * float(v1.float().abs().max()), 2 ** -7)
+    qd1, kd1, vd1 = normal((B, 1, H1, D), bf), normal((B, C, K1, D), bf), normal((B, C, K1, D), bf)
+    hold("flash_sdpa", f"decode B={B} S=1 T={C} H={H1} K={K1} q_offset={S} bf16 (G=1)",
+         flash_sdpa(qd1, kd1, vd1, q_offset=S), flash_sdpa_ref(qd1, kd1, vd1, q_offset=S), 1e-6,
+         2 ** -7)
+    taken = {r: flash_sdpa.launches_by_route[r] - n for r, n in routes.items()}
+    if taken != {"wgmma": 2, "decode": 2, "decode_combine": 2, "simt": 0}:
+        fail(f"flash_sdpa at deepseek-moe-16b's prefill and decode shapes (G = 1) took the routes "
+             f"{taken} (with qwen2-7b's)")
 
     # wkv6: tests/test_kernels.py's cases (1e-5 in float32, 5e-2 in bf16, as
     # there), then rwkv6-1.6b's prefill and decode shapes with the layer's
@@ -2922,6 +3043,25 @@ def check_lm_kernels(torch, timer, dev):
         bytes=2 * (2 * B * H * D + 2 * B * dec_keys * K * D), ops=4 * D * B * H * dec_keys,
         peak_ops=PEAK_BF16_OPS_PER_S,
     )}
+    pairs1 = B * H1 * S * (S + 1) // 2
+    extra["flash_sdpa (prefill G=1)"] = dict(
+        shape=f"B={B} S=T={S} H={H1} K={K1} D={D} bf16 causal (deepseek-moe-16b prefill)",
+        ms=timer(lambda: flash_sdpa(q1, k1, v1)),
+        plain_ms=timer(lambda: flash_sdpa_ref(q1, k1, v1), reps=5, windows=11),
+        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+            q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2), is_causal=True)),
+        bytes=2 * (2 * B * S * H1 * D + 2 * B * S * K1 * D), ops=4 * D * pairs1,
+        peak_ops=PEAK_BF16_OPS_PER_S,
+    )
+    extra["flash_sdpa (decode G=1)"] = dict(
+        shape=f"B={B} S=1 T={C} H={H1} K={K1} q_offset={S} bf16 (deepseek-moe-16b decode step)",
+        ms=timer(lambda: flash_sdpa(qd1, kd1, vd1, q_offset=S)),
+        plain_ms=timer(lambda: flash_sdpa_ref(qd1, kd1, vd1, q_offset=S)),
+        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+            qd1.transpose(1, 2), kd1[:, :dec_keys].transpose(1, 2), vd1[:, :dec_keys].transpose(1, 2))),
+        bytes=2 * (2 * B * H1 * D + 2 * B * dec_keys * K1 * D), ops=4 * D * B * H1 * dec_keys,
+        peak_ops=PEAK_BF16_OPS_PER_S,
+    )
     B, T, H, K, V = LM_BATCH, LM_SEQ, 32, 64, 64
     args = wkv_inputs(B, T, H, K, V, bf, torch.float32)
     n = B * T * H
@@ -2956,8 +3096,9 @@ def check_lm_kernels(torch, timer, dev):
     emit("check_lm", {"cases": len(cases), "max_abs_err": err, "times": times,
                       "grads": grads, "train_times": train_times, "no_grad_kernels_raise": refused,
                       "detail": cases})
-    for name, r in extra.items():  # the decode step's numbers ride on the kernel's record
-        records[name.split()[0]]["decode"] = {
+    for name, r in extra.items():  # the other shapes' numbers ride on the kernel's record
+        kernel, sub = name.split(" ", 1)  # "decode", "prefill G=1", "decode G=1"
+        records[kernel][EXTRA_SHAPES[sub[1:-1]]] = {
             kk: r[kk] for kk in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
     for name, r in train_times.items():  # ... and the training shapes' forward and backward
         records[name]["train"] = r
@@ -3233,15 +3374,19 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     sync()
     launches = {c.__name__: c.launches for c in counters}
     split = split_counts(counters)
-    if cfg.arch_type == "dense":
+    if cfg.arch_type == "rwkv":
+        shapes = split["wkv6"]["by_shape"]
+        if shapes["prefill"] == 0 or shapes["decode"] == 0:
+            fail(f"{cfg.name}: wkv6 launches by shape on the LM path: {shapes}")
+    elif cfg.use_mla:
+        # MLA's q/k width (192) is not flash_sdpa's: it attends in plain PyTorch
+        if launches["flash_sdpa"] or launches["wkv6"]:
+            fail(f"{cfg.name}: an LM kernel launched on the MLA path: {launches}")
+    else:
         # bf16 prefill must take the tensor-core route, decode steps split-K
         routes = split["flash_sdpa"]["by_route"]
         if routes["wgmma"] == 0 or routes["decode"] == 0 or routes["simt"] != 0:
             fail(f"{cfg.name}: flash_sdpa's routes on the LM path: {routes}")
-    else:
-        shapes = split["wkv6"]["by_shape"]
-        if shapes["prefill"] == 0 or shapes["decode"] == 0:
-            fail(f"{cfg.name}: wkv6 launches by shape on the LM path: {shapes}")
     # -- the stream, counted on its own: the served batches through one
     # session (serve_stream), again with a re-budget, then cascade_generate
     # on the first batch
@@ -3294,30 +3439,41 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
 
     b0 = served[0]
     checks = {}
-    # decode at position S against the forward on S + 1 tokens (full depth)
-    last, cache = lm.prefill(params, cfg, {"tokens": b0["tokens"]}, capacity=LM_SEQ + 1)
-    nxt = last.argmax(-1)
-    dl, _ = lm.decode_step(params, cfg, cache, nxt, LM_SEQ)
-    del cache
-    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([b0["tokens"], nxt[:, None]], 1)})
-    checks["decode_vs_forward"] = hold_rel(f"{cfg.name} decode vs forward", dl, full[:, -1],
-                                           LM_BF16_REL_TOL)
-    checks["prefill_vs_forward"] = hold_rel(f"{cfg.name} prefill vs forward", last, full[:, -2],
-                                            LM_BF16_REL_TOL)
-    del full
+    moe = cfg.arch_type == "moe"
+    if moe:
+        # seeded MoE weights amplify bf16 roundings with depth even where two
+        # runs route alike (this phase on an H100, deepseek-moe-16b: decode
+        # vs forward 0.014 of the largest logit at 2 layers, 0.138 at 28;
+        # float32 within 1e-5; qwen2-7b 0.017 at 28), so the bf16 holds run
+        # on the first LM_MOE_HELD_LAYERS layers (one dense, one MoE),
+        # float32 holds there too, and the full depth is measured
+        checks["moe"] = moe_routing_checks(torch, lm, params, cfg, b0["tokens"])
+        checks["moe"]["full_depth_bf16"] = decode_vs_forward(
+            torch, lm, params, moe_drop_free(cfg), b0["tokens"], None)
+        hparams = truncate_params(params, cfg, LM_MOE_HELD_LAYERS)
+        hcfg = truncated_config(cfg, LM_MOE_HELD_LAYERS)
+        checks.update(decode_vs_forward(torch, lm, hparams, moe_drop_free(hcfg), b0["tokens"],
+                                        LM_BF16_REL_TOL))
+        checks["decode_vs_forward_f32"] = decode_vs_forward(
+            torch, lm, lm.tree_map(lambda t: t.float(), hparams),
+            dataclasses.replace(moe_drop_free(hcfg), dtype="float32"), b0["tokens"], LM_F32_REL_TOL)
+        checks["held_layers"] = LM_MOE_HELD_LAYERS
+    else:
+        checks.update(decode_vs_forward(torch, lm, params, cfg, b0["tokens"], LM_BF16_REL_TOL))
     # the served batch 0's weak logits: kernels against the plain versions,
     # in bf16 as served, and in float32 (the weak stack's weights widened),
-    # where only the kernels' float32 summation order differs
-    wk, _ = lm.forward(wparams, wcfg, b0)
-    wp, _ = lm.forward(wparams, wcfg, b0, plain=True)
-    checks["weak_logits_kernels_vs_plain"] = hold_rel(
-        f"{cfg.name} weak logits, kernels vs plain", wk, wp, LM_BF16_REL_TOL)
-    del wp
-    w32 = lm.tree_map(lambda t: t.float(), wparams)
-    c32 = dataclasses.replace(wcfg, dtype="float32")
-    checks["weak_logits_kernels_vs_plain_f32"] = hold_rel(
-        f"{cfg.name} float32 weak logits, kernels vs plain", lm.forward(w32, c32, b0)[0],
-        lm.forward(w32, c32, b0, plain=True)[0], LM_F32_REL_TOL)
+    # where only the kernels' float32 summation order differs.  A MoE family
+    # measures the weak stack and holds its first LM_MOE_HELD_LAYERS layers
+    # (14 float32 layers would not fit beside the bf16 model either)
+    wk, checks["weak_logits_kernels_vs_plain"] = kernels_vs_plain(
+        lm, wparams, wcfg, b0, None if moe else LM_BF16_REL_TOL)
+    if moe:
+        checks["kernels_vs_plain_held"] = kernels_vs_plain(lm, hparams, hcfg, b0, LM_BF16_REL_TOL)[1]
+    f32_layers = LM_MOE_HELD_LAYERS if moe else exit_layer
+    w32 = lm.tree_map(lambda t: t.float(), truncate_params(params, cfg, f32_layers))
+    c32 = dataclasses.replace(truncated_config(cfg, f32_layers), dtype="float32")
+    checks["weak_logits_kernels_vs_plain_f32"] = kernels_vs_plain(lm, w32, c32, b0, LM_F32_REL_TOL)[1]
+    checks["weak_logits_kernels_vs_plain_f32"]["layers"] = f32_layers
     del w32
     # decisions on the card against the CPU engine on the same features
     feats = cascade.engine.features((wk, b0["labels"]))
@@ -3360,6 +3516,8 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
 
     if cfg.arch_type == "dense":
         checks["caches"] = lm_cache_checks(torch, dev, params, cfg, b0["tokens"])
+    elif not (cfg.arch_type == "rwkv" or cfg.use_mla):
+        checks["caches"] = lm_cache_checks(torch, dev, hparams, moe_drop_free(hcfg), b0["tokens"])
 
     gen_total_ms = sum(sum(d.values()) for d in gen_ms.values())
     report = {
@@ -3398,6 +3556,110 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     return report, launches
 
 
+def moe_drop_free(cfg):
+    """``cfg`` with capacity_factor E / K: every expert has room for every
+    token of a dispatch group, int(T K / E * E / K) + 1 >= T, so nothing
+    drops."""
+    return dataclasses.replace(cfg, capacity_factor=cfg.num_experts / cfg.top_k)
+
+
+def moe_routing_checks(torch, lm, params, cfg, tokens):
+    """The MoE family's routing at its own capacity_factor, outside the
+    count: each MoE layer's dropped share in a full-depth prefill of the
+    8 x 512 batch (the grouped path) and in the decode step after it (B 8,
+    the flat path, capacity 1); for MLA the latent cache's bytes against
+    the expanded K / V's at B 8, C 528."""
+    with RoutingLog() as at_prefill:
+        last, cache = lm.prefill(params, cfg, {"tokens": tokens}, capacity=LM_SEQ + 1)
+    with RoutingLog() as at_decode:
+        lm.decode_step(params, cfg, cache, last.argmax(-1), LM_SEQ)
+    from repro_torch.models.layers import moe_grouped
+
+    mc, T = cfg.moe(), tokens.numel()
+    groups = mc.groups if moe_grouped(mc, T) else 1
+    out = {
+        "capacity_factor": mc.capacity_factor,
+        "prefill": {"tokens": T, "groups": groups,
+                    "capacity": int((T // groups * mc.top_k / mc.num_experts) * mc.capacity_factor) + 1,
+                    "dropped_share_by_layer": at_prefill.dropped_share()},
+        "decode": {"tokens": LM_BATCH, "groups": 1,
+                   "capacity": int((LM_BATCH * mc.top_k / mc.num_experts) * mc.capacity_factor) + 1,
+                   "dropped_share_by_layer": at_decode.dropped_share()},
+    }
+    for part in ("prefill", "decode"):
+        shares = out[part]["dropped_share_by_layer"]
+        out[part]["dropped_share_mean"] = sum(shares) / len(shares)
+    if cfg.use_mla:
+        C = LM_SEQ + LM_TOKENS
+        latent = lm.init_cache(cfg, LM_BATCH, C, device=tokens.device)
+        out["mla_cache_bytes"] = {
+            "batch": LM_BATCH, "slots": C,
+            "latent": sum(t.numel() * t.element_size() for t in latent.values()),
+            "expanded_kv": 2 * cfg.num_layers * LM_BATCH * C * cfg.num_heads * cfg.head_dim
+            * torch.finfo(cfg.act_dtype).bits // 8}
+        del latent
+    emit("lm_routing", {"arch": cfg.name, **out})
+    return out
+
+
+LM_MOE_HELD_LAYERS = 2  # the MoE families' bf16 and float32 holds: one dense layer, one MoE
+
+
+def decode_vs_forward(torch, lm, params, cfg, tokens, tol):
+    """Decode at position S and the prefill's last logits against a forward
+    over the S + 1 tokens that replays their routing (RoutingLog), held at
+    ``tol`` (measured only when None); with MoE layers (on a drop-free
+    ``cfg``: the three runs route different token counts), also the flips
+    of a free forward and its distance to the decode step."""
+    B, S = tokens.shape
+    with RoutingLog() as at_prefill:
+        last, cache = lm.prefill(params, cfg, {"tokens": tokens}, capacity=S + 1)
+    nxt = last.argmax(-1)
+    with RoutingLog() as at_decode:
+        dl, _ = lm.decode_step(params, cfg, cache, nxt, S)
+    del cache
+    extended = {"tokens": torch.cat([tokens, nxt[:, None]], 1)}
+    both = RoutingLog.along(B, (at_prefill, S), (at_decode, 1))
+    with RoutingLog(replay=both.replay_ids()) as at_forward:
+        full, _ = lm.forward(params, cfg, extended)
+    if any(share for log in (at_prefill, at_decode, at_forward) for share in log.dropped_share()):
+        fail(f"{cfg.name}: the drop-free copy dropped assignments")
+    out = {"decode_vs_forward": hold_rel(f"{cfg.name} decode vs forward", dl, full[:, -1], tol),
+           "prefill_vs_forward": hold_rel(f"{cfg.name} prefill vs forward", last, full[:, -2], tol)}
+    del full
+    if both.calls:
+        with RoutingLog() as free:
+            full, _ = lm.forward(params, cfg, extended)
+        out.update(layers=cfg.num_layers, dtype=cfg.dtype, capacity_factor=cfg.capacity_factor,
+                   flips_vs_free_forward=flip_count(both.flipped(free, B, S + 1)),
+                   free_forward_decode_rel=rel_diff(dl, full[:, -1])["rel"])
+    return out
+
+
+def kernels_vs_plain(lm, params, cfg, batch, tol):
+    """The forward through the kernels against ``plain=True`` replaying its
+    routing, held at ``tol`` (measured only when None); with MoE layers also
+    the tokens a free plain forward routes otherwise, by layer, and its
+    distance.  Returns (the kernels' logits, the report)."""
+    with RoutingLog() as kernels:
+        wk, _ = lm.forward(params, cfg, batch)
+    with RoutingLog(replay=kernels.replay_ids()):
+        wp, _ = lm.forward(params, cfg, batch, plain=True)
+    out = hold_rel(f"{cfg.name} logits ({cfg.num_layers} layers, {cfg.dtype}), kernels vs plain",
+                   wk, wp, tol)
+    del wp
+    if kernels.calls:
+        B, S = wk.shape[:2]
+        with RoutingLog() as free:
+            wp, _ = lm.forward(params, cfg, batch, plain=True)
+        out.update(layers=cfg.num_layers, free_plain_rel=rel_diff(wk, wp)["rel"],
+                   flips_vs_free_plain={**flip_count(kernels.flipped(free, B, S)), "by_layer": [
+                       int((np.sort(a, -1) != np.sort(b, -1)).any(-1).sum())
+                       for a, b in zip(kernels.replay_ids(), free.replay_ids())]})
+        del wp
+    return wk, out
+
+
 LM_RING_WINDOW, LM_CACHE_STEPS = 256, 16  # the ring's slots; decode steps on each cache
 
 
@@ -3412,7 +3674,9 @@ def lm_cache_checks(torch, dev, params, cfg, tokens):
     extended tokens, at the phase's bf16 tolerance; the int8 prefill logits
     bit-equal to the plain cache's, its first decode step within 5% of the
     largest logit (tests/test_perf_variants.py), and its bytes below the
-    plain cache's.  Returns the holds and the ms a decode step of each."""
+    plain cache's.  A MoE family comes on its drop-free copy, and each
+    held run replays the routing of the run it is held against
+    (RoutingLog).  Returns the holds and the ms a decode step of each."""
     from repro_torch.configs import long_context_variant
     from repro_torch.kernels.flash_sdpa import flash_sdpa
     from repro_torch.models import lm
@@ -3420,35 +3684,46 @@ def lm_cache_checks(torch, dev, params, cfg, tokens):
     sync = _sync(torch, dev)
     out = {}
 
-    def decode_run(c, cache, nxt, start, feed=None):
+    B, S = tokens.shape
+
+    def decode_run(c, cache, nxt, start, feed=None, replay=None):
         """LM_CACHE_STEPS decode steps from ``start``, each fed the greedy
         token of the step before (of ``feed``'s step, when given): (every
-        step's logits, ms a step over all but the first)."""
-        logits = []
+        step's logits, ms a step over all but the first, the first step's
+        routing, replaying ``replay`` when given)."""
+        logits, first = [], RoutingLog(replay=replay)
         for i in range(LM_CACHE_STEPS):
             if i == 1:
                 sync()
                 t0 = time.perf_counter()
-            lg, cache = lm.decode_step(params, c, cache, nxt, start + i)
+            if i == 0:
+                with first:
+                    lg, cache = lm.decode_step(params, c, cache, nxt, start + i)
+            else:
+                lg, cache = lm.decode_step(params, c, cache, nxt, start + i)
             logits.append(lg)
             nxt = (lg if feed is None else feed[i]).argmax(-1)
         sync()
-        return logits, (time.perf_counter() - t0) * 1e3 / (LM_CACHE_STEPS - 1)
+        return logits, (time.perf_counter() - t0) * 1e3 / (LM_CACHE_STEPS - 1), first
 
     rcfg = long_context_variant(cfg, window=LM_RING_WINDOW)
-    last, cache = lm.prefill(params, rcfg, {"tokens": tokens}, capacity=LM_RING_WINDOW)
-    full, _ = lm.forward(params, rcfg, {"tokens": tokens})
-    out["ring_prefill_vs_forward"] = hold_rel(f"{cfg.name} ring prefill vs forward (window "
-                                              f"{LM_RING_WINDOW})", last, full[:, -1], LM_BF16_REL_TOL)
+    with RoutingLog() as at_prefill:
+        last, cache = lm.prefill(params, rcfg, {"tokens": tokens}, capacity=LM_RING_WINDOW)
+    with RoutingLog(replay=at_prefill.replay_ids()):
+        full, _ = lm.forward(params, rcfg, {"tokens": tokens})
+    out["ring_prefill_vs_forward"] = hold_rel(
+        f"{cfg.name} ring prefill vs forward (window {LM_RING_WINDOW})", last, full[:, -1],
+        LM_BF16_REL_TOL)
     del full
     nxt = last.argmax(-1)
     routes = dict(flash_sdpa.launches_by_route)
-    ring_logits, out["ring_decode_ms_per_step"] = decode_run(rcfg, cache, nxt, tokens.shape[1])
+    ring_logits, out["ring_decode_ms_per_step"], first = decode_run(rcfg, cache, nxt, S)
     if flash_sdpa.launches_by_route["decode"] - routes["decode"] != LM_CACHE_STEPS * cfg.num_layers:
         fail(f"{cfg.name}: the ring decode did not take flash_sdpa's decode route every step")
-    ext, _ = lm.forward(params, rcfg, {"tokens": torch.cat([tokens, nxt[:, None]], 1)})
+    with RoutingLog(replay=RoutingLog.along(B, (at_prefill, S), (first, 1)).replay_ids()):
+        ext, _ = lm.forward(params, rcfg, {"tokens": torch.cat([tokens, nxt[:, None]], 1)})
     out["ring_first_step_vs_forward"] = hold_rel(
-        f"{cfg.name} ring decode at pos {tokens.shape[1]} vs forward", ring_logits[0], ext[:, -1],
+        f"{cfg.name} ring decode at pos {S} vs forward", ring_logits[0], ext[:, -1],
         LM_BF16_REL_TOL)
     del ext, cache, ring_logits
 
@@ -3463,10 +3738,10 @@ def lm_cache_checks(torch, dev, params, cfg, tokens):
     if not nbytes["int8"] < nbytes["bf16"]:
         fail(f"{cfg.name}: the int8 cache is not smaller: {nbytes}")
     nxt = last.argmax(-1)
-    plain_logits, out["bf16_decode_ms_per_step"] = decode_run(cfg, cache, nxt, tokens.shape[1])
+    plain_logits, out["bf16_decode_ms_per_step"], first = decode_run(cfg, cache, nxt, S)
     # the same tokens into the int8 cache: the plain run's greedy choices
-    qlogits, out["int8_decode_ms_per_step"] = decode_run(qcfg, qcache, nxt, tokens.shape[1],
-                                                         feed=plain_logits)
+    qlogits, out["int8_decode_ms_per_step"], _ = decode_run(
+        qcfg, qcache, nxt, S, feed=plain_logits, replay=first.replay_ids())
     out["int8_first_step_vs_bf16"] = hold_rel(f"{cfg.name} int8 cache decode vs bf16 cache",
                                               qlogits[0], plain_logits[0], LM_BF16_REL_TOL)
     rel = [float((q.float() - p.float()).abs().max() / p.float().abs().max())
@@ -3517,7 +3792,8 @@ def lm_serve(torch, smi, dev):
 # compute over float32 parameters, remat on; LM_TRAIN_STEPS make_train_step
 # steps on one synth_lm_batch batch, so that each step's loss is the loss of
 # the same batch after the steps before it
-LM_TRAIN_MODELS = (("rwkv6_1b6", {}), ("qwen2_7b", {"num_layers": 2}))
+LM_TRAIN_MODELS = (("rwkv6_1b6", {}), ("qwen2_7b", {"num_layers": 2}),
+                   ("deepseek_v2_lite_16b", {"num_layers": 2}))  # one dense layer, one MoE
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
 LM_TRAIN_LR = 3e-4  # the launcher's default: the card-vs-CPU steps on the reduced configs
 # AdamW's first steps move every element by about lr (m_hat / sqrt(v_hat) is
@@ -3642,10 +3918,11 @@ def lm_train_family(torch, dev, cfg, seed, counters):
     split = split_counts(counters)
     if not (np.isfinite(losses).all() and all(b < a for a, b in zip(losses, losses[1:]))):
         fail(f"{cfg.name}: training losses on one batch do not fall step by step: {losses}")
-    # launches: forward + remat recompute a layer a step
-    kernel = "flash_sdpa" if cfg.arch_type == "dense" else "wkv6"
-    derived = cfg.num_layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS
-    if launches[kernel] != derived or sum(launches.values()) != derived:
+    # launches: forward + remat recompute a layer a step (MLA attends in
+    # plain PyTorch: no kernel)
+    kernel = "wkv6" if cfg.arch_type == "rwkv" else None if cfg.use_mla else "flash_sdpa"
+    derived = cfg.num_layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS if kernel else 0
+    if (kernel and launches[kernel] != derived) or sum(launches.values()) != derived:
         fail(f"{cfg.name}: lm_train launches {launches}, derived {kernel} {derived}")
 
     # one more step taken apart: forward, backward, update (CUDA events)
@@ -3705,7 +3982,8 @@ def lm_train_family(torch, dev, cfg, seed, counters):
                         "max_kernels_vs_f32": max(r["kernels_vs_f32"] for r in leaves.values()),
                         "max_plain_vs_f32": max(r["plain_vs_f32"] for r in leaves.values()),
                         "leaves": leaves},
-        "launches": launches, "launches_derived": {kernel: derived}, "launches_split": split,
+        "launches": launches, "launches_derived": {kernel: derived} if kernel else {},
+        "launches_split": split,
     }
     del params
     return report, launches
@@ -3873,7 +4151,7 @@ def main() -> None:
             "launches_by_path": {p: n[name] for p, n in paths.items()},
             **({"launches_split": lm_split[name]}
                if name in lm_split and name not in HEAD_KERNELS + IOU_KERNELS else {}),
-            **({"decode": r["decode"]} if "decode" in r else {}),
+            **{key: r[key] for key in EXTRA_SHAPES.values() if key in r},
             **({"train": r["train"], "lm_train_launches_split": lm_train_split.get(name)}
                if "train" in r else {}),
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),

@@ -4,6 +4,7 @@ with optional ORIC cascade gating (``repro.launch.serve``).
   python -m repro_torch.launch.serve --arch qwen2_7b --tokens 16
   python -m repro_torch.launch.serve --arch rwkv6_1b6 --device cpu
   python -m repro_torch.launch.serve --arch qwen2_7b --cascade
+  python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b --cascade
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--cascade`` fits an
 ``LMCascade`` on one calibration batch and serves that batch through it.

@@ -1,5 +1,5 @@
 """Step builders (``repro.launch.steps``): the train, prefill and serve
-steps of the ported families (dense, RWKV6).
+steps of the ported families (dense, MoE with or without MLA, RWKV6).
 
 ``repro`` builds these for ``jax.jit`` with ``cfg`` closed over; here they
 are plain functions over the port's parameter trees, functional as there:

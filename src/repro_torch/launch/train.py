@@ -4,6 +4,7 @@ variant of ``--arch`` on synthetic tokens with ``launch.steps``'
 
   python -m repro_torch.launch.train --arch yi_6b --steps 30
   python -m repro_torch.launch.train --arch rwkv6_1b6 --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch deepseek_moe_16b --steps 4 --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are float32,
 as ``repro``'s are; ``--ckpt`` writes them in ``repro``'s ``save_pytree``

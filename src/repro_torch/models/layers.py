@@ -1,5 +1,5 @@
-"""Transformer and RWKV6 layers for the LM (the dense and RWKV families of
-``repro.models.layers``).
+"""Transformer, MoE, MLA and RWKV6 layers for the LM (the dense, MoE and RWKV
+families of ``repro.models.layers``).
 
 Everything is functional, as in the JAX package: parameters are nested dicts
 of tensors under ``repro``'s keys, and ``*_apply(params, x, ...)`` computes in
@@ -25,8 +25,19 @@ changing any value of the forward; the flash kernel never forms the (S, T)
 logits, so they have no counterpart here.  Its remat (``jax.checkpoint``
 around a layer) is ``torch.utils.checkpoint`` in ``models.lm.forward``, and
 ``chunked_scan``'s chunk checkpoints have no counterpart: the ``wkv6``
-Function saves only its inputs.  MoE, MLA, Mamba2 and M-RoPE come with
-ROADMAP queue A item 9 and raise until then.
+Function saves only its inputs.  MLA's query chunking (``MLAConfig.attn_chunk``)
+is the same kind of hint: each query row's softmax is its own, so MLA
+attends over the whole sequence at once.
+
+The MoE layer routes in float32 (the router stays float32 whatever the
+activation type), dispatches each kept (token, expert) assignment into its
+expert's capacity slot by assignment (the kept slots are distinct), and
+combines each token's K slot outputs by a gather and a sum over K, on the
+flat and on the grouped path: one fixed order, where a scatter-add would
+use atomics on the card.  MLA (DeepSeek-V2) runs in plain PyTorch, as the
+JAX package runs it in jnp: its q/k width (qk_nope + qk_rope = 192) is not
+one the ``flash_sdpa`` kernel takes.  Mamba2 and M-RoPE come with ROADMAP
+queue A item 9 and raise until then.
 """
 from __future__ import annotations
 
@@ -301,6 +312,263 @@ def swiglu(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ params["gate"].to(x.dtype))
     u = x @ params["up"].to(x.dtype)
     return (g * u) @ params["down"].to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (capacity-based static dispatch; shared + routed)
+# ---------------------------------------------------------------------------
+
+class MoEConfig(NamedTuple):
+    d_model: int
+    d_ff_expert: int
+    num_experts: int
+    top_k: int
+    num_shared: int = 0
+    capacity_factor: float = 1.25
+    aux_weight: float = 0.001
+    groups: int = 0  # >0: group-local dispatch (moe_apply_grouped)
+
+
+def moe_init(generator: torch.Generator, cfg: MoEConfig, dtype=torch.float32, *,
+             stack: int = 0, device=None) -> PyTree:
+    """The keys, shapes and scales of ``repro``'s ``moe_init``: the expert
+    weights are (E, in, out), so their fan-in is E, as there; the router is
+    float32 whatever ``dtype`` is."""
+    E, M, F_ = cfg.num_experts, cfg.d_model, cfg.d_ff_expert
+    kw = dict(stack=stack, device=device)
+    p: PyTree = {
+        "router": dense_init(generator, (M, E), torch.float32, **kw),
+        "w_gate": dense_init(generator, (E, M, F_), dtype, **kw),
+        "w_up": dense_init(generator, (E, M, F_), dtype, **kw),
+        "w_down": dense_init(generator, (E, F_, M), dtype, **kw),
+    }
+    if cfg.num_shared:
+        p["shared"] = swiglu_init(generator, M, cfg.num_shared * F_, dtype, **kw)
+    return p
+
+
+class MoERouting(NamedTuple):
+    """One MoE call's routing over its dispatch groups (G = 1 on the flat
+    path): ``probs`` (G, Tg, E) float32, ``gate`` (G, Tg, K) in the
+    activation type, ``expert_ids`` (G, Tg, K), ``pos`` (G, Tg * K) each
+    assignment's slot in its expert (token-major), ``keep`` = pos < capacity."""
+    probs: torch.Tensor
+    gate: torch.Tensor
+    expert_ids: torch.Tensor
+    pos: torch.Tensor
+    keep: torch.Tensor
+    capacity: int
+
+
+def moe_grouped(cfg: MoEConfig, tokens: int) -> bool:
+    """``moe_apply``'s rule: the grouped path when ``cfg.groups`` is set and
+    divides the token count, else the flat path."""
+    return bool(cfg.groups) and tokens % cfg.groups == 0
+
+
+def moe_routing(params: PyTree, cfg: MoEConfig, tok: torch.Tensor, G: int) -> MoERouting:
+    """Route ``tok`` (T, M) in G groups of Tg = T / G tokens.  Each group
+    has capacity int(Tg * K / E * capacity_factor) + 1 per expert (both of
+    the JAX package's paths); an assignment past it is dropped.
+
+    The top K is a stable descending sort, so ties go to the lower expert
+    index, as in ``jax.lax.top_k``.  A token's K experts are distinct, so
+    their order moves no position: ``pos`` counts, in token order, the
+    group's earlier assignments to the same expert."""
+    T, M = tok.shape
+    E, K = cfg.num_experts, cfg.top_k
+    Tg = T // G
+    cap = int((Tg * K / E) * cfg.capacity_factor) + 1
+    logits = tok.reshape(G, Tg, M).float() @ params["router"].float()
+    probs = torch.softmax(logits, dim=-1)  # (G, Tg, E)
+    expert_ids = torch.sort(probs, dim=-1, descending=True, stable=True).indices[..., :K]
+    return moe_assign(probs, expert_ids, cap, tok.dtype)
+
+
+def moe_assign(probs: torch.Tensor, expert_ids: torch.Tensor, capacity: int, dtype) -> MoERouting:
+    """The routing of a chosen set of experts a token (``expert_ids`` (G, Tg,
+    K), distinct in each token): the gate, their probabilities over max(their
+    sum, 1e-9) cast to ``dtype``, and each assignment's position in its
+    expert and whether it fits in ``capacity``."""
+    G, Tg, K = expert_ids.shape
+    gate = probs.gather(-1, expert_ids)
+    gate = (gate / gate.sum(-1, keepdim=True).clamp_min(1e-9)).to(dtype)
+    flat_e = expert_ids.reshape(G, Tg * K)
+    onehot = F.one_hot(flat_e, probs.shape[-1])
+    pos = (onehot.cumsum(dim=1) - 1).gather(-1, flat_e[..., None])[..., 0]
+    return MoERouting(probs, gate, expert_ids, pos, pos < capacity, capacity)
+
+
+def _moe_experts(params: PyTree, buf: torch.Tensor) -> torch.Tensor:
+    """Each expert's SwiGLU over its slots: buf (G, E, C, M) -> (G, E, C, M)."""
+    dt = buf.dtype
+    g = F.silu(torch.einsum("gecm,emf->gecf", buf, params["w_gate"].to(dt)))
+    u = torch.einsum("gecm,emf->gecf", buf, params["w_up"].to(dt))
+    return torch.einsum("gecf,efm->gecm", g * u, params["w_down"].to(dt))
+
+
+def _moe(params: PyTree, cfg: MoEConfig, x: torch.Tensor, G: int
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Both paths of the JAX package's MoE, over G dispatch groups."""
+    B, S, M = x.shape
+    T, E, K = B * S, cfg.num_experts, cfg.top_k
+    Tg = T // G
+    tok = x.reshape(T, M)
+    r = moe_routing(params, cfg, tok, G)
+    flat_e = r.expert_ids.reshape(G, Tg * K)
+    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
+    # dispatch: each kept assignment into its own slot; a dropped one into a
+    # spare slot past the capacity, cut off before the experts run
+    slot = torch.where(r.keep, r.pos, r.capacity)
+    buf = x.new_zeros((G, E, r.capacity + 1, M)).index_put(
+        (g_idx, flat_e, slot), tok.reshape(G, Tg, M).repeat_interleave(K, dim=1))
+    y = _moe_experts(params, buf[:, :, :r.capacity])
+    # combine: each token's K slot outputs, gated (0 where dropped), summed over K
+    safe = torch.where(r.keep, r.pos, r.capacity - 1)
+    w = r.gate.reshape(G, Tg * K, 1) * r.keep[..., None].to(x.dtype)
+    out = (y[g_idx, flat_e, safe] * w).reshape(T, K, M).sum(dim=1)
+    if cfg.num_shared and "shared" in params:
+        out = out + swiglu(params["shared"], tok)
+    # load-balance aux loss (Switch): E * sum_e f_e * pbar_e
+    f = (F.one_hot(r.expert_ids, E).sum(dim=2) > 0).float().mean(dim=(0, 1))
+    aux = cfg.aux_weight * E * torch.sum(f * r.probs.mean(dim=(0, 1)))
+    return out.reshape(B, S, M), aux
+
+
+def moe_apply(params: PyTree, cfg: MoEConfig, x: torch.Tensor
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (B, S, M) -> (out, aux float32): the grouped path when ``cfg.groups``
+    divides B * S, else the flat path (``moe_grouped``)."""
+    if moe_grouped(cfg, x.shape[0] * x.shape[1]):
+        return moe_apply_grouped(params, cfg, x)
+    return moe_apply_flat(params, cfg, x)
+
+
+def moe_apply_flat(params: PyTree, cfg: MoEConfig, x: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One dispatch group over all T = B * S tokens: capacity
+    int(T * K / E * capacity_factor) + 1 per expert."""
+    return _moe(params, cfg, x, 1)
+
+
+def moe_apply_grouped(params: PyTree, cfg: MoEConfig, x: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``cfg.groups`` dispatch groups of Tg = T / groups consecutive tokens,
+    each with capacity int(Tg * K / E * capacity_factor) + 1 per expert."""
+    return _moe(params, cfg, x, cfg.groups)
+
+
+# ---------------------------------------------------------------------------
+# MLA — Multi-head Latent Attention (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLAConfig(NamedTuple):
+    d_model: int
+    num_heads: int
+    kv_lora_rank: int = 512
+    qk_nope_dim: int = 128
+    qk_rope_dim: int = 64
+    v_dim: int = 128
+    rope_theta: float = 1e6
+    attn_chunk: int = 0  # the JAX package's query chunking (no counterpart here)
+
+
+def mla_init(generator: torch.Generator, cfg: MLAConfig, dtype=torch.float32, *,
+             stack: int = 0, device=None) -> PyTree:
+    M, H = cfg.d_model, cfg.num_heads
+    R, N, P, V = cfg.kv_lora_rank, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim
+    kw = dict(stack=stack, device=device)
+    return {
+        "wq": dense_init(generator, (M, H * (N + P)), dtype, **kw),
+        "w_dkv": dense_init(generator, (M, R), dtype, **kw),  # compress
+        "w_kr": dense_init(generator, (M, P), dtype, **kw),  # shared rope key
+        "w_uk": dense_init(generator, (R, H * N), dtype, **kw),  # decompress K
+        "w_uv": dense_init(generator, (R, H * V), dtype, **kw),  # decompress V
+        "wo": dense_init(generator, (H * V, M), dtype, **kw),
+        "kv_norm": rmsnorm_init(R, dtype, **kw),
+    }
+
+
+def _mla_scale(cfg: MLAConfig, dtype) -> float:
+    """1 / sqrt(N + P) as the JAX package computes it: the float32 square
+    root rounded to ``dtype``, its reciprocal rounded to ``dtype``.  A
+    Python float holding that value multiplies a ``dtype`` tensor as the
+    ``dtype`` scalar would, and needs no copy to the device."""
+    root = torch.tensor(float(cfg.qk_nope_dim + cfg.qk_rope_dim)).sqrt().to(dtype)
+    return float(1.0 / root)
+
+
+def _mla_softmax(logits: torch.Tensor, mask: torch.Tensor, dtype) -> torch.Tensor:
+    """Masked logits take finfo.min; the softmax runs in float32."""
+    logits = logits.masked_fill(~mask, torch.finfo(logits.dtype).min)
+    return torch.softmax(logits.float(), dim=-1).to(dtype)
+
+
+def _mla_project(params, cfg: MLAConfig, x, positions):
+    """(q_nope, q_rope (rotated), c (normed latent), k_rope (rotated, B, S, P))."""
+    B, S, _ = x.shape
+    H, N, P = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, H, N + P)
+    q_rope = apply_rope(q[..., N:], positions, cfg.rope_theta)
+    c = rmsnorm(params["kv_norm"], x @ params["w_dkv"].to(x.dtype))
+    k_rope = apply_rope((x @ params["w_kr"].to(x.dtype))[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return q[..., :N], q_rope, c, k_rope
+
+
+def mla_apply(params: PyTree, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor,
+              return_kv: bool = False):
+    """Training / prefill, the expanded-KV form: K and V decompressed from
+    the latent a head each, the rope key shared by the heads.  Causal over
+    the whole sequence.  ``return_kv`` also returns (latent (B, S, R), rope
+    key (B, S, P)) for the decode cache."""
+    B, S, _ = x.shape
+    H, N, V = cfg.num_heads, cfg.qk_nope_dim, cfg.v_dim
+    q_nope, q_rope, c, k_rope = _mla_project(params, cfg, x, positions)
+    k_nope = (c @ params["w_uk"].to(x.dtype)).reshape(B, S, H, N)
+    v = (c @ params["w_uv"].to(x.dtype)).reshape(B, S, H, V)
+    logits = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+              + torch.einsum("bshp,btp->bhst", q_rope, k_rope)) * _mla_scale(cfg, x.dtype)
+    probs = _mla_softmax(logits, causal_mask(S, S, 0, device=x.device)[:, None], x.dtype)
+    out = torch.einsum("bhst,bthv->bshv", probs, v).reshape(B, S, H * V)
+    out = out @ params["wo"].to(x.dtype)
+    if return_kv:
+        return out, (c, k_rope)
+    return out
+
+
+def mla_decode(
+    params: PyTree,
+    cfg: MLAConfig,
+    x: torch.Tensor,  # (B, 1, M)
+    cache_c: torch.Tensor,  # (B, C, R) compressed latent cache
+    cache_kr: torch.Tensor,  # (B, C, P) shared rope-key cache
+    pos: int,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One-token decode in the absorbed form: the cache holds only the
+    R-wide latent and the P-wide rope key a token; W_uk goes into the query
+    and W_uv into the output.  This token's latent and rope key are written
+    into slot ``pos`` IN PLACE, clamped to C - 1 as the JAX package's
+    ``dynamic_update_slice`` clamps (no ring: MLA ignores the window); the
+    token attends over the slots 0..pos."""
+    B = x.shape[0]
+    H, N, P, V, R = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_dim, cfg.kv_lora_rank
+    C = cache_c.shape[1]
+    positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c, k_rope = _mla_project(params, cfg, x, positions)
+    slot = min(max(pos, 0), C - 1)
+    cache_c[:, slot] = c[:, 0]
+    cache_kr[:, slot] = k_rope[:, 0]
+    w_uk = params["w_uk"].to(x.dtype).reshape(R, H, N)
+    q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
+    logits = (torch.einsum("bhr,bcr->bhc", q_lat, cache_c)
+              + torch.einsum("bhp,bcp->bhc", q_rope[:, 0], cache_kr)) * _mla_scale(cfg, x.dtype)
+    valid = (torch.arange(C, device=x.device) <= pos)[None, None, :]
+    probs = _mla_softmax(logits, valid, x.dtype)
+    ctx = torch.einsum("bhc,bcr->bhr", probs, cache_c)  # attend in latent space
+    w_uv = params["w_uv"].to(x.dtype).reshape(R, H, V)
+    out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(B, 1, H * V)
+    return out @ params["wo"].to(x.dtype), cache_c, cache_kr
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,22 @@
-"""LM assembly for the dense and RWKV6 families (``repro.models.lm``).
+"""LM assembly for the dense, MoE and RWKV6 families (``repro.models.lm``).
 
 One ``LMConfig`` (every field of the JAX package's, so the config files copy
-verbatim) drives the block patterns; this port runs ``arch_type`` ``dense``
-and ``rwkv``, and the other families (moe, hybrid, encdec, vlm) raise until
-ROADMAP queue A item 9 brings them.
+verbatim) drives the block patterns; this port runs ``arch_type`` ``dense``,
+``moe`` (with or without MLA) and ``rwkv``, and the other families (hybrid,
+encdec, vlm) raise until ROADMAP queue A item 9 brings them.
 
 Parameters keep ``repro``'s key paths and its STACKED layout: every layer
-parameter is one ``(L, ...)`` tensor under ``params["layers"]``.  The layer
-loop is a Python loop over ``[i]`` views of those stacks (the JAX package's
-``lax.scan``), so a truncated stack (``serving.cascade_serving.truncate_params``)
-is a view and never a copy of the weights.
+parameter is one ``(L, ...)`` tensor under ``params["layers"]``, or for the
+MoE family under two stacks, ``params["dense_layers"]`` (the first
+``first_k_dense`` layers, a dense MLP each) and ``params["moe_layers"]``.
+The layer loop is a Python loop over ``[i]`` views of those stacks (the JAX
+package's ``lax.scan``), so a truncated stack
+(``serving.cascade_serving.truncate_params``) is a view and never a copy of
+the weights.  The decode cache stacks the layers of both stacks in order.
 
 API (all functional, as in ``repro``):
   init_params(cfg, generator, device)  seeded params on ``device``
-  forward(params, cfg, batch)          (logits (B, S, V), aux)
+  forward(params, cfg, batch)          (logits (B, S, V), MoE aux loss)
   loss_fn(params, cfg, batch)          mean token cross-entropy (+ aux)
   init_cache(cfg, B, capacity, device) decode cache
   prefill(params, cfg, batch, capacity) -> (last_logits, cache)
@@ -24,9 +27,10 @@ parameters (``init_params(..., dtype=torch.float32)``) and differentiates
 through the casts to ``cfg.act_dtype``; with ``cfg.remat`` each layer is
 recomputed in the backward pass.  The decode cache may be a ring
 (``cfg.window > 0``, capacity below the prompt) and may be int8
-(``cfg.kv_quant``).  ``plain=True`` on ``forward`` / ``loss_fn`` runs the
-kernels' plain PyTorch versions instead of the kernels (see
-``models.layers``).
+(``cfg.kv_quant``); MLA's cache holds the latent and the rope key instead
+(``c``, ``kr``), written at slot ``pos`` with no ring.  ``plain=True`` on
+``forward`` / ``loss_fn`` runs the kernels' plain PyTorch versions instead
+of the kernels (see ``models.layers``).
 """
 from __future__ import annotations
 
@@ -41,6 +45,8 @@ from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.models.layers import (
     AttnConfig,
+    MLAConfig,
+    MoEConfig,
     RWKV6Config,
     attention_apply,
     attention_decode,
@@ -49,6 +55,11 @@ from repro_torch.models.layers import (
     kv_quantize,
     layernorm,
     layernorm_init,
+    mla_apply,
+    mla_decode,
+    mla_init,
+    moe_apply,
+    moe_init,
     rmsnorm,
     rmsnorm_init,
     rwkv6_channel_mix,
@@ -60,7 +71,7 @@ from repro_torch.models.layers import (
 
 PyTree = Dict[str, Any]
 
-PORTED_ARCHS = ("dense", "rwkv")
+PORTED_ARCHS = ("dense", "moe", "rwkv")
 
 
 def check_arch(cfg: "LMConfig") -> None:
@@ -142,6 +153,29 @@ class LMConfig:
             mrope_sections=self.mrope_sections,
         )
 
+    def moe(self) -> MoEConfig:
+        return MoEConfig(
+            d_model=self.d_model,
+            d_ff_expert=self.d_ff_expert,
+            num_experts=self.num_experts,
+            top_k=self.top_k,
+            num_shared=self.num_shared_experts,
+            capacity_factor=self.capacity_factor,
+            groups=self.moe_groups,
+        )
+
+    def mla(self) -> MLAConfig:
+        return MLAConfig(
+            d_model=self.d_model,
+            num_heads=self.num_heads,
+            kv_lora_rank=self.kv_lora_rank,
+            qk_nope_dim=self.qk_nope_dim,
+            qk_rope_dim=self.qk_rope_dim,
+            v_dim=self.head_dim,
+            rope_theta=self.rope_theta,
+            attn_chunk=self.attn_chunk,
+        )
+
     def rwkv(self) -> RWKV6Config:
         return RWKV6Config(
             d_model=self.d_model,
@@ -189,15 +223,38 @@ def reduced(cfg: LMConfig, **overrides) -> LMConfig:
 # init
 # ===========================================================================
 
+def _stack_init(generator: torch.Generator, cfg: LMConfig, kind: str, n: int, dt, dev) -> PyTree:
+    """``n`` layers of ``kind`` (dense | moe | rwkv) stacked: each parameter
+    one (n, ...) tensor.  A dense layer of the MoE family (``first_k_dense``)
+    attends through MLA when ``cfg.use_mla``, as a MoE layer does."""
+    M, kw = cfg.d_model, dict(stack=n, device=dev)
+    if kind == "rwkv":
+        return {
+            "ln1": layernorm_init(M, dt, **kw),
+            "tm": rwkv6_init(generator, cfg.rwkv(), dt, **kw),
+            "ln2": layernorm_init(M, dt, **kw),
+        }
+    attn = (mla_init(generator, cfg.mla(), dt, **kw) if cfg.use_mla
+            else attention_init(generator, cfg.attn(), dt, **kw))
+    p: PyTree = {"norm1": rmsnorm_init(M, dt, **kw), "attn": attn, "norm2": rmsnorm_init(M, dt, **kw)}
+    if kind == "moe":
+        p["moe"] = moe_init(generator, cfg.moe(), dt, **kw)
+    else:
+        p["mlp"] = swiglu_init(generator, M, cfg.d_ff, dt, **kw)
+    return p
+
+
 def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = "cuda", *,
                 dtype: Optional[torch.dtype] = None) -> PyTree:
     """Seeded parameters with the shapes and scales of ``repro``'s
     ``init_params``, drawn on ``device`` from ``generator`` (which must live
     there) and stored in ``dtype``: by default the type each is used in,
-    ``cfg.act_dtype`` (float32 for the RWKV6 ``bonus``); training passes
-    ``torch.float32``, the type of ``repro``'s leaves.  The numbers differ
-    from ``repro``'s (another generator); tests carry weights across with
-    ``convert.lm_params_from_jax``."""
+    ``cfg.act_dtype`` (float32 for the RWKV6 ``bonus`` and the MoE
+    ``router``); training passes ``torch.float32``, the type of ``repro``'s
+    leaves.  The numbers differ from ``repro``'s (another generator); tests
+    carry weights across with ``convert.lm_params_from_jax``.  The MoE
+    family has two stacks, ``dense_layers`` (``first_k_dense``) and
+    ``moe_layers`` (the rest); a stack of no layer is left out."""
     check_arch(cfg)
     dev = resolve_device(device)
     dt, L, M = dtype or cfg.act_dtype, cfg.num_layers, cfg.d_model
@@ -208,20 +265,13 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
     }
     if not cfg.tie_embeddings:
         p["unembed"] = dense_init(generator, (M, cfg.vocab_size), dt, scale=0.02, device=dev)
-    kw = dict(stack=L, device=dev)
-    if cfg.arch_type == "dense":
-        p["layers"] = {
-            "norm1": rmsnorm_init(M, dt, **kw),
-            "attn": attention_init(generator, cfg.attn(), dt, **kw),
-            "norm2": rmsnorm_init(M, dt, **kw),
-            "mlp": swiglu_init(generator, M, cfg.d_ff, dt, **kw),
-        }
-    else:  # rwkv
-        p["layers"] = {
-            "ln1": layernorm_init(M, dt, **kw),
-            "tm": rwkv6_init(generator, cfg.rwkv(), dt, **kw),
-            "ln2": layernorm_init(M, dt, **kw),
-        }
+    if cfg.arch_type == "moe":
+        for key, kind, n in (("dense_layers", "dense", cfg.first_k_dense),
+                             ("moe_layers", "moe", L - cfg.first_k_dense)):
+            if n:
+                p[key] = _stack_init(generator, cfg, kind, n, dt, dev)
+    else:
+        p["layers"] = _stack_init(generator, cfg, cfg.arch_type, L, dt, dev)
     return p
 
 
@@ -253,13 +303,38 @@ def _logits(params, cfg: LMConfig, h) -> torch.Tensor:
     return h @ w
 
 
+def _attend(lp, cfg: LMConfig, h, positions, plain: bool, return_kv: bool):
+    """The attention half of a block: (output, kv) where kv is the rotated
+    (k, v), or MLA's (latent, rope key), with ``return_kv``, else None."""
+    hn = rmsnorm(lp["norm1"], h)
+    if cfg.use_mla:  # plain PyTorch either way: no kernel to hold it against
+        a = mla_apply(lp["attn"], cfg.mla(), hn, positions, return_kv=return_kv)
+    else:
+        a = attention_apply(lp["attn"], cfg.attn(), hn, positions, return_kv=return_kv,
+                            plain=plain)
+    return a if return_kv else (a, None)
+
+
 def _dense_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
-    a = attention_apply(lp["attn"], cfg.attn(), rmsnorm(lp["norm1"], h), positions,
-                        return_kv=return_kv, plain=plain)
-    a, kv = a if return_kv else (a, None)
+    a, kv = _attend(lp, cfg, h, positions, plain, return_kv)
     h = h + a
     h = h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
     return h, kv
+
+
+def _moe_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
+    """A MoE layer: (h, its aux loss, kv)."""
+    a, kv = _attend(lp, cfg, h, positions, plain, return_kv)
+    h = h + a
+    out, aux = moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))
+    return h + out, aux, kv
+
+
+def _ffn(lp, cfg: LMConfig, h):
+    """The second half of a dense or MoE layer at decode: h + MLP or MoE."""
+    if "mlp" in lp:
+        return h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
+    return h + moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))[0]
 
 
 def _rwkv_block(lp, cfg: LMConfig, h, state, x_tm, x_cm, plain: bool = False):
@@ -275,10 +350,23 @@ def _positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def _layers(params, cfg: LMConfig):
-    n = int(next(tree_leaves(params["layers"])).shape[0])
-    if n != cfg.num_layers:
-        raise ValueError(f"params hold {n} layers, config {cfg.name} says {cfg.num_layers}")
-    return (layer_params(params["layers"], i) for i in range(n))
+    """(kind, layer params) of every layer in order, kind ``dense`` / ``moe``
+    / ``rwkv``: ``params["layers"]``, or the MoE family's two stacks (the
+    dense one first; either may be absent or of length 0, as a truncated
+    stack is).  The stacks must hold ``cfg.num_layers`` layers together,
+    ``first_k_dense`` of them dense."""
+    if cfg.arch_type == "moe":
+        stacks = (("dense", "dense_layers", cfg.first_k_dense),
+                  ("moe", "moe_layers", cfg.num_layers - cfg.first_k_dense))
+    else:
+        stacks = (("rwkv" if cfg.arch_type == "rwkv" else "dense", "layers", cfg.num_layers),)
+    held = {key: int(next(tree_leaves(params[key])).shape[0]) if key in params else 0
+            for _, key, _ in stacks}
+    if any(held[key] != n for _, key, n in stacks):
+        raise ValueError(f"params hold {held} layers, config {cfg.name} says "
+                         f"{ {key: n for _, key, n in stacks} }")
+    return ((kind, layer_params(params[key], i)) for kind, key, _ in stacks
+            for i in range(held[key]))
 
 
 def _remat(body, on: bool):
@@ -294,29 +382,38 @@ def _remat(body, on: bool):
 
 def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward.  Returns (logits (B, S, V), aux = 0).
-    Differentiable; with ``cfg.remat``, each layer is checkpointed when a
-    parameter requires grad under grad mode (serving builds no graph)."""
+    """Full-sequence forward.  Returns (logits (B, S, V), aux): the MoE
+    layers' load-balance losses summed in float32 (0 for the other
+    families).  Differentiable; with ``cfg.remat``, each layer is
+    checkpointed when a parameter requires grad under grad mode (serving
+    builds no graph)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
-    if cfg.arch_type == "dense":
-        positions = _positions(B, S, h.device)
-        body = _remat(lambda hh, lp: _dense_block(lp, cfg, hh, positions, plain)[0], remat)
-    else:
-        body = _remat(lambda hh, lp: _rwkv_block(lp, cfg, hh, None, None, None, plain)[0], remat)
-    for lp in _layers(params, cfg):
-        h = body(h, lp)
-    return _logits(params, cfg, h), torch.zeros((), dtype=torch.float32, device=h.device)
+    positions = _positions(B, S, h.device)
+    body = {
+        "dense": _remat(lambda hh, lp: _dense_block(lp, cfg, hh, positions, plain)[0], remat),
+        "moe": _remat(lambda hh, lp: _moe_block(lp, cfg, hh, positions, plain)[:2], remat),
+        "rwkv": _remat(lambda hh, lp: _rwkv_block(lp, cfg, hh, None, None, None, plain)[0], remat),
+    }
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for kind, lp in _layers(params, cfg):
+        if kind == "moe":
+            h, aux_l = body[kind](h, lp)
+            aux = aux + aux_l
+        else:
+            h = body[kind](h, lp)
+    return _logits(params, cfg, h), aux
 
 
 def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) -> torch.Tensor:
-    """Mean cross-entropy over the tokens whose label is >= 0, plus aux (0 for
-    the dense and RWKV families).  The logits go to float32 first; the gold
-    logit is a gather (``repro`` sums an iota mask over a vocab-sharded axis,
-    which adds exact zeros to the same logit)."""
+    """Mean cross-entropy over the tokens whose label is >= 0, plus aux (the
+    MoE load-balance loss; 0 for the dense and RWKV families).  The logits
+    go to float32 first; the gold logit is a gather (``repro`` sums an iota
+    mask over a vocab-sharded axis, which adds exact zeros to the same
+    logit)."""
     logits, aux = forward(params, cfg, batch, plain=plain)
     labels = batch["labels"]
     if not isinstance(labels, torch.Tensor):
@@ -336,14 +433,19 @@ def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) 
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "cuda") -> PyTree:
     """Zeroed decode cache: ``k``/``v`` (L, B, C, K, D) in the activation type
-    for dense stacks (``capacity`` C is the window for a ring cache); with
-    ``cfg.kv_quant`` ``k``/``v`` int8 and their scales ``k_s``/``v_s`` float32
-    (L, B, C, K).  For RWKV the float32 wkv ``state`` (L, B, H, hd, hd) and
+    for dense stacks and the MoE family's attention (``capacity`` C is the
+    window for a ring cache); with ``cfg.kv_quant`` ``k``/``v`` int8 and
+    their scales ``k_s``/``v_s`` float32 (L, B, C, K).  MLA: the latent
+    ``c`` (L, B, C, kv_lora_rank) and the rope key ``kr`` (L, B, C,
+    qk_rope_dim).  For RWKV the float32 wkv ``state`` (L, B, H, hd, hd) and
     the last token of each mix, ``tm_x``/``cm_x`` (L, B, M)."""
     check_arch(cfg)
     dev = resolve_device(device)
     L, B, C, dt = cfg.num_layers, batch, capacity, cfg.act_dtype
-    if cfg.arch_type == "dense":
+    if cfg.use_mla:
+        return {"c": torch.zeros((L, B, C, cfg.kv_lora_rank), dtype=dt, device=dev),
+                "kr": torch.zeros((L, B, C, cfg.qk_rope_dim), dtype=dt, device=dev)}
+    if cfg.arch_type != "rwkv":
         shape = (L, B, C, cfg.num_kv_heads, cfg.head_dim)
         if cfg.kv_quant:
             return {"k": torch.zeros(shape, dtype=torch.int8, device=dev),
@@ -365,28 +467,33 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int
                 ) -> Tuple[torch.Tensor, PyTree]:
     """One-token decode at position ``pos``; returns (logits (B, V), cache).
     The cache is updated IN PLACE (each layer writes its slot or state into
-    its ``[i]`` view of the stacked buffers) and returned."""
+    its ``[i]`` view of the stacked buffers) and returned.  A MoE layer
+    routes the step's B tokens as one batch of B tokens (the flat path
+    unless ``moe_groups`` divides B)."""
     check_arch(cfg)
     table = params["embed"]
     if not isinstance(tokens, torch.Tensor):
         tokens = torch.from_numpy(np.asarray(tokens))
     h = table.to(cfg.act_dtype)[tokens.to(device=table.device, dtype=torch.int64)][:, None, :]
     pos = int(pos)
-    if cfg.arch_type == "dense":
-        acfg = cfg.attn()
-        for i, lp in enumerate(_layers(params, cfg)):
-            scales = (cache["k_s"][i], cache["v_s"][i]) if cfg.kv_quant else None
-            a = attention_decode(lp["attn"], acfg, rmsnorm(lp["norm1"], h),
-                                 cache["k"][i], cache["v"][i], pos, scales)[0]
-            h = h + a
-            h = h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
-    else:
-        for i, lp in enumerate(_layers(params, cfg)):
+    if cfg.arch_type == "rwkv":
+        for i, (_, lp) in enumerate(_layers(params, cfg)):
             h, st, xt, xc = _rwkv_block(lp, cfg, h, cache["state"][i], cache["tm_x"][i],
                                         cache["cm_x"][i])
             cache["state"][i].copy_(st)
             cache["tm_x"][i].copy_(xt)
             cache["cm_x"][i].copy_(xc)
+        return _logits(params, cfg, h)[:, 0, :], cache
+    acfg = cfg.attn()
+    for i, (_, lp) in enumerate(_layers(params, cfg)):
+        hn = rmsnorm(lp["norm1"], h)
+        if cfg.use_mla:
+            a = mla_decode(lp["attn"], cfg.mla(), hn, cache["c"][i], cache["kr"][i], pos)[0]
+        else:
+            scales = (cache["k_s"][i], cache["v_s"][i]) if cfg.kv_quant else None
+            a = attention_decode(lp["attn"], acfg, hn, cache["k"][i], cache["v"][i], pos,
+                                 scales)[0]
+        h = _ffn(lp, cfg, h + a)
     return _logits(params, cfg, h)[:, 0, :], cache
 
 
@@ -408,29 +515,38 @@ def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] 
     """Parallel prefill: the full forward, filling a decode cache of
     ``capacity`` slots (default S) in the same pass; a capacity below S
     keeps the last ``capacity`` tokens at their ring slots (a window model's
-    ring cache).  Returns (last-token logits (B, V), cache ready for
+    ring cache; MLA's latents are laid out the same way, as in the JAX
+    package).  Returns (last-token logits (B, V), cache ready for
     ``decode_step`` at position S)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
     C = capacity or S
     cache = init_cache(cfg, B, C, device=h.device)
-    if cfg.arch_type == "dense":
-        positions = _positions(B, S, h.device)
-        for i, lp in enumerate(_layers(params, cfg)):
-            h, (k, v) = _dense_block(lp, cfg, h, positions, return_kv=True)
-            if cfg.kv_quant:
-                (k, k_s), (v, v_s) = kv_quantize(k), kv_quantize(v)
-                _fill_slots(k_s, cache["k_s"][i])
-                _fill_slots(v_s, cache["v_s"][i])
-            _fill_slots(k, cache["k"][i])
-            _fill_slots(v, cache["v"][i])
-    else:
-        for i, lp in enumerate(_layers(params, cfg)):
+    if cfg.arch_type == "rwkv":
+        for i, (_, lp) in enumerate(_layers(params, cfg)):
             h, st, xt, xc = _rwkv_block(lp, cfg, h, None, None, None)
             cache["state"][i].copy_(st)
             cache["tm_x"][i].copy_(xt)
             cache["cm_x"][i].copy_(xc)
+        return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
+    positions = _positions(B, S, h.device)
+    for i, (kind, lp) in enumerate(_layers(params, cfg)):
+        if kind == "moe":
+            h, _, kv = _moe_block(lp, cfg, h, positions, return_kv=True)
+        else:
+            h, kv = _dense_block(lp, cfg, h, positions, return_kv=True)
+        if cfg.use_mla:
+            _fill_slots(kv[0], cache["c"][i])
+            _fill_slots(kv[1], cache["kr"][i])
+            continue
+        k, v = kv
+        if cfg.kv_quant:
+            (k, k_s), (v, v_s) = kv_quantize(k), kv_quantize(v)
+            _fill_slots(k_s, cache["k_s"][i])
+            _fill_slots(v_s, cache["v_s"][i])
+        _fill_slots(k, cache["k"][i])
+        _fill_slots(v, cache["v"][i])
     return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
 
 

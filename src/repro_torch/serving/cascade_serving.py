@@ -11,8 +11,9 @@ features of the weak logits -> the one-hidden-layer MLP (the
 batches and fits the engine on the weak logits' features; an engine either
 package fitted crosses over as the artifact ``save`` writes.  ``serve_batch``
 decides one batch; ``serve_stream`` streams batches through one
-:class:`repro_torch.runtime.OffloadSession`.  The port runs the dense and
-RWKV stacks (single layer stacks); MoE's two-stack split waits with MoE.
+:class:`repro_torch.runtime.OffloadSession`.  The port serves the dense and
+RWKV stacks (one layer stack each) and the MoE family (its two stacks,
+with or without MLA).
 """
 from __future__ import annotations
 
@@ -42,18 +43,36 @@ __all__ = [
 ]
 
 
+_STACKS = ("layers", "dense_layers", "moe_layers")
+
+
 def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:
     """Early-exit params: the first ``exit_layer`` layers + the shared head.
-    Every tensor is a view of ``params`` (no weight is copied)."""
+    The MoE family's two stacks are cut as ``repro`` cuts them: the first
+    min(exit_layer, first_k_dense) dense layers (the stack left out when
+    that is 0) and the MoE layers after them (a stack of length 0 when the
+    exit comes before the first).  Every tensor is a view of ``params`` (no
+    weight is copied)."""
     check_arch(cfg)
-    p = {k: v for k, v in params.items() if k != "layers"}
-    p["layers"] = tree_map(lambda a: a[:exit_layer], params["layers"])
+    p = {k: v for k, v in params.items() if k not in _STACKS}
+    if "layers" in params:
+        p["layers"] = tree_map(lambda a: a[:exit_layer], params["layers"])
+        return p
+    take_dense = min(exit_layer, cfg.first_k_dense)
+    if take_dense:
+        p["dense_layers"] = tree_map(lambda a: a[:take_dense], params["dense_layers"])
+    if "moe_layers" in params:
+        take_moe = max(exit_layer - cfg.first_k_dense, 0)
+        p["moe_layers"] = tree_map(lambda a: a[:take_moe], params["moe_layers"])
     return p
 
 
 def truncated_config(cfg: LMConfig, exit_layer: int) -> LMConfig:
     check_arch(cfg)
-    return dataclasses.replace(cfg, num_layers=exit_layer)
+    kw = {"num_layers": exit_layer}
+    if cfg.arch_type == "moe":
+        kw["first_k_dense"] = min(cfg.first_k_dense, exit_layer)
+    return dataclasses.replace(cfg, **kw)
 
 
 def sequence_nll(logits: torch.Tensor, labels) -> torch.Tensor:

@@ -570,7 +570,7 @@ def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
     torch.testing.assert_close(sT, want_s, atol=tol_s, rtol=0 if big else 1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_lm_decode_matches_forward_on_card(dev, arch):
     """A reduced float32 model on the card: kernels against the plain
     versions, and decode at position S against the forward on S + 1 tokens
@@ -589,6 +589,37 @@ def test_lm_decode_matches_forward_on_card(dev, arch):
     dl, _ = lm.decode_step(params, cfg, cache, nxt, 16)
     full, _ = lm.forward(params, cfg, {"tokens": torch.cat([toks, nxt[:, None]], 1)})
     torch.testing.assert_close(dl, full[:, -1], atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("tokens", [4096, 8])  # the grouped path (16 groups) and the flat path
+def test_moe_on_card_matches_cpu_and_repeats(dev, no_tf32, tokens):
+    """A MoE layer at deepseek's routing (64 experts, top 6, 16 groups,
+    capacity_factor 1.25, so assignments drop) and a narrow width: the card's
+    routing integers equal the CPU's, its float32 output the CPU's at 1e-5 of
+    the largest, and a bf16 call repeats bit for bit (the combine is a gather
+    and a sum over K, with no atomics)."""
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_map
+
+    cfg = layers.MoEConfig(d_model=128, d_ff_expert=64, num_experts=64, top_k=6, num_shared=2,
+                           groups=16)
+    params = layers.moe_init(torch.Generator().manual_seed(3), cfg)
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 1, (tokens // 8, 8, 128)).astype(np.float32))
+    G = 16 if layers.moe_grouped(cfg, tokens) else 1
+    runs = {}
+    for d in (dev, torch.device("cpu")):
+        p = tree_map(lambda t: t.to(d), params)
+        r = layers.moe_routing(p, cfg, x.to(d).reshape(-1, 128), G)
+        runs[d.type] = (r, layers.moe_apply(p, cfg, x.to(d)), p)
+    (rg, (og, ag), pg), (rc, (oc, ac), _) = runs["cuda"], runs["cpu"]
+    for name in ("expert_ids", "pos", "keep"):
+        assert torch.equal(getattr(rg, name).cpu(), getattr(rc, name)), name
+    assert bool((~rc.keep).any())
+    torch.testing.assert_close(og.cpu(), oc, atol=1e-5 * float(oc.abs().max()), rtol=0)
+    torch.testing.assert_close(ag.cpu(), ac, atol=1e-6, rtol=0)
+    pb = dict(tree_map(lambda t: t.bfloat16(), pg), router=pg["router"])  # the router stays float32
+    xb = x.to(dev).bfloat16()
+    assert torch.equal(layers.moe_apply(pb, cfg, xb)[0], layers.moe_apply(pb, cfg, xb)[0])
 
 
 # ------------------------------------------------------------------ gradients and caches (LM)
@@ -713,7 +744,7 @@ def test_ring_and_int8_decode_on_card_match_cpu(dev, no_tf32, window, kv_quant):
         torch.testing.assert_close(a.cpu(), b, atol=2e-4 if i == 0 else 5e-4, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
     """make_train_step on a reduced float32 model, card against CPU from one
     start: losses at 1e-4 relative, parameters within 2 lr_sum, at most 1%

@@ -26,7 +26,8 @@ from repro_torch.models import lm as tlm
 from repro_torch.serving.cascade_serving import truncate_params, truncated_config
 from repro_torch.serving.decode_loop import generate
 
-ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "qwen1_5_32b", "rwkv6_1b6"]
+ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "qwen1_5_32b", "rwkv6_1b6", "deepseek_moe_16b",
+         "deepseek_v2_lite_16b"]
 B, S = 2, 16
 
 
@@ -185,10 +186,13 @@ def models():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward(models, arch):
     jcfg, jparams, tcfg, tparams, toks = models[arch]
-    want, _ = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
+    want, want_aux = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
     got, aux = tlm.forward(tparams, tcfg, {"tokens": toks})
-    assert got.shape == (B, S, tcfg.vocab_size) and float(aux) == 0.0
+    assert got.shape == (B, S, tcfg.vocab_size) and aux.dtype == torch.float32
     close(got, want)
+    # the MoE layers' load-balance loss (1e-6, tests/test_perf_variants.py's); 0 otherwise
+    np.testing.assert_allclose(float(aux), float(want_aux), atol=1e-6, rtol=0)
+    assert (float(aux) > 0) == (tcfg.arch_type == "moe")
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -249,6 +253,62 @@ def test_bfloat16_forward():
     got, _ = tlm.forward(tparams, tcfg, {"tokens": toks})
     assert got.dtype == torch.bfloat16
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want, np.float32), atol=0.05)
+
+
+def expert_sets(ids_by_layer, B, S):
+    """Each MoE layer's expert ids (any grouping) as sorted sets: (L, B, S, K)."""
+    return np.stack([np.sort(np.asarray(i).reshape(B, S, -1), -1) for i in ids_by_layer])
+
+
+@pytest.mark.parametrize("arch", ["deepseek_moe_16b", "deepseek_v2_lite_16b"])
+def test_bfloat16_forward_moe(arch, monkeypatch):
+    """test_bfloat16_forward for the MoE family.  The router stays float32
+    (carried across as float32; it routes the bf16 tokens in float32), the
+    experts and MLA compute in bf16.  The two frameworks' bf16 roundings
+    move a router logit by ~2^-8 of itself, which can flip a token's expert
+    set (the reference's own semantics, not a fault): each layer's expert
+    sets are read from both packages (repro's ``jax.lax.top_k``, the port's
+    ``moe_routing``), and the logits are held at 0.05 on the positions whose
+    own expert set agrees in every layer (at least 90% of them).  The aux
+    loss at 1e-5 (a float32 mean over probabilities of bf16 tokens) plus
+    what the flips move it by: a flipped token moves up to 2K entries of
+    the load share f by 1/T each, so aux by up to aux_weight E 2K / T."""
+    jcfg = dataclasses.replace(jlm.reduced(j_get_config(arch)), dtype="bfloat16")
+    tcfg = dataclasses.replace(tlm.reduced(get_config(arch)), dtype="bfloat16")
+    tree = perturbed(jlm.init_params(jcfg, jax.random.PRNGKey(12)), seed=12, scale=0.02)
+    tparams = lm_params_from_jax(tree, tcfg, device="cpu")
+    assert tparams["moe_layers"]["moe"]["router"].dtype == torch.float32
+    assert tparams["moe_layers"]["moe"]["w_gate"].dtype == torch.bfloat16
+    toks = np.random.default_rng(12).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
+    theirs, ours = [], []
+    top_k, routing = jax.lax.top_k, tl.moe_routing
+
+    def record_top_k(x, k):
+        out = top_k(x, k)
+        jax.debug.callback(lambda ids: theirs.append(np.asarray(ids)), out[1], ordered=True)
+        return out
+
+    def record_routing(*args):
+        r = routing(*args)
+        ours.append(r.expert_ids.numpy())
+        assert bool(r.keep.all())  # capacity_factor 8: nothing drops
+        return r
+
+    monkeypatch.setattr(jax.lax, "top_k", record_top_k)
+    monkeypatch.setattr(tl, "moe_routing", record_routing)
+    want, want_aux = jlm.forward(jax.tree.map(jnp.asarray, tree), jcfg, {"tokens": jnp.asarray(toks)})
+    got, aux = tlm.forward(tparams, tcfg, {"tokens": toks})
+    assert got.dtype == torch.bfloat16 and aux.dtype == torch.float32
+    assert len(theirs) == len(ours) == tcfg.num_layers - tcfg.first_k_dense
+    same = (expert_sets(theirs, B, S) == expert_sets(ours, B, S)).all(axis=3)  # (L, B, S)
+    agree = same.all(axis=0)
+    assert agree.mean() >= 0.9, agree
+    np.testing.assert_allclose(got.float().numpy()[agree], np.asarray(want, np.float32)[agree],
+                               atol=0.05)
+    mc = tcfg.moe()
+    flips = int((~same).sum())
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0,
+                               atol=1e-5 + mc.aux_weight * mc.num_experts * 2 * mc.top_k * flips / (B * S))
 
 
 def test_bonus_stays_float32_in_bfloat16():

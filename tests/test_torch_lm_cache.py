@@ -28,7 +28,7 @@ from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models import layers as tl
 from repro_torch.models import lm as tlm
 
-ARCHS = ["yi_6b", "qwen2_7b"]
+ARCHS = ["yi_6b", "qwen2_7b", "deepseek_moe_16b"]  # the MoE family attends as the dense one
 WINDOW, S = 8, 12
 DECODE_STEPS = 3  # decode steps past the ring's boundary (positions S, S + 1, ...)
 
@@ -195,6 +195,29 @@ def test_decode_plan_covers_the_ring_at_its_boundary(C):
         plan = decode_plan(8, 1, C, 28, 4, 128, True, 0, min(pos, C - 1))
         assert (plan.kbeg, plan.kend) == (0, min(pos, C - 1) + 1)
         assert plan.splits * plan.tiles_per_split * 32 >= plan.kend > (plan.splits - 1) * plan.tiles_per_split * 32
+
+
+@pytest.mark.parametrize("window", [0, WINDOW])
+def test_mla_decode_past_its_cache_clamps_as_repro(window):
+    """MLA ignores the window (no ring) and writes slot min(pos, C - 1), as
+    repro's dynamic_update_slice clamps: prefill of S into S slots (and of
+    S into a window of 8, the last 8 at their ring slots, as repro lays
+    them), then three decode steps past the end, against repro."""
+    jcfg, jparams, tcfg, tparams = pair("deepseek_v2_lite_16b", 7, window=window)
+    C = window or S
+    toks = tokens(tcfg, 2, S, 7)
+    jlast, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=C)
+    tlast, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=C)
+    close(tlast, jlast, 2e-4)
+    assert sorted(tcache) == ["c", "kr"] and tcache["c"].shape[2] == C
+    nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
+    for pos in range(S, S + DECODE_STEPS):
+        jd, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32))
+        td, tcache = tlm.decode_step(tparams, tcfg, tcache, torch.from_numpy(nxt), pos)
+        close(td, jd, 5e-4)
+        nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
+    for name in jcache:
+        close(tcache[name], jcache[name], 1e-5)
 
 
 def test_decode_past_a_plain_cache_raises():

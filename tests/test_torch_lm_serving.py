@@ -4,8 +4,10 @@
 weights and batch (offload masks exactly equal), batch by batch
 (``serve_batch``), as a stream through one session (``serve_stream``) and
 session-gated decoding (``cascade_generate``, greedy tokens exactly equal),
-plus the launcher (generate and ``--cascade``).  ``LMCascade.fit`` itself is held against ``repro``'s in
-tests/test_torch_pipeline.py."""
+plus the launcher (generate and ``--cascade``), for the dense, RWKV6 and MoE
+(with and without MLA) families; the MoE family's weak stack at exit 1 is
+its dense layer and a MoE stack of length 0.  ``LMCascade.fit`` itself is
+held against ``repro``'s in tests/test_torch_pipeline.py."""
 import numpy as np
 import pytest
 import torch
@@ -76,7 +78,8 @@ def _batch(seed, cfg, B=8, S=16):
     return {"tokens": toks, "labels": labels}
 
 
-@pytest.fixture(scope="module", params=["qwen2_7b", "rwkv6_1b6"])
+@pytest.fixture(scope="module", params=["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b",
+                                        "deepseek_v2_lite_16b"])
 def fitted(request, tmp_path_factory):
     """repro fits and saves an LMCascade; the port loads it and the weights."""
     arch = request.param
@@ -150,15 +153,15 @@ def test_cascade_views_and_ratio(fitted, tmp_path):
 
 
 def test_unported_entry_points_raise(fitted):
-    """The streaming entry points take the families the port runs; MoE comes
-    with ROADMAP queue A item 9 and raises naming it."""
+    """The streaming entry points take the families the port runs; the
+    hybrid family comes with ROADMAP queue A item 9 and raises naming it."""
     _, _, tcascade, tparams, tcfg = fitted
-    moe = tlm.reduced(get_config("deepseek_moe_16b"), num_layers=2)
-    moe_cascade = LMCascade(cfg=moe, exit_layer=1, engine=tcascade.engine)
+    hybrid = tlm.reduced(get_config("zamba2_2b7"), num_layers=2)
+    hybrid_cascade = LMCascade(cfg=hybrid, exit_layer=1, engine=tcascade.engine)
     with pytest.raises(NotImplementedError, match="queue A item 9"):
-        moe_cascade.serve_stream(tparams, [_batch(5, tcfg)])
+        hybrid_cascade.serve_stream(tparams, [_batch(5, tcfg)])
     with pytest.raises(NotImplementedError, match="queue A item 9"):
-        cascade_generate(tparams, moe, _batch(5, tcfg), 4, exit_layer=1, engine=tcascade.engine)
+        cascade_generate(tparams, hybrid, _batch(5, tcfg), 4, exit_layer=1, engine=tcascade.engine)
     with pytest.raises(ValueError, match="engine= or session="):
         cascade_generate(tparams, tcfg, _batch(5, tcfg), 4, exit_layer=1)
 
@@ -243,7 +246,7 @@ def test_cascade_generate_matches_repro(fitted):
     assert int(draws[0].min()) >= 0 and int(draws[0].max()) < tcfg.vocab_size
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_launcher_on_cpu(arch, capsys):
     out = launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                          "--prompt-len", "8", "--tokens", "4"])

@@ -1,6 +1,8 @@
 """LM training in the port against the JAX package's, on the CPU: ``loss_fn``,
 its gradients, ``make_train_step`` over N steps, remat, the kernels'
-autograd Functions, and the training launcher.
+autograd Functions, and the training launcher, for the dense, RWKV6 and MoE
+(with and without MLA; the MoE aux loss in the loss and its gradients)
+families.
 
 Weights are drawn by ``repro`` (perturbed from numpy, so that biases, norm
 scales and the RWKV6 bonus are not trivially 0 or 1) and carried into the
@@ -38,7 +40,7 @@ from repro_torch.models import lm as tlm
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train.adamw import adamw_init
 
-ARCHS = ["qwen2_7b", "yi_6b", "rwkv6_1b6"]
+ARCHS = ["qwen2_7b", "yi_6b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"]
 B, S = 2, 16
 STEPS, LR = 3, 1e-3
 
@@ -293,7 +295,7 @@ def test_bf16_compute_over_float32_params_trains(models):
     assert float(tlm.loss_fn(params, cfg, tb)) < float(loss)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_1b6", "deepseek_v2_lite_16b"])
 def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
     path = str(tmp_path / f"{arch}.npz")
     params, losses = launcher.main(["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16",
@@ -310,7 +312,7 @@ def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
     (["--arch", "yi_6b", "--dryrun"], "queue A item 9g"),
     (["--arch", "qwen2_vl_2b"], "queue A item 9d"),
     (["--arch", "whisper_base"], "queue A item 9f"),
-    (["--arch", "deepseek_moe_16b"], "queue A item 9"),
+    (["--arch", "zamba2_2b7"], "queue A item 9"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):

@@ -124,25 +124,28 @@ def _lm_batch(seed, cfg, B=16, S=16):
     return {"tokens": toks, "labels": labels}
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
 def test_lm_cascade_fit_equals_repro(repro_init, arch):
     """Two calibration batches: rewards (NLL_weak - NLL_strong) and the
     features' standardize statistics at 1e-5, calibration estimates at 1e-3
     (an engine on untrained weights standardizes by sigmas near 3e-5, so
     ~1e-6 float32 differences in the features move estimates by ~1e-4),
     decisions equal wherever the estimate is not within 1e-3 of the
-    threshold."""
-    jcfg = jlm.reduced(j_get_config(arch), num_layers=2)
-    tcfg = tlm.reduced(get_config(arch), num_layers=2)
+    threshold.  The MoE family runs 3 layers with the exit at 2, so that
+    the weak stack holds a MoE layer after its dense one."""
+    layers, exit_layer = (3, 2) if arch.startswith("deepseek") else (2, 1)
+    jcfg = jlm.reduced(j_get_config(arch), num_layers=layers)
+    tcfg = tlm.reduced(get_config(arch), num_layers=layers)
     tree = jax.tree.map(np.asarray, jlm.init_params(jcfg, jax.random.PRNGKey(0)))
     jparams = jax.tree.map(jnp.asarray, tree)
     tparams = lm_params_from_jax(tree, tcfg, device="cpu")
     cals = [_lm_batch(s, jcfg) for s in (1, 2)]
-    jc = JLMCascade.fit(jparams, jcfg, 1, [{k: jnp.asarray(v) for k, v in b.items()} for b in cals],
-                        ratio=0.25, epochs=3)
-    tc = LMCascade.fit(tparams, tcfg, 1, [{k: torch.from_numpy(v) for k, v in b.items()} for b in cals],
+    jc = JLMCascade.fit(jparams, jcfg, exit_layer,
+                        [{k: jnp.asarray(v) for k, v in b.items()} for b in cals], ratio=0.25, epochs=3)
+    tc = LMCascade.fit(tparams, tcfg, exit_layer,
+                       [{k: torch.from_numpy(v) for k, v in b.items()} for b in cals],
                        ratio=0.25, epochs=3)
-    assert tc.exit_layer == 1 and tc.engine.reward_model.fused
+    assert tc.exit_layer == exit_layer and tc.engine.reward_model.fused
     assert tc.engine.reward_model.config.hidden == (64,)
     np.testing.assert_allclose(tc.cdf.state()["sorted_rewards"], jc.cdf.state()["sorted_rewards"],
                                atol=1e-5)
