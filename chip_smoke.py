@@ -6,8 +6,9 @@ the paper's experiments (``run_all``), the temporal layer (video streams
 through the tracker, closed-loop adaptation), the city-scale fleet (the
 sharded plane, 1024 streams in four districts) and client mobility (moving
 clients, handover), the LM early-exit cascade (qwen2-7b, rwkv6-1.6b,
-deepseek-moe-16b and deepseek-v2-lite-16b at full width, in batches and as
-streams, with the ring and int8 decode caches), and LM training (three
+deepseek-moe-16b, deepseek-v2-lite-16b and qwen2-vl-2b at full width, in
+batches and as streams, with the ring and int8 decode caches), the hybrid
+zamba2-2.7b through ``generate`` at full width, and LM training (five
 families at full width).
 
     python3 chip_smoke.py
@@ -52,9 +53,11 @@ first use.  Phases, each printing one line of its own:
                the training shapes (B 2 x S 512), and checks that
                estimator_mlp, score_pipeline and iou_matrix(_batch) raise on
                a CUDA input that requires grad.  Fails if
-               flash_sdpa's qwen2-7b (G = 7) or deepseek-moe-16b (G = 1)
-               prefill / decode shapes miss the ``wgmma`` / ``decode``
-               routes; both G = 1 shapes are held and timed too.
+               flash_sdpa's qwen2-7b (G = 7), deepseek-moe-16b (G = 1),
+               qwen2-vl-2b (G = 6) or zamba2-2.7b (D = 80) prefill / decode
+               shapes miss the ``wgmma`` / ``decode`` routes, or D = 80 in
+               float32 the ``simt`` route; each of those shapes is held and
+               timed too, beside its bound and scaled_dot_product_attention.
 4. ``serve``   the serve path with every launch count set to 0 first:
                1024 seeded shapes images; the WEAK detector + NMS and the
                reward model calibrate on the first 512; an engine artifact
@@ -209,7 +212,9 @@ first use.  Phases, each printing one line of its own:
 11. ``lm``      the LM early-exit cascade, once per family at full width
                (qwen2-7b: dense, flash_sdpa; rwkv6-1.6b: RWKV6, wkv6;
                deepseek-moe-16b: MoE, flash_sdpa at G = 1;
-               deepseek-v2-lite-16b: MoE under MLA, no LM kernel), every
+               deepseek-v2-lite-16b: MoE under MLA, no LM kernel;
+               qwen2-vl-2b: VLM, flash_sdpa at G = 6, a 256-token vision
+               prefix and M-RoPE ids with a 16 x 16 grid on it), every
                launch count set to 0 first and read right after: seeded
                weights on the card; the exit layer at num_layers // 2; one
                8 x 512 calibration batch through the weak stack, the
@@ -255,28 +260,40 @@ first use.  Phases, each printing one line of its own:
                also split by route and shape; the run fails if qwen2-7b's
                prefill missed flash_sdpa's ``wgmma`` route or its decode
                steps the ``decode`` route, or RWKV's prefill or decode
-               missed ``wkv6``.
+               missed ``wkv6``.  qwen2-vl-2b's stream path generates
+               through each stack (``cascade_generate`` refuses M-RoPE ids:
+               repro's call cuts them on the wrong axis) and it skips the
+               cache checks.  zamba2-2.7b (``lm_hybrid_family``: no cascade,
+               as in repro) decodes 2 batches of 8 x 512, 16 greedy tokens
+               a row, through ``generate`` (flash_sdpa's launches must be
+               9 ``wgmma`` a prefill and 9 ``decode`` a step); then decode
+               and prefill against the forward and kernels against plain,
+               held on its first 2 groups in bf16 and float32, measured at
+               full depth.
 12. ``lm_train`` LM training, once per family at full width (rwkv6-1.6b
                whole; qwen2-7b with 2 of its 28 layers; deepseek-v2-lite-16b
-               with 2 of its 27, one dense and one MoE), bf16 compute over
+               with 2 of its 27, one dense and one MoE; qwen2-vl-2b with 2
+               of its 28; zamba2-2.7b with one group of its 9: 5 Mamba2
+               layers and the shared block), bf16 compute over
                float32 parameters, remat on: every launch count set to 0
                first, 3 ``make_train_step`` steps at B 2 x S 512 on one
                ``synth_lm_batch`` batch at lr 0.01 / the largest fan-in
                (each loss finite and below the one before; launches must
-               equal layers x (forward + recompute) x steps), the last under
+               equal attention or RWKV layers x (forward + recompute) x
+               steps), the last under
                ``torch.profiler`` for the card's busy share.  Then, outside
                the count: one step taken apart (forward, backward, update;
                CUDA events); the gradients through the kernels against
                ``plain=True`` leaf by leaf on the first 128 tokens (relative
                L2; the kernels no farther than twice the plain bf16
                gradient from the float32 plain gradient, + 1e-3); 3 steps on
-               the four reduced float32 configs (lr 3e-4) on the card against the
+               the six reduced float32 configs (lr 3e-4) on the card against the
                CPU (within 2 lr_sum, at most 1% of elements beyond 1e-5);
                ``python -m repro_torch.launch.train`` for 2 steps on the
                card.  Prints step ms, tokens/s, peak memory, the busy and
                backward shares.
 13. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
-               flash_sdpa and wkv6, by route and shape), its error against
+               flash_sdpa and wkv6, by route and shape and by LM family), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
                timed shape with its launches, which must account for every
@@ -2798,7 +2815,8 @@ def mobility(torch, smi, dev):
     return launches, split
 
 
-LM_ARCHS = ("qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b")
+LM_ARCHS = ("qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b", "qwen2_vl_2b",
+            "zamba2_2b7")
 LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
 LM_HIDDEN, LM_TOP_K = 64, 8
 LM_REBUDGET = {16: 0.5}  # the LM stream's re-budget: request -> ratio
@@ -2836,7 +2854,9 @@ def hold_rel(name, got, want, tol):
 
 
 # the keys of the kernels line that carry the times at the LM path's other shapes
-EXTRA_SHAPES = {"decode": "decode", "prefill G=1": "prefill_G1", "decode G=1": "decode_G1"}
+EXTRA_SHAPES = {"decode": "decode", "prefill G=1": "prefill_G1", "decode G=1": "decode_G1",
+                "prefill G=6": "prefill_G6", "decode G=6": "decode_G6",
+                "prefill D=80": "prefill_D80", "decode D=80": "decode_D80", "simt D=80": "simt_D80"}
 
 
 class RoutingLog:
@@ -2988,6 +3008,37 @@ def check_lm_kernels(torch, timer, dev):
     if taken != {"wgmma": 2, "decode": 2, "decode_combine": 2, "simt": 0}:
         fail(f"flash_sdpa at deepseek-moe-16b's prefill and decode shapes (G = 1) took the routes "
              f"{taken} (with qwen2-7b's)")
+    # qwen2-vl-2b: GQA 6 (12 query heads over 2), D 128.  zamba2-2.7b's shared
+    # attention: MHA (32 / 32), D 80: the wgmma route in the D = 128 layout
+    # (columns 80-127 zero-filled by TMA), the decode route at 10 chunks a
+    # row, and in float32 the simt route (3 columns a lane, guarded); the
+    # same bounds as above (float32: 2e-6, tests/test_kernels.py's)
+    H6, K6 = 12, 2
+    q6, k6, v6 = normal((B, S, H6, D), bf), normal((B, S, K6, D), bf), normal((B, S, K6, D), bf)
+    hold("flash_sdpa", f"prefill B={B} S=T={S} H={H6} K={K6} D={D} bf16 (G=6)",
+         flash_sdpa(q6, k6, v6), flash_sdpa_ref(q6, k6, v6),
+         BF16_P_ATOL * float(v6.float().abs().max()), 2 ** -7)
+    qd6, kd6, vd6 = normal((B, 1, H6, D), bf), normal((B, C, K6, D), bf), normal((B, C, K6, D), bf)
+    hold("flash_sdpa", f"decode B={B} S=1 T={C} H={H6} K={K6} q_offset={S} bf16 (G=6)",
+         flash_sdpa(qd6, kd6, vd6, q_offset=S), flash_sdpa_ref(qd6, kd6, vd6, q_offset=S), 1e-6,
+         2 ** -7)
+    H8 = K8 = 32
+    D8 = 80
+    q8, k8, v8 = normal((B, S, H8, D8), bf), normal((B, S, K8, D8), bf), normal((B, S, K8, D8), bf)
+    hold("flash_sdpa", f"prefill B={B} S=T={S} H={H8} K={K8} D={D8} bf16 (D=80)",
+         flash_sdpa(q8, k8, v8), flash_sdpa_ref(q8, k8, v8),
+         BF16_P_ATOL * float(v8.float().abs().max()), 2 ** -7)
+    qd8, kd8, vd8 = normal((B, 1, H8, D8), bf), normal((B, C, K8, D8), bf), normal((B, C, K8, D8), bf)
+    hold("flash_sdpa", f"decode B={B} S=1 T={C} H={H8} K={K8} D={D8} q_offset={S} bf16 (D=80)",
+         flash_sdpa(qd8, kd8, vd8, q_offset=S), flash_sdpa_ref(qd8, kd8, vd8, q_offset=S), 1e-6,
+         2 ** -7)
+    q8f, k8f, v8f = q8.float(), k8.float(), v8.float()
+    hold("flash_sdpa", f"prefill B={B} S=T={S} H={H8} K={K8} D={D8} f32 (D=80, simt)",
+         flash_sdpa(q8f, k8f, v8f), flash_sdpa_ref(q8f, k8f, v8f), 2e-6)
+    taken = {r: flash_sdpa.launches_by_route[r] - n for r, n in routes.items()}
+    if taken != {"wgmma": 4, "decode": 4, "decode_combine": 4, "simt": 1}:
+        fail(f"flash_sdpa at qwen2-vl-2b's (G = 6) and zamba2-2.7b's (D = 80) shapes took the "
+             f"routes {taken} (with the shapes above)")
 
     # wkv6: tests/test_kernels.py's cases (1e-5 in float32, 5e-2 in bf16, as
     # there), then rwkv6-1.6b's prefill and decode shapes with the layer's
@@ -3020,48 +3071,57 @@ def check_lm_kernels(torch, timer, dev):
     refused = check_grad_refusals(torch, dev)
 
     # times and bounds at the prefill shapes (and flash_sdpa's decode step)
-    records = {}
-    pairs = B * H * S * (S + 1) // 2  # causal (query, key) pairs the kernel needs
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))  # (B, heads, S, D) views
-    records["flash_sdpa"] = dict(
-        shape=f"B={B} S=T={S} H={H} K={K} D={D} bf16 causal (qwen2-7b prefill)",
-        ms=timer(lambda: flash_sdpa(q, k, v)),
-        plain_ms=timer(lambda: flash_sdpa_ref(q, k, v), reps=5, windows=11),
-        library_ms=timer(lambda: Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                                 enable_gqa=True)),
-        bytes=2 * (2 * B * S * H * D + 2 * B * S * K * D), ops=4 * D * pairs,
-        peak_ops=PEAK_BF16_OPS_PER_S,
-    )
-    dec_keys = S + 1  # slots 0..q_offset are read; the rest of the cache is masked
-    extra = {"flash_sdpa (decode)": dict(
-        shape=f"B={B} S=1 T={C} q_offset={S} bf16 (qwen2-7b decode step)",
-        ms=timer(lambda: flash_sdpa(qd, kd, vd, q_offset=S)),
-        plain_ms=timer(lambda: flash_sdpa_ref(qd, kd, vd, q_offset=S)),
-        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-            qd.transpose(1, 2), kd[:, :dec_keys].transpose(1, 2), vd[:, :dec_keys].transpose(1, 2),
-            enable_gqa=True)),
-        bytes=2 * (2 * B * H * D + 2 * B * dec_keys * K * D), ops=4 * D * B * H * dec_keys,
-        peak_ops=PEAK_BF16_OPS_PER_S,
-    )}
-    pairs1 = B * H1 * S * (S + 1) // 2
-    extra["flash_sdpa (prefill G=1)"] = dict(
-        shape=f"B={B} S=T={S} H={H1} K={K1} D={D} bf16 causal (deepseek-moe-16b prefill)",
-        ms=timer(lambda: flash_sdpa(q1, k1, v1)),
-        plain_ms=timer(lambda: flash_sdpa_ref(q1, k1, v1), reps=5, windows=11),
-        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-            q1.transpose(1, 2), k1.transpose(1, 2), v1.transpose(1, 2), is_causal=True)),
-        bytes=2 * (2 * B * S * H1 * D + 2 * B * S * K1 * D), ops=4 * D * pairs1,
-        peak_ops=PEAK_BF16_OPS_PER_S,
-    )
-    extra["flash_sdpa (decode G=1)"] = dict(
-        shape=f"B={B} S=1 T={C} H={H1} K={K1} q_offset={S} bf16 (deepseek-moe-16b decode step)",
-        ms=timer(lambda: flash_sdpa(qd1, kd1, vd1, q_offset=S)),
-        plain_ms=timer(lambda: flash_sdpa_ref(qd1, kd1, vd1, q_offset=S)),
-        library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-            qd1.transpose(1, 2), kd1[:, :dec_keys].transpose(1, 2), vd1[:, :dec_keys].transpose(1, 2))),
-        bytes=2 * (2 * B * H1 * D + 2 * B * dec_keys * K1 * D), ops=4 * D * B * H1 * dec_keys,
-        peak_ops=PEAK_BF16_OPS_PER_S,
-    )
+    def flash_record(label, q_, k_, v_, q_offset=0):
+        """Times and cost of one causal flash_sdpa call: a prefill (S = T,
+        the causal pairs) or a decode step (S = 1 at ``q_offset``: the keys
+        0..q_offset are read, the rest of the cache is masked); the library
+        call is scaled_dot_product_attention on the same (B, heads, S, D)
+        views (over the visible keys at decode)."""
+        Bq, Sq, Hq, Dq = q_.shape
+        Kq, size = k_.shape[2], q_.element_size()
+        keys = q_offset + 1 if Sq == 1 else None
+        gqa = {"enable_gqa": True} if Hq != Kq else {}
+        kl, vl = (k_, v_) if keys is None else (k_[:, :keys], v_[:, :keys])
+        if keys is None:
+            pairs, kv_rows = Bq * Hq * Sq * (Sq + 1) // 2, Bq * Sq
+        else:
+            pairs, kv_rows = Bq * Hq * keys, Bq * keys
+        slow = {"reps": 5, "windows": 11} if keys is None else {}
+        return dict(
+            shape=label,
+            ms=timer(lambda: flash_sdpa(q_, k_, v_, q_offset=q_offset)),
+            plain_ms=timer(lambda: flash_sdpa_ref(q_, k_, v_, q_offset=q_offset), **slow),
+            library_ms=timer(lambda: Fn.scaled_dot_product_attention(
+                q_.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), is_causal=keys is None,
+                **gqa)),
+            bytes=size * (2 * Bq * Sq * Hq * Dq + 2 * kv_rows * Kq * Dq), ops=4 * Dq * pairs,
+            peak_ops=PEAK_BF16_OPS_PER_S if q_.dtype == bf else PEAK_F32_OPS_PER_S,
+        )
+
+    records = {"flash_sdpa": flash_record(
+        f"B={B} S=T={S} H={H} K={K} D={D} bf16 causal (qwen2-7b prefill)", q, k, v)}
+    extra = {
+        "flash_sdpa (decode)": flash_record(
+            f"B={B} S=1 T={C} q_offset={S} bf16 (qwen2-7b decode step)", qd, kd, vd, S),
+        "flash_sdpa (prefill G=1)": flash_record(
+            f"B={B} S=T={S} H={H1} K={K1} D={D} bf16 causal (deepseek-moe-16b prefill)", q1, k1, v1),
+        "flash_sdpa (decode G=1)": flash_record(
+            f"B={B} S=1 T={C} H={H1} K={K1} q_offset={S} bf16 (deepseek-moe-16b decode step)",
+            qd1, kd1, vd1, S),
+        "flash_sdpa (prefill G=6)": flash_record(
+            f"B={B} S=T={S} H={H6} K={K6} D={D} bf16 causal (qwen2-vl-2b prefill)", q6, k6, v6),
+        "flash_sdpa (decode G=6)": flash_record(
+            f"B={B} S=1 T={C} H={H6} K={K6} q_offset={S} bf16 (qwen2-vl-2b decode step)",
+            qd6, kd6, vd6, S),
+        "flash_sdpa (prefill D=80)": flash_record(
+            f"B={B} S=T={S} H={H8} K={K8} D={D8} bf16 causal (zamba2-2.7b prefill)", q8, k8, v8),
+        "flash_sdpa (decode D=80)": flash_record(
+            f"B={B} S=1 T={C} H={H8} K={K8} D={D8} q_offset={S} bf16 (zamba2-2.7b decode step)",
+            qd8, kd8, vd8, S),
+        "flash_sdpa (simt D=80)": flash_record(
+            f"B={B} S=T={S} H={H8} K={K8} D={D8} f32 causal (zamba2-2.7b prefill, float32)",
+            q8f, k8f, v8f),
+    }
     B, T, H, K, V = LM_BATCH, LM_SEQ, 32, 64, 64
     args = wkv_inputs(B, T, H, K, V, bf, torch.float32)
     n = B * T * H
@@ -3289,9 +3349,46 @@ def split_counts(counters):
     return out
 
 
+def vlm_fields(torch, cfg, B, S, dev, rng):
+    """A VLM batch's fields besides the tokens: the vision prefix
+    (``vision_patch_embeddings``, float32) and M-RoPE ids (3, B, S) with a
+    grid on the prefix (rows of the largest divisor of ``vision_tokens`` not
+    above its square root: 16 x 16 at qwen2-vl-2b; t = 0, h = row, w =
+    column) and text after it (t = h = w, from the grid's largest id + 1),
+    so that the three axes differ and M-RoPE is not its 1-D special case.
+    {} for the other families."""
+    if cfg.arch_type != "vlm":
+        return {}
+    from repro_torch.data.modality_stubs import vision_patch_embeddings
+
+    V = cfg.vision_tokens
+    width = max(w for w in range(1, int(V ** 0.5) + 1) if V % w == 0)
+    p3d = np.zeros((3, B, S), np.int64)
+    p3d[1, :, :V], p3d[2, :, :V] = np.arange(V) // width, np.arange(V) % width
+    p3d[:, :, V:] = max(V // width, width) + np.arange(S - V)
+    return {"vision_embeds": torch.from_numpy(vision_patch_embeddings(rng, B, V, cfg.d_model)).to(dev),
+            "positions_3d": torch.from_numpy(p3d).to(dev)}
+
+
+def batch_rows(batch, idx):
+    """The rows ``idx`` of a batch's inputs (no labels): the M-RoPE ids'
+    batch axis is their second."""
+    return {k: v[:, idx] if k == "positions_3d" else v[idx] for k, v in batch.items() if k != "labels"}
+
+
+def batch_cut(batch, rows, seq):
+    """The first ``rows`` rows and ``seq`` positions of a batch (a VLM's
+    vision prefix cut with the sequence)."""
+    return {k: v[:, :rows, :seq] if k == "positions_3d" else v[:rows, :seq] for k, v in batch.items()}
+
+
 def lm_serve_family(torch, dev, cfg, seed, counters):
     """One family's LM cascade at the width of ``cfg``: the counted main
-    path, then the checks.  Returns (report, launches of the main path)."""
+    path, then the checks.  Returns (report, launches of the main path).
+    A VLM batch carries its vision prefix and M-RoPE ids (``vlm_fields``);
+    ``cascade_generate`` refuses the ids (repro's call cuts them on the
+    wrong axis), so a VLM's stream path generates through each stack
+    instead, as the served batches do."""
     from repro_torch.api.features import LMLogitsFeatures
     from repro_torch.api.reward_model import MLPRewardModel
     from repro_torch.core.estimator import mlp_apply
@@ -3323,11 +3420,12 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
 
     def lm_batch():
         toks, labels = synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)
-        return {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        return {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
+                **vlm_fields(torch, cfg, LM_BATCH, LM_SEQ, dev, rng)}
 
     cal, served = lm_batch(), [lm_batch() for _ in range(LM_SERVED)]
     # the library's first calls (cuBLAS handles) outside the counted, timed run
-    lm.forward(wparams, wcfg, {"tokens": cal["tokens"][:1, :8]})
+    lm.forward(wparams, wcfg, batch_cut(cal, 1, max(8, cfg.vision_tokens)))
     reset_counts(counters)
 
     # -- calibration: weak forward -> lm_logits features -> the MLP head
@@ -3352,19 +3450,25 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     gen_ms = {"weak": {}, "strong": {}}
     gen_tokens = {"weak": 0, "strong": 0}
     gen_calls = {"weak": 0, "strong": 0}
+
+    def stack_generate(batch, offload, count=True):
+        """LM_TOKENS greedy tokens a row through the stack its decision chose."""
+        toks = torch.zeros((LM_BATCH, LM_TOKENS), dtype=torch.int32, device=dev)
+        for which, (p, c), rows in (("weak", (wparams, wcfg), np.flatnonzero(~offload)),
+                                    ("strong", (params, cfg), np.flatnonzero(offload))):
+            if rows.size:
+                idx = torch.from_numpy(rows).to(dev)
+                toks[idx] = generate(p, c, batch_rows(batch, idx), LM_TOKENS,
+                                     stage_ms=gen_ms[which] if count else None)
+                if count:
+                    gen_tokens[which] += int(rows.size) * LM_TOKENS
+                    gen_calls[which] += 1
+        return toks
+
     for batch in served:
         out = cascade.serve_batch(params, batch, stage_ms=stage)
         results.append(out)
-        toks = torch.zeros((LM_BATCH, LM_TOKENS), dtype=torch.int32, device=dev)
-        for which, (p, c), rows in (("weak", (wparams, wcfg), np.flatnonzero(~out["offload"])),
-                                    ("strong", (params, cfg), np.flatnonzero(out["offload"]))):
-            if rows.size:
-                idx = torch.from_numpy(rows).to(dev)
-                toks[idx] = generate(p, c, {"tokens": batch["tokens"][idx]}, LM_TOKENS,
-                                     stage_ms=gen_ms[which])
-                gen_tokens[which] += int(rows.size) * LM_TOKENS
-                gen_calls[which] += 1
-        tokens.append(toks)
+        tokens.append(stack_generate(batch, out["offload"]))
     # -- fit: LMCascade.fit on two more calibration batches (oracle NLL
     # rewards, the engine fitted on the card), then a served batch through it
     fit_cal = [lm_batch() for _ in range(LM_FIT_BATCHES)]
@@ -3394,8 +3498,13 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     streamed = timed("stream_ms", lambda: cascade.serve_stream(params, served, micro_batch=LM_BATCH))
     rebudgeted = timed("stream_ms", lambda: cascade.serve_stream(
         params, served, micro_batch=LM_BATCH, set_ratio_at=LM_REBUDGET))
-    gen = timed("cascade_generate_ms", lambda: cascade_generate(
-        params, cfg, served[0], LM_TOKENS, engine=cascade.engine, exit_layer=exit_layer))
+    if "positions_3d" in served[0]:
+        gen = timed("cascade_generate_ms", lambda: {
+            "offload": streamed["offload"][:LM_BATCH],
+            "tokens": stack_generate(served[0], streamed["offload"][:LM_BATCH], count=False)})
+    else:
+        gen = timed("cascade_generate_ms", lambda: cascade_generate(
+            params, cfg, served[0], LM_TOKENS, engine=cascade.engine, exit_layer=exit_layer))
     sync()
     stream_launches = {c.__name__: c.launches for c in counters}
     stream_split = split_counts(counters)
@@ -3449,17 +3558,16 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         # float32 holds there too, and the full depth is measured
         checks["moe"] = moe_routing_checks(torch, lm, params, cfg, b0["tokens"])
         checks["moe"]["full_depth_bf16"] = decode_vs_forward(
-            torch, lm, params, moe_drop_free(cfg), b0["tokens"], None)
+            torch, lm, params, moe_drop_free(cfg), b0, None)
         hparams = truncate_params(params, cfg, LM_MOE_HELD_LAYERS)
         hcfg = truncated_config(cfg, LM_MOE_HELD_LAYERS)
-        checks.update(decode_vs_forward(torch, lm, hparams, moe_drop_free(hcfg), b0["tokens"],
-                                        LM_BF16_REL_TOL))
+        checks.update(decode_vs_forward(torch, lm, hparams, moe_drop_free(hcfg), b0, LM_BF16_REL_TOL))
         checks["decode_vs_forward_f32"] = decode_vs_forward(
             torch, lm, lm.tree_map(lambda t: t.float(), hparams),
-            dataclasses.replace(moe_drop_free(hcfg), dtype="float32"), b0["tokens"], LM_F32_REL_TOL)
+            dataclasses.replace(moe_drop_free(hcfg), dtype="float32"), b0, LM_F32_REL_TOL)
         checks["held_layers"] = LM_MOE_HELD_LAYERS
     else:
-        checks.update(decode_vs_forward(torch, lm, params, cfg, b0["tokens"], LM_BF16_REL_TOL))
+        checks.update(decode_vs_forward(torch, lm, params, cfg, b0, LM_BF16_REL_TOL))
     # the served batch 0's weak logits: kernels against the plain versions,
     # in bf16 as served, and in float32 (the weak stack's weights widened),
     # where only the kernels' float32 summation order differs.  A MoE family
@@ -3503,20 +3611,21 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
         fail(f"{cfg.name}: serve_stream with set_ratio_at {LM_REBUDGET}: masks "
              f"{rebudgeted['offload'].astype(int).tolist()}, want {want.astype(int).tolist()}")
     if not (np.array_equal(gen["offload"], results[0]["offload"]) and torch.equal(gen["tokens"], tokens[0])):
-        fail(f"{cfg.name}: cascade_generate differs from serve_batch's decisions + generate")
+        fail(f"{cfg.name}: the stream's generate differs from serve_batch's decisions + generate")
     checks["stream"] = {
         "serve_stream_equals_serve_batch": True,
         "rebudget_at": at, "rebudget_ratio": ratio,
         "realized_before_after": [float(rebudgeted["offload"][:at].mean()),
                                   float(rebudgeted["offload"][at:].mean())],
         "cascade_generate_equals_generate": True,
+        "stream_generate": "generate on each stack" if "positions_3d" in b0 else "cascade_generate",
         "telemetry": streamed["telemetry"], "rebudget_telemetry": rebudgeted["telemetry"],
-        "cascade_generate_telemetry": gen["telemetry"],
+        "cascade_generate_telemetry": gen.get("telemetry"),
     }
 
     if cfg.arch_type == "dense":
         checks["caches"] = lm_cache_checks(torch, dev, params, cfg, b0["tokens"])
-    elif not (cfg.arch_type == "rwkv" or cfg.use_mla):
+    elif moe and not cfg.use_mla:
         checks["caches"] = lm_cache_checks(torch, dev, hparams, moe_drop_free(hcfg), b0["tokens"])
 
     gen_total_ms = sum(sum(d.values()) for d in gen_ms.values())
@@ -3605,20 +3714,26 @@ def moe_routing_checks(torch, lm, params, cfg, tokens):
 LM_MOE_HELD_LAYERS = 2  # the MoE families' bf16 and float32 holds: one dense layer, one MoE
 
 
-def decode_vs_forward(torch, lm, params, cfg, tokens, tol):
+def decode_vs_forward(torch, lm, params, cfg, batch, tol):
     """Decode at position S and the prefill's last logits against a forward
     over the S + 1 tokens that replays their routing (RoutingLog), held at
     ``tol`` (measured only when None); with MoE layers (on a drop-free
     ``cfg``: the three runs route different token counts), also the flips
-    of a free forward and its distance to the decode step."""
+    of a free forward and its distance to the decode step.  A VLM's decode
+    step takes 1-D RoPE at S (no ids, as ``generate`` calls it): the
+    forward's ids for that token are S."""
+    tokens = batch["tokens"]
     B, S = tokens.shape
     with RoutingLog() as at_prefill:
-        last, cache = lm.prefill(params, cfg, {"tokens": tokens}, capacity=S + 1)
+        last, cache = lm.prefill(params, cfg, batch, capacity=S + 1)
     nxt = last.argmax(-1)
     with RoutingLog() as at_decode:
         dl, _ = lm.decode_step(params, cfg, cache, nxt, S)
     del cache
-    extended = {"tokens": torch.cat([tokens, nxt[:, None]], 1)}
+    extended = dict(batch, tokens=torch.cat([tokens, nxt[:, None]], 1))
+    if "positions_3d" in batch:
+        extended["positions_3d"] = torch.cat(
+            [batch["positions_3d"], torch.full((3, B, 1), S, device=tokens.device)], 2)
     both = RoutingLog.along(B, (at_prefill, S), (at_decode, 1))
     with RoutingLog(replay=both.replay_ids()) as at_forward:
         full, _ = lm.forward(params, cfg, extended)
@@ -3658,6 +3773,94 @@ def kernels_vs_plain(lm, params, cfg, batch, tol):
                        for a, b in zip(kernels.replay_ids(), free.replay_ids())]})
         del wp
     return wk, out
+
+
+# zamba2-2.7b (no cascade: repro serves the hybrid through generate):
+# LM_HYBRID_SERVED batches of 8 x 512 through generate; its bf16 and float32
+# holds run on its first LM_HYBRID_HELD_GROUPS groups (10 Mamba2 layers and
+# two applications of the shared block), and the full depth is measured:
+# seeded deep stacks amplify bf16 roundings (PERF.md section 6)
+LM_HYBRID_SERVED, LM_HYBRID_HELD_GROUPS = 2, 2
+
+
+def hybrid_groups(lm, params, cfg, groups):
+    """The first ``groups`` groups of a hybrid (views) and their config."""
+    cut = dict(params, mamba_groups=lm.tree_map(lambda a: a[:groups], params["mamba_groups"]))
+    return cut, dataclasses.replace(cfg, num_layers=groups * cfg.shared_attn_period)
+
+
+def lm_hybrid_family(torch, dev, cfg, seed, counters):
+    """The hybrid family at the width of ``cfg``: LM_HYBRID_SERVED batches of
+    8 x 512 through ``generate`` (prefill + LM_TOKENS - 1 greedy decode
+    steps, LM_TOKENS tokens a row), counted; then, outside the count, decode
+    and prefill against the forward and the kernels against the plain
+    versions, held on the first LM_HYBRID_HELD_GROUPS groups in bf16 and in
+    float32, measured at full depth.  Returns (report, launches)."""
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.models import lm
+    from repro_torch.serving.decode_loop import generate
+
+    sync = _sync(torch, dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev)
+    sync()
+    init_ms = (time.perf_counter() - t0) * 1e3
+    rng = np.random.default_rng(seed)
+    batches = [{"tokens": torch.from_numpy(synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)[0]).to(dev)}
+               for _ in range(LM_HYBRID_SERVED)]
+    lm.forward(params, cfg, {"tokens": batches[0]["tokens"][:1, :8]})  # first library calls
+    sync()
+    reset_counts(counters)
+    stage: Dict[str, float] = {}
+    tokens = [generate(params, cfg, b, LM_TOKENS, stage_ms=stage) for b in batches]
+    sync()
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    G, n = cfg.num_shared_attn, LM_HYBRID_SERVED
+    want = {"wgmma": G * n, "decode": G * (LM_TOKENS - 1) * n,
+            "decode_combine": G * (LM_TOKENS - 1) * n, "simt": 0}
+    if split["flash_sdpa"]["by_route"] != want or sum(launches.values()) != launches["flash_sdpa"]:
+        fail(f"{cfg.name}: launches on the hybrid path {launches}, flash_sdpa by route "
+             f"{split['flash_sdpa']['by_route']}, derived {want}")
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
+    all_toks = torch.cat(tokens)
+    if all_toks.shape != (n * LM_BATCH, LM_TOKENS) or int(all_toks.min()) < 0 \
+            or int(all_toks.max()) >= cfg.vocab_size:
+        fail(f"{cfg.name}: generated tokens of shape {tuple(all_toks.shape)} or ids outside "
+             f"[0, {cfg.vocab_size})")
+
+    b0 = batches[0]
+    hparams, hcfg = hybrid_groups(lm, params, cfg, LM_HYBRID_HELD_GROUPS)
+    h32 = lm.tree_map(lambda t: t.float(), hparams)
+    c32 = dataclasses.replace(hcfg, dtype="float32")
+    checks = decode_vs_forward(torch, lm, hparams, hcfg, b0, LM_BF16_REL_TOL)
+    checks["decode_vs_forward_f32"] = decode_vs_forward(torch, lm, h32, c32, b0, LM_F32_REL_TOL)
+    checks["full_depth_bf16"] = decode_vs_forward(torch, lm, params, cfg, b0, None)
+    checks["kernels_vs_plain"] = kernels_vs_plain(lm, hparams, hcfg, b0, LM_BF16_REL_TOL)[1]
+    checks["kernels_vs_plain_f32"] = kernels_vs_plain(lm, h32, c32, b0, LM_F32_REL_TOL)[1]
+    checks["kernels_vs_plain_full_depth_bf16"] = kernels_vs_plain(lm, params, cfg, b0, None)[1]
+    checks["held_groups"] = LM_HYBRID_HELD_GROUPS
+    del h32
+    cache = lm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_TOKENS, device=dev)
+    cache_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
+    del cache
+    gen_ms = stage["prefill_ms"] + stage["decode_ms"]
+    report = {
+        "arch": cfg.name, "params": sum(t.numel() for t in lm.tree_leaves(params)),
+        "layers": cfg.num_layers, "mamba_layers": cfg.num_mamba_layers, "groups": G,
+        "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
+        "batch": LM_BATCH, "seq": LM_SEQ, "batches": n, "tokens_per_row": LM_TOKENS,
+        "init_params_ms": init_ms,
+        "prefill_ms_per_batch": stage["prefill_ms"] / n,
+        "decode_ms_per_step": stage["decode_ms"] / (n * (LM_TOKENS - 1)),
+        "generated_tokens_per_s": n * LM_BATCH * LM_TOKENS / (gen_ms / 1e3),
+        "cache_bytes": {"batch": LM_BATCH, "slots": LM_SEQ + LM_TOKENS, **cache_bytes},
+        "peak_memory_gib": peak_gib, "checks": checks,
+        "launches": launches, "launches_split": split,
+    }
+    return report, launches
 
 
 LM_RING_WINDOW, LM_CACHE_STEPS = 256, 16  # the ring's slots; decode steps on each cache
@@ -3753,9 +3956,11 @@ def lm_cache_checks(torch, dev, params, cfg, tokens):
 
 
 def lm_serve(torch, smi, dev):
-    """The LM phase: each family in turn, its model freed before the next.
-    Returns the launches of the two main-path runs, summed, and their
-    by-route / by-shape split; then the same for the two families' streams."""
+    """The LM phase: each family in turn, its model freed before the next
+    (the hybrid through ``lm_hybrid_family``: no cascade, no stream).
+    Returns the launches of the main-path runs, summed, and their by-route /
+    by-shape split; then the same for the families' streams; and each
+    family's main-path launches."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.estimator_mlp import estimator_mlp
     from repro_torch.kernels.flash_sdpa import flash_sdpa
@@ -3766,22 +3971,24 @@ def lm_serve(torch, smi, dev):
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
     total = {c.__name__: 0 for c in counters}
     stream_total = dict(total)
-    split_total, stream_split = {}, {}
+    split_total, stream_split, by_family = {}, {}, {}
     for i, cfg in enumerate(get_config(a) for a in LM_ARCHS):
         t0 = time.perf_counter()
-        report, launches = lm_serve_family(torch, dev, cfg, seed=10 + i, counters=counters)
+        family = lm_hybrid_family if cfg.arch_type == "hybrid" else lm_serve_family
+        report, launches = family(torch, dev, cfg, seed=10 + i, counters=counters)
         report["seconds"] = time.perf_counter() - t0
         report["card"] = smi
         emit("lm", report)
+        by_family[cfg.name] = launches
         for k, n in launches.items():
             total[k] += n
-        for k, n in report["stream_launches"].items():
+        for k, n in report.get("stream_launches", {}).items():
             stream_total[k] += n
         merge_split(split_total, report["launches_split"])
-        merge_split(stream_split, report["stream_launches_split"])
+        merge_split(stream_split, report.get("stream_launches_split", {}))
         if dev.type == "cuda":
             torch.cuda.empty_cache()
-    return total, split_total, stream_total, stream_split
+    return total, split_total, stream_total, stream_split, by_family
 
 
 # --------------------------------------------------------------- LM training
@@ -3793,7 +4000,9 @@ def lm_serve(torch, smi, dev):
 # steps on one synth_lm_batch batch, so that each step's loss is the loss of
 # the same batch after the steps before it
 LM_TRAIN_MODELS = (("rwkv6_1b6", {}), ("qwen2_7b", {"num_layers": 2}),
-                   ("deepseek_v2_lite_16b", {"num_layers": 2}))  # one dense layer, one MoE
+                   ("deepseek_v2_lite_16b", {"num_layers": 2}),  # one dense layer, one MoE
+                   ("qwen2_vl_2b", {"num_layers": 2}),
+                   ("zamba2_2b7", {"num_layers": 6}))  # one group: 5 Mamba2 layers + the shared block
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
 LM_TRAIN_LR = 3e-4  # the launcher's default: the card-vs-CPU steps on the reduced configs
 # AdamW's first steps move every element by about lr (m_hat / sqrt(v_hat) is
@@ -3876,9 +4085,10 @@ def lm_train_family(torch, dev, cfg, seed, counters):
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(seed), device=dev,
                             dtype=torch.float32)
     n_params = sum(t.numel() for t in lm.tree_leaves(params))
-    toks, labels = synth_lm_batch(np.random.default_rng(0), LM_TRAIN_BATCH, LM_TRAIN_SEQ,
-                                  cfg.vocab_size)
-    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+    rng = np.random.default_rng(0)
+    toks, labels = synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
+    batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
+             **vlm_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev, rng)}
     lr = train_lr(cfg)
 
     def events():
@@ -3890,7 +4100,7 @@ def lm_train_family(torch, dev, cfg, seed, counters):
 
     # the library's first calls (kernel modules, cuBLAS handles) outside the
     # count and the timings: one forward and backward at 16 tokens
-    grads_of(cfg, {k: v[:1, :16] for k, v in batch.items()})
+    grads_of(cfg, batch_cut(batch, 1, 16))
 
     # the counted main path: LM_TRAIN_STEPS make_train_step steps, the last
     # one under torch.profiler for the card's busy time (the profiler
@@ -3918,10 +4128,12 @@ def lm_train_family(torch, dev, cfg, seed, counters):
     split = split_counts(counters)
     if not (np.isfinite(losses).all() and all(b < a for a, b in zip(losses, losses[1:]))):
         fail(f"{cfg.name}: training losses on one batch do not fall step by step: {losses}")
-    # launches: forward + remat recompute a layer a step (MLA attends in
-    # plain PyTorch: no kernel)
+    # launches: forward + remat recompute an attention or RWKV layer a step
+    # (MLA attends in plain PyTorch: no kernel; the hybrid attends once a
+    # group, its Mamba2 layers are tensor ops)
     kernel = "wkv6" if cfg.arch_type == "rwkv" else None if cfg.use_mla else "flash_sdpa"
-    derived = cfg.num_layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS if kernel else 0
+    layers = cfg.num_shared_attn if cfg.arch_type == "hybrid" else cfg.num_layers
+    derived = layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS if kernel else 0
     if (kernel and launches[kernel] != derived) or sum(launches.values()) != derived:
         fail(f"{cfg.name}: lm_train launches {launches}, derived {kernel} {derived}")
 
@@ -3946,7 +4158,7 @@ def lm_train_family(torch, dev, cfg, seed, counters):
     # (b) the gradients through the kernels against plain=True, leaf by leaf,
     # with the float32 plain gradient as the reference (LM_TRAIN_GRAD_NOISE),
     # on the batch's first LM_GRAD_CHECK_SEQ tokens
-    cut = {k: v[:, :LM_GRAD_CHECK_SEQ] for k, v in batch.items()}
+    cut = batch_cut(batch, LM_TRAIN_BATCH, LM_GRAD_CHECK_SEQ)
     got, plain = flat_leaves(grads_of(cfg, cut)), flat_leaves(grads_of(cfg, cut, plain=True))
     ref = flat_leaves(grads_of(dataclasses.replace(cfg, dtype="float32"), cut, plain=True))
     leaves = {}
@@ -4014,14 +4226,17 @@ def lm_train_parity(torch, dev):
         start = lm.init_params(cfg, torch.Generator().manual_seed(20 + i), device="cpu",
                                dtype=torch.float32)
         rng = np.random.default_rng(i)
-        batches = [synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, cfg.vocab_size)
-                   for _ in range(LM_TRAIN_PARITY_STEPS)]
+        batches = []
+        for _ in range(LM_TRAIN_PARITY_STEPS):
+            toks, labels = synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, cfg.vocab_size)
+            batches.append({"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
+                            **vlm_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, "cpu", rng)})
         got = {}
         for d in (dev, torch.device("cpu")):
             params = lm.tree_map(lambda t: t.to(d), start)
             opt, step, losses = adamw_init(params), make_train_step(cfg, lr=LM_TRAIN_LR), []
-            for toks, labels in batches:
-                b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d)}
+            for batch in batches:
+                b = {k: v.to(d) for k, v in batch.items()}
                 params, opt, loss = step(params, opt, b)
                 losses.append(float(loss))
             got[d.type] = (flat_leaves(params), losses)
@@ -4036,7 +4251,8 @@ def lm_train_parity(torch, dev):
 def lm_train(torch, smi, dev):
     """The lm_train phase: each family in turn (its model freed before the
     next), counted; then card vs CPU on the reduced configs and the launcher
-    on the card, outside the count.  Returns the launches and their split."""
+    on the card, outside the count.  Returns the launches, their split and
+    each family's launches."""
     import dataclasses as dc
 
     from repro_torch.configs import get_config
@@ -4050,13 +4266,14 @@ def lm_train(torch, smi, dev):
     t_phase = time.perf_counter()
     counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
     total = {c.__name__: 0 for c in counters}
-    split_total = {}
+    split_total, by_family = {}, {}
     for i, (arch, cut) in enumerate(LM_TRAIN_MODELS):
         cfg = dc.replace(get_config(arch), **cut)
         t0 = time.perf_counter()
         report, launches = lm_train_family(torch, dev, cfg, seed=30 + i, counters=counters)
         report.update(cut=cut, seconds=time.perf_counter() - t0, card=smi)
         emit("lm_train", report)
+        by_family[cfg.name] = launches
         for k, n in launches.items():
             total[k] += n
         merge_split(split_total, report["launches_split"])
@@ -4067,7 +4284,7 @@ def lm_train(torch, smi, dev):
     emit("lm_train_checks", {"card_vs_cpu": parity, "launcher_losses": losses,
                              "seconds": time.perf_counter() - t0,
                              "phase_seconds": time.perf_counter() - t_phase, "card": smi})
-    return total, split_total
+    return total, split_total, by_family
 
 
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
@@ -4120,8 +4337,8 @@ def main() -> None:
     video_launches, video_split = video(torch, smi, dev)
     fleet_launches, fleet_split = fleet(torch, smi, dev)
     mobility_launches, mobility_split = mobility(torch, smi, dev)
-    lm_launches, lm_split, lm_stream, lm_stream_split = lm_serve(torch, smi, dev)
-    lm_train_launches, lm_train_split = lm_train(torch, smi, dev)
+    lm_launches, lm_split, lm_stream, lm_stream_split, lm_by_family = lm_serve(torch, smi, dev)
+    lm_train_launches, lm_train_split, lm_train_by_family = lm_train(torch, smi, dev)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
@@ -4149,10 +4366,12 @@ def main() -> None:
             "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
             "launches_by_path": {p: n[name] for p, n in paths.items()},
-            **({"launches_split": lm_split[name]}
+            **({"launches_split": lm_split[name],
+                "lm_launches_by_family": {f: n[name] for f, n in lm_by_family.items()}}
                if name in lm_split and name not in HEAD_KERNELS + IOU_KERNELS else {}),
             **{key: r[key] for key in EXTRA_SHAPES.values() if key in r},
-            **({"train": r["train"], "lm_train_launches_split": lm_train_split.get(name)}
+            **({"train": r["train"], "lm_train_launches_split": lm_train_split.get(name),
+                "lm_train_launches_by_family": {f: n[name] for f, n in lm_train_by_family.items()}}
                if "train" in r else {}),
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),

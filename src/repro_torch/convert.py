@@ -87,8 +87,10 @@ def cnn_params_to_jax(params: Mapping[str, Mapping[str, torch.Tensor]]) -> Dict[
 
 # LM parameters the JAX layers use in float32 whatever the activation type
 # (``repro/models/layers.py:788``: ``u = params["bonus"].astype(jnp.float32)``;
-# the MoE router, ``:458`` / ``:524``: ``tok.astype(jnp.float32) @ router``)
-_F32_LEAVES = ("bonus", "router")
+# the MoE router, ``:458`` / ``:524``: ``tok.astype(jnp.float32) @ router``;
+# Mamba2's ``A_log``, used uncast, and ``dt_bias`` / ``D``, cast to float32 at
+# use, ``:907-910`` / ``:939``)
+_F32_LEAVES = ("bonus", "router", "A_log", "dt_bias", "D")
 
 
 def lm_params_from_jax(tree: Mapping[str, Any], cfg, device: DeviceLike = "cuda", *,
@@ -99,9 +101,10 @@ def lm_params_from_jax(tree: Mapping[str, Any], cfg, device: DeviceLike = "cuda"
 
     By default each leaf is stored in the type ``repro`` casts it to where it
     is used: ``cfg.act_dtype`` for matmul weights, norms, embeddings and mix
-    factors, float32 for the RWKV6 ``bonus`` and the MoE ``router``.  The
-    MoE family's ``dense_layers`` / ``moe_layers`` stacks carry across as
-    any other subtree.  That is the value of the
+    factors, float32 for the RWKV6 ``bonus``, the MoE ``router`` and Mamba2's
+    ``A_log`` / ``dt_bias`` / ``D``.  The MoE family's ``dense_layers`` /
+    ``moe_layers`` stacks and the hybrid's ``mamba_groups`` (G, per, ...) /
+    ``shared_block`` carry across as any other subtree.  That is the value of the
     reference's cast at every use, made once here instead of on every call.
     ``dtype`` stores every leaf in that type instead: training keeps
     ``torch.float32`` leaves, as ``repro`` does, and casts at each use."""

@@ -38,7 +38,9 @@
 // walks D with float4 reads (K rows padded by 4 floats so the lanes hit
 // distinct banks); the tile's row max and sum are warp shuffles; for P.V
 // each lane owns D / 32 output columns and takes each key's probability by
-// shuffle.
+// shuffle.  At D = 80 (zamba2-2.7b's heads, float32) a lane owns
+// ceil(D / 32) = 3 columns, the last lanes fewer (lanes 27-31 none): the
+// columns past D are guarded, never read or written.
 #include "common.cuh"
 #include "dtype.cuh"
 
@@ -89,7 +91,7 @@ flash_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
                   const T* __restrict__ v, T* __restrict__ out, int S, int Tk,
                   int H, int KH, int causal, int window, int q_offset,
                   float scale) {
-  constexpr int DPL = D / 32;  // output columns per lane
+  constexpr int DPL = (D + 31) / 32;  // output columns per lane (the last lanes' guarded)
   constexpr int KPAD = D + 4;  // padded K row: conflict-free float4 reads
   constexpr int TQ = FA_WARPS * FA_ROWS;
   constexpr int VEC = Pack16<T>::N;          // elements per 16-byte load
@@ -195,7 +197,7 @@ flash_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int jj = 0; jj < FA_TK; ++jj) {
       float vv[DPL];
 #pragma unroll
-      for (int j = 0; j < DPL; ++j) vv[j] = Vs[jj][lane * DPL + j];
+      for (int j = 0; j < DPL; ++j) vv[j] = lane * DPL + j < D ? Vs[jj][lane * DPL + j] : 0.0f;
 #pragma unroll
       for (int i = 0; i < FA_ROWS; ++i) {
         const float pj = __shfl_sync(FULL_MASK, p[i], jj);
@@ -212,7 +214,8 @@ flash_sdpa_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
     T* o = out + (((long long)b * S + s) * H + h) * D + lane * DPL;
 #pragma unroll
-    for (int j = 0; j < DPL; ++j) o[j] = store_f<T>(acc[i][j] / denom);
+    for (int j = 0; j < DPL; ++j)
+      if (lane * DPL + j < D) o[j] = store_f<T>(acc[i][j] / denom);
   }
 }
 
@@ -235,6 +238,7 @@ static int dispatch_d(int D, const void* q, const void* k, const void* v, void* 
   switch (D) {
     case 32: launch<T, 32>(q, k, v, out, B, S, Tk, H, KH, causal, window, q_offset, stream); break;
     case 64: launch<T, 64>(q, k, v, out, B, S, Tk, H, KH, causal, window, q_offset, stream); break;
+    case 80: launch<T, 80>(q, k, v, out, B, S, Tk, H, KH, causal, window, q_offset, stream); break;
     case 128: launch<T, 128>(q, k, v, out, B, S, Tk, H, KH, causal, window, q_offset, stream); break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -243,7 +247,7 @@ static int dispatch_d(int D, const void* q, const void* k, const void* v, void* 
 
 // q, out (B, S, H, D); k, v (B, T, KH, D): contiguous, on the current device,
 // float32 (bf16 = 0) or bfloat16 (bf16 = 1), k and v 16-byte aligned.
-// H % KH == 0, D in {32, 64, 128}, every size >= 1, window >= 0,
+// H % KH == 0, D in {32, 64, 80, 128}, every size >= 1, window >= 0,
 // q_offset >= 0.  Returns cudaGetLastError() (cudaErrorInvalidValue for
 // another D).
 REPRO_EXPORT int flash_sdpa(const void* q, const void* k, const void* v, void* out,

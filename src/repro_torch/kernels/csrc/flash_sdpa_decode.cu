@@ -1,5 +1,5 @@
 // Split-K attention for a few query rows a KV head: the "decode" route of
-// flash_sdpa (bfloat16, D in {64, 128}, S <= G = H / KH), taken by every
+// flash_sdpa (bfloat16, D in {64, 80, 128}, S <= G = H / KH), taken by every
 // decode step of the dense stack (S = 1).
 //
 // Replaces the Pallas kernel repro/kernels/flash_sdpa/kernel.py:24
@@ -30,6 +30,10 @@
 //   unnormalised output acc to a float32 scratch, and a second small kernel
 //   merges the splits by the log-sum-exp rule; a split (or a whole row) that
 //   sees no key has m = -inf and weighs 0, and a row no split sees gives 0.
+// D = 80 (zamba2-2.7b) needs nothing of its own: a K row is 10 16-byte
+// chunks (176 bytes padded, so 8 lanes' 16-byte reads still hit distinct
+// banks), a V row 160 bytes, the P V pass 40 column pairs and the merge 80
+// threads, every offset a multiple of 16 bytes.
 // ptxas (sm_90a): the split kernel 48 registers at D = 128 (32 at D = 64),
 // the merge 32, no spills; 41,952 bytes of dynamic shared memory at
 // qwen2-7b's R = 7 rows.
@@ -266,7 +270,7 @@ int launch(const void* q, const void* k, const void* v, void* out, float* part_a
 }  // namespace
 
 // q, out (B, S, H, D); k, v (B, T, KH, D): contiguous bfloat16 on the current
-// device, k and v 16-byte aligned; H % KH == 0, D in {64, 128}, S (H / KH)
+// device, k and v 16-byte aligned; H % KH == 0, D in {64, 80, 128}, S (H / KH)
 // <= 64.  The keys [kbeg, kend) are cut into 32-key tiles, tiles_per_split
 // of them a split, `splits` splits; part_acc (B, KH, splits, S H / KH, D) and
 // part_ml (B, KH, splits, S H / KH, 2) are float32 scratch.  Two launches:
@@ -280,6 +284,9 @@ REPRO_EXPORT int flash_sdpa_decode(const void* q, const void* k, const void* v, 
   switch (D) {
     case 64:
       return launch<64>(q, k, v, out, part_acc, part_ml, B, S, T, H, KH, causal, window, q_offset,
+                        kbeg, kend, tiles_per_split, splits, st);
+    case 80:
+      return launch<80>(q, k, v, out, part_acc, part_ml, B, S, T, H, KH, causal, window, q_offset,
                         kbeg, kend, tiles_per_split, splits, st);
     case 128:
       return launch<128>(q, k, v, out, part_acc, part_ml, B, S, T, H, KH, causal, window,

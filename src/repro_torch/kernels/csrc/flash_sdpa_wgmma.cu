@@ -3,7 +3,7 @@
 //
 // Replaces the Pallas kernel repro/kernels/flash_sdpa/kernel.py:24
 // (_flash_kernel; wrapper flash_sdpa_pallas at :65, pallas_call at :83) for
-// bfloat16 inputs with D in {64, 128}.  Same function as flash_sdpa.cu:
+// bfloat16 inputs with D in {64, 80, 128}.  Same function as flash_sdpa.cu:
 // out[b, s, h] = softmax_j(q[b, s, h] . k[b, j, h / G] / sqrt(D)) v[b, j, h / G]
 // over the keys j that position q_offset + s may see (causal: j <= q_offset + s;
 // window > 0: j > q_offset + s - window); a row that sees no key gives 0.
@@ -39,10 +39,16 @@
 //   item's Q and first K/V tiles while this item's last tiles and epilogue
 //   run (a grid of one CTA an item, without that overlap, was slower at the
 //   prefill shape).
+// - D = 80 (zamba2-2.7b's heads) runs in the D = 128 layout: the tensor
+//   maps' inner dimension is 80, so TMA fills columns 80-127 of each tile's
+//   second 64-column panel with zeros (no bytes read for them); Q K^T takes
+//   the 5 k16 steps that cover the 80 columns, P V computes 128 output
+//   columns of which the epilogue stores 80 (1.6x the P V work, in the
+//   product that is not the bound; a narrower last panel is later work).
 // ptxas (sm_90a): 168 registers a thread at launch (384 threads, 1 CTA an
 // SM), re-split by setmaxnreg to 240 for each consumer and 24 for the
-// producer; no spills; 197,696 bytes of dynamic shared memory at D = 128,
-// 99,392 at D = 64.
+// producer; no spills; 197,696 bytes of dynamic shared memory at D = 128
+// (and D = 80), 99,392 at D = 64.
 #include <algorithm>
 
 #include "common.cuh"
@@ -58,13 +64,16 @@ constexpr int WG_THREADS = 384;    // warpgroups 0, 1 consume; 2 produces
 constexpr int WG_CONSUMERS = 256;  // arrivals that free a stage
 constexpr float NEG_INF = -INFINITY;
 
-// Shared memory: Q, then K and V stages.  Each operand is stored as D / 64
+// The stored width of a head of D columns: whole 64-column panels.
+__host__ __device__ constexpr int padded(int D) { return (D + 63) / 64 * 64; }
+
+// Shared memory: Q, then K and V stages.  Each operand is stored as DP / 64
 // panels of (rows x 64) bf16 -- 128-byte rows in TMA's 128-byte swizzle --
 // so a panel is what one TMA box of 64 columns writes and what a wgmma
-// descriptor with 1024-byte 8-row groups reads.
-template <int D>
+// descriptor with 1024-byte 8-row groups reads.  DP is the padded width.
+template <int DP>
 struct Layout {
-  static constexpr int PANELS = D / 64;
+  static constexpr int PANELS = DP / 64;
   static constexpr int Q_PANEL = WG_BM * 128;  // bytes of one Q panel
   static constexpr int KV_PANEL = WG_BN * 128;
   static constexpr int Q_BYTES = PANELS * Q_PANEL;    // one Q tile
@@ -100,7 +109,8 @@ __device__ __forceinline__ bool visible(int key, int qpos, int T, int causal, in
 }
 
 // A persistent CTA: gridDim.x CTAs (one an SM) walk the n_items = ceil(S /
-// 128) H B work items round robin, heaviest first.
+// 128) H B work items round robin, heaviest first.  D is the head's real
+// width (the row stride of out), DP = padded(D) the width computed.
 template <int D>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
@@ -108,7 +118,8 @@ flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
                         const __grid_constant__ CUtensorMap tm_v,
                         __nv_bfloat16* __restrict__ out, int B, int S, int T, int H, int KH,
                         int causal, int window, int q_offset, float scale_log2, int n_items) {
-  using L = Layout<D>;
+  constexpr int DP = padded(D);
+  using L = Layout<DP>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sq = base, sk = base + L::K_OFF, sv = base + L::V_OFF;
@@ -175,10 +186,10 @@ flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 
       // accumulator layout (wgmma m64nN): element 4 j + e of a thread is row
       // row0 + 8 (e >> 1), column 8 j + 2 t4 + (e & 1)
-      float o[D / 2];
+      float o[DP / 2];
       float sc[WG_BN / 2];
 #pragma unroll
-      for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+      for (int i = 0; i < DP / 2; ++i) o[i] = 0.0f;
 #pragma unroll
       for (int i = 0; i < WG_BN / 2; ++i) sc[i] = 0.0f;
       float m_run[2] = {NEG_INF, NEG_INF}, l_run[2] = {0.0f, 0.0f};
@@ -192,9 +203,10 @@ flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         mbar_wait(kv_full(s), (kv / WG_STAGES) & 1);
         const uint32_t kt = sk + s * L::KV_BYTES, vt = sv + s * L::KV_BYTES;
 
-        // S = Q K^T: D / 16 steps of k16; a step inside a 64-column panel
-        // moves the descriptor's start by 32 bytes (the swizzle is applied by
-        // address), the next panel starts a new region
+        // S = Q K^T: D / 16 steps of k16 (the zero-filled columns past D are
+        // skipped); a step inside a 64-column panel moves the descriptor's
+        // start by 32 bytes (the swizzle is applied by address), the next
+        // panel starts a new region
         fence_regs(sc);
         wgmma_fence();
 #pragma unroll
@@ -246,7 +258,7 @@ flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
 #pragma unroll
         for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * alpha[r] + lsum[r];
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
+        for (int j = 0; j < DP / 8; ++j) {
           o[4 * j + 0] *= alpha[0];
           o[4 * j + 1] *= alpha[0];
           o[4 * j + 2] *= alpha[1];
@@ -294,6 +306,7 @@ flash_sdpa_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
         for (int c = 0; c < L::PANELS; ++c) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
+            if (64 * c + 8 * j >= D) break;  // the padded columns are not stored
             const float* acc = o + 32 * c + 4 * j + 2 * r;
             *reinterpret_cast<uint32_t*>(dst + 64 * c + 8 * j + 2 * t4) =
                 pack_bf16(acc[0] * l_run[r], acc[1] * l_run[r]);
@@ -328,8 +341,10 @@ EncodeTiledFn encode_tiled() {
 
 // A 4-D map over a contiguous (batch, rows, heads, D) bf16 tensor whose row
 // stride is that of `rows_alloc` rows; boxes of (64 columns, 1 head,
-// box_rows rows, 1 batch), 128-byte swizzled; rows at or past `rows` read as
-// zeros.
+// box_rows rows, 1 batch), 128-byte swizzled; rows at or past `rows`, and
+// columns at or past D (the second box of D = 80), read as zeros.  Strides
+// of D * 2 and heads * D * 2 bytes: multiples of 16, as TMA needs, for D a
+// multiple of 8.
 bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int rows_alloc,
               int batch, int box_rows) {
   EncodeTiledFn fn = encode_tiled();
@@ -348,7 +363,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int heads, int rows, int
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int B, int S, int T, int H,
            int KH, int causal, int window, int q_offset, cudaStream_t stream) {
-  using L = Layout<D>;
+  using L = Layout<padded(D)>;
   // keys past the last query's causal limit are never visible: the map ends there
   const int t_vis = causal ? std::max(1, std::min(T, q_offset + S)) : T;
   CUtensorMap tq, tk, tv;
@@ -380,7 +395,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int B, int S,
 }  // namespace
 
 // q, out (B, S, H, D); k, v (B, T, KH, D): contiguous bfloat16 on the current
-// device, 16-byte aligned; H % KH == 0, D in {64, 128}, every size >= 1,
+// device, 16-byte aligned; H % KH == 0, D in {64, 80, 128}, every size >= 1,
 // window >= 0, q_offset >= 0.  Returns cudaGetLastError()
 // (cudaErrorInvalidValue for another D or when a tensor map cannot be made).
 REPRO_EXPORT int flash_sdpa_wgmma(const void* q, const void* k, const void* v, void* out, int B,
@@ -389,6 +404,7 @@ REPRO_EXPORT int flash_sdpa_wgmma(const void* q, const void* k, const void* v, v
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64: return launch<64>(q, k, v, out, B, S, T, H, KH, causal, window, q_offset, st);
+    case 80: return launch<80>(q, k, v, out, B, S, T, H, KH, causal, window, q_offset, st);
     case 128: return launch<128>(q, k, v, out, B, S, T, H, KH, causal, window, q_offset, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,10 +6,11 @@ A CPU tensor takes ``flash_sdpa_ref``.  A CUDA tensor launches one of three
 hand-written kernels, chosen by dtype and shape alone (:func:`flash_route`),
 never by catching a failure:
 
-``"wgmma"``   bfloat16, D in {64, 128}, more than G = H / K query rows a KV
-              head (prefill): ``csrc/flash_sdpa_wgmma.cu``, tensor-core
-              products, TMA tiles, P rounded to bf16 before P V.
-``"decode"``  bfloat16, D in {64, 128}, S <= G and S G <= 64 (a decode
+``"wgmma"``   bfloat16, D in {64, 80, 128}, more than G = H / K query rows a
+              KV head (prefill): ``csrc/flash_sdpa_wgmma.cu``, tensor-core
+              products, TMA tiles, P rounded to bf16 before P V (D = 80 in
+              the D = 128 layout, its last 48 columns zero-filled by TMA).
+``"decode"``  bfloat16, D in {64, 80, 128}, S <= G and S G <= 64 (a decode
               step): ``csrc/flash_sdpa_decode.cu``, split-K over the key
               range with the GQA group in one CTA (:func:`decode_plan`), then
               a second launch that merges the splits (``"decode_combine"``).
@@ -50,8 +51,8 @@ _ARGTYPES = {
     "wgmma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p],
     "decode": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
 }
-HEAD_DIMS = (32, 64, 128)
-TENSOR_CORE_HEAD_DIMS = (64, 128)
+HEAD_DIMS = (32, 64, 80, 128)
+TENSOR_CORE_HEAD_DIMS = (64, 80, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 DECODE_MAX_ROWS = 64  # query rows (S G) one decode CTA holds
 DECODE_TILE = 32  # keys a decode tile
@@ -124,6 +125,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int, q_off
     if q.data_ptr() % 16 or k.data_ptr() % 16 or v.data_ptr() % 16:
         raise ValueError("q, k and v must start on a 16-byte boundary (the kernels read 16-byte "
                          "vectors and TMA boxes)")
+    if D * q.element_size() % 16:
+        raise ValueError(f"a head of {D} {q.dtype} values is not a multiple of 16 bytes: TMA's "
+                         f"strides (a head, a row of heads) and the 16-byte vector loads need it")
     if window < 0 or q_offset < 0:
         raise ValueError(f"window ({window}) and q_offset ({q_offset}) must be >= 0")
     if max(q_offset + S, window, k.shape[1], B * H * S) > INT32_MAX:

@@ -5,9 +5,14 @@ with optional ORIC cascade gating (``repro.launch.serve``).
   python -m repro_torch.launch.serve --arch rwkv6_1b6 --device cpu
   python -m repro_torch.launch.serve --arch qwen2_7b --cascade
   python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b --cascade
+  python -m repro_torch.launch.serve --arch qwen2_vl_2b --cascade
+  python -m repro_torch.launch.serve --arch zamba2_2b7 --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--cascade`` fits an
-``LMCascade`` on one calibration batch and serves that batch through it.
+``LMCascade`` on one calibration batch and serves that batch through it;
+the hybrid family has no cascade (as in ``repro``) and generates instead.
+A VLM batch carries ``repro``'s launcher's vision prefix (zeros) and M-RoPE
+ids (the positions 0..S-1 on all three axes).
 """
 from __future__ import annotations
 
@@ -45,8 +50,13 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[torch.Tensor, Dict]:
     toks, labels = synth_lm_batch(np.random.default_rng(args.seed), args.batch, args.prompt_len,
                                   cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    if cfg.arch_type == "vlm":
+        batch["vision_embeds"] = torch.zeros((args.batch, cfg.vision_tokens, cfg.d_model),
+                                             dtype=torch.float32, device=dev)
+        batch["positions_3d"] = torch.arange(args.prompt_len, device=dev).expand(
+            3, args.batch, args.prompt_len)
 
-    if args.cascade:
+    if args.cascade and cfg.arch_type in ("dense", "vlm", "moe", "rwkv"):
         cal = dict(batch, labels=torch.from_numpy(labels).to(dev))
         cascade = LMCascade.fit(params, cfg, exit_layer=max(cfg.num_layers // 2, 1),
                                 calib_batches=[cal], ratio=0.25, epochs=10)

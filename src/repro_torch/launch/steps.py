@@ -1,5 +1,6 @@
 """Step builders (``repro.launch.steps``): the train, prefill and serve
-steps of the ported families (dense, MoE with or without MLA, RWKV6).
+steps of the ported families (dense, VLM, MoE with or without MLA, RWKV6,
+hybrid).
 
 ``repro`` builds these for ``jax.jit`` with ``cfg`` closed over; here they
 are plain functions over the port's parameter trees, functional as there:
@@ -41,9 +42,15 @@ def make_prefill_step(cfg: LMConfig, capacity: int):
 
 def make_serve_step(cfg: LMConfig):
     """(params, cache, tokens, pos) -> (logits, cache): ONE new token against
-    the cache (updated in place, see ``models.lm.decode_step``)."""
+    the cache (updated in place, see ``models.lm.decode_step``).  A VLM's
+    token takes M-RoPE ids (3, B, 1) all equal to ``pos``, as ``repro``'s
+    serve step gives it."""
 
     def serve_step(params, cache, tokens, pos):
+        if cfg.arch_type == "vlm":
+            p3d = torch.full((3, int(tokens.shape[0]), 1), int(pos), dtype=torch.int64,
+                             device=params["embed"].device)
+            return decode_step(params, cfg, cache, tokens, pos, p3d)
         return decode_step(params, cfg, cache, tokens, pos)
 
     return serve_step

@@ -5,11 +5,15 @@ variant of ``--arch`` on synthetic tokens with ``launch.steps``'
   python -m repro_torch.launch.train --arch yi_6b --steps 30
   python -m repro_torch.launch.train --arch rwkv6_1b6 --steps 4 --device cpu
   python -m repro_torch.launch.train --arch deepseek_moe_16b --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch qwen2_vl_2b --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch zamba2_2b7 --steps 4 --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are float32,
 as ``repro``'s are; ``--ckpt`` writes them in ``repro``'s ``save_pytree``
-format.  ``--dryrun`` (the production-mesh lowering) comes with the rest of
-``launch/`` (ROADMAP.md queue A item 9g).
+format.  A VLM batch carries ``repro``'s launcher's vision prefix (zeros)
+and M-RoPE ids (the positions 0..S-1 on all three axes).  ``--dryrun`` (the
+production-mesh lowering) comes with the rest of ``launch/`` (ROADMAP.md
+queue A item 9g).
 """
 from __future__ import annotations
 
@@ -31,7 +35,6 @@ from repro_torch.train.checkpoint import save_pytree
 # the batch fields repro's launcher adds for these families, and the ROADMAP
 # item that brings each family
 _LATER_FIELDS = {
-    "vlm": ("vision_embeds / positions_3d", "9d"),
     "encdec": ("audio_frames", "9f"),
 }
 
@@ -68,6 +71,10 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
     for it in range(args.steps):
         toks, labels = synth_lm_batch(rng, args.batch, args.seq, cfg.vocab_size)
         batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev)}
+        if cfg.arch_type == "vlm":
+            batch["vision_embeds"] = torch.zeros((args.batch, cfg.vision_tokens, cfg.d_model),
+                                                 dtype=torch.float32, device=dev)
+            batch["positions_3d"] = torch.arange(args.seq, device=dev).expand(3, args.batch, args.seq)
         params, opt, loss = step(params, opt, batch)
         losses.append(float(loss))
         if it % 10 == 0 or it == args.steps - 1:

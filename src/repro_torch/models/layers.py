@@ -1,5 +1,5 @@
-"""Transformer, MoE, MLA and RWKV6 layers for the LM (the dense, MoE and RWKV
-families of ``repro.models.layers``).
+"""Transformer, MoE, MLA, RWKV6 and Mamba2 layers for the LM (the dense, VLM,
+MoE, RWKV and hybrid families of ``repro.models.layers``).
 
 Everything is functional, as in the JAX package: parameters are nested dicts
 of tensors under ``repro``'s keys, and ``*_apply(params, x, ...)`` computes in
@@ -36,8 +36,18 @@ combines each token's K slot outputs by a gather and a sum over K, on the
 flat and on the grouped path: one fixed order, where a scatter-add would
 use atomics on the card.  MLA (DeepSeek-V2) runs in plain PyTorch, as the
 JAX package runs it in jnp: its q/k width (qk_nope + qk_rope = 192) is not
-one the ``flash_sdpa`` kernel takes.  Mamba2 and M-RoPE come with ROADMAP
-queue A item 9 and raise until then.
+one the ``flash_sdpa`` kernel takes.
+
+M-RoPE (Qwen2-VL) rotates each frequency band by the position id of its
+axis (temporal, height, width); a query or key takes it where the config
+has ``mrope_sections`` and the call is given ``positions_3d``, else 1-D
+RoPE at ``positions``, as in the JAX package.
+
+The Mamba2 (SSD) block has no TPU kernel: the JAX package scans the
+recurrence with ``lax.scan`` in float32.  Here the scan is the chunked (SSD)
+form in tensor ops (:func:`ssd_scan`), the same recurrence summed in
+another order, so that a prefill is a few dozen launches a layer instead of
+one a token, and autograd differentiates it as it stands.
 """
 from __future__ import annotations
 
@@ -51,13 +61,6 @@ from repro_torch.kernels.flash_sdpa.ref import sdpa_mask
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
 PyTree = Dict[str, object]
-
-_LATER = "comes with the port's LM stack (ROADMAP.md queue A item 9)"
-
-
-def _not_ported(what: str):
-    return NotImplementedError(f"{what} {_LATER}")
-
 
 # ---------------------------------------------------------------------------
 # init helpers (explicit torch.Generator; shapes and scales of repro's)
@@ -119,16 +122,34 @@ def rope_freqs(head_dim: int, theta: float = 1e6, device=None) -> torch.Tensor:
     return 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32, device=device), exps)
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
-    """x: (..., S, H, D); positions: broadcastable to (..., S).  The angles
-    are float32 and cast to x's type, as in the JAX package."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)  # (D/2,)
-    angles = positions[..., None].to(torch.float32) * freqs  # (..., S, D/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x (..., S, H, D) rotated by float32 ``angles`` (..., S, D/2), the cos
+    and sin cast to x's type, as in the JAX package."""
     cos = torch.cos(angles)[..., None, :].to(x.dtype)  # (..., S, 1, D/2)
     sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = x.chunk(2, dim=-1)
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 1e6) -> torch.Tensor:
+    """x: (..., S, H, D); positions: broadcastable to (..., S)."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (D/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections: Tuple[int, int, int],
+                theta: float = 1e6) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE.  x: (B, S, H, D); ``positions_3d``: (3, B, S)
+    (temporal, height, width) position ids; ``sections`` split the D/2
+    frequency bands among the three axes in order (e.g. (16, 24, 24) for
+    D = 128): band j turns by the id of its axis.  Equal t / h / w ids give
+    1-D RoPE exactly."""
+    freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (D/2,)
+    ang = positions_3d[..., None].to(torch.float32) * freqs  # (3, B, S, D/2)
+    axis = torch.repeat_interleave(torch.arange(3, device=x.device),
+                                   torch.tensor(sections, device=x.device))  # (D/2,)
+    angles = ang.gather(0, axis.expand(1, *ang.shape[1:]))[0]  # (B, S, D/2)
+    return _rotate(x, angles)
 
 
 # ---------------------------------------------------------------------------
@@ -168,11 +189,9 @@ def attention_init(generator: torch.Generator, cfg: AttnConfig, dtype=torch.floa
     return p
 
 
-def _project_qkv(params, cfg: AttnConfig, x, positions):
+def _project_qkv(params, cfg: AttnConfig, x, positions, positions_3d=None):
     B, S, _ = x.shape
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    if cfg.mrope_sections is not None:
-        raise _not_ported("M-RoPE (the VLM family)")
     q = x @ params["wq"].to(x.dtype)
     k = x @ params["wk"].to(x.dtype)
     v = x @ params["wv"].to(x.dtype)
@@ -186,7 +205,12 @@ def _project_qkv(params, cfg: AttnConfig, x, positions):
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
-    if cfg.use_rope and positions is not None:
+    if not cfg.use_rope:
+        pass
+    elif cfg.mrope_sections is not None and positions_3d is not None:
+        q = apply_mrope(q, positions_3d, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions_3d, cfg.mrope_sections, cfg.rope_theta)
+    elif positions is not None:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     return q.contiguous(), k.contiguous(), v.contiguous()
@@ -210,13 +234,15 @@ def attention_apply(
     cfg: AttnConfig,
     x: torch.Tensor,
     positions: torch.Tensor,
+    positions_3d: Optional[torch.Tensor] = None,
     return_kv: bool = False,
     *,
     plain: bool = False,
 ):
-    """Causal self-attention over the whole sequence (prefill).
-    ``return_kv`` also returns the rotated (k, v) for the decode cache."""
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    """Causal self-attention over the whole sequence (prefill); M-RoPE at
+    ``positions_3d`` (3, B, S) where the config has sections.  ``return_kv``
+    also returns the rotated (k, v) for the decode cache."""
+    q, k, v = _project_qkv(params, cfg, x, positions, positions_3d)
     out = _sdpa(q, k, v, window=cfg.window, q_offset=0, plain=plain)
     out = out @ params["wo"].to(x.dtype)
     if return_kv:
@@ -249,6 +275,7 @@ def attention_decode(
     cache_k: torch.Tensor,  # (B, C, K, D), C = cache capacity
     cache_v: torch.Tensor,
     pos: int,  # global position of this token
+    positions_3d: Optional[torch.Tensor] = None,  # (3, B, 1) M-RoPE ids of this token
     cache_scales: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B, C, K) each
 ):
     """One-token decode against a KV cache.  This token's k/v are written
@@ -275,7 +302,7 @@ def attention_decode(
         raise ValueError(f"position {pos} outside the cache's {C} slots")
     slot = pos % C if ring else pos
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
-    q, k, v = _project_qkv(params, cfg, x, positions)
+    q, k, v = _project_qkv(params, cfg, x, positions, positions_3d)
     if cache_scales is not None:
         k_s, v_s = cache_scales
         (k_q, k_sc), (v_q, v_sc) = kv_quantize(k[:, 0]), kv_quantize(v[:, 0])
@@ -676,3 +703,142 @@ def rwkv6_channel_mix(
     k = torch.square(F.relu(xk @ params["cm_k"].to(x.dtype)))
     rgate = torch.sigmoid(xk @ params["cm_r"].to(x.dtype))
     return rgate * (k @ params["cm_v"].to(x.dtype)), x[:, -1, :]
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (SSD) block
+# ---------------------------------------------------------------------------
+
+class Mamba2Config(NamedTuple):
+    d_model: int
+    d_state: int = 64
+    expand: int = 2
+    head_dim: int = 64
+    conv_width: int = 4
+
+    @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
+    def num_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
+def mamba2_init(generator: torch.Generator, cfg: Mamba2Config, dtype=torch.float32, *,
+                stack: int = 0, device=None) -> PyTree:
+    """The keys, shapes and scales of ``repro.models.layers.mamba2_init``;
+    ``A_log``, ``D`` and ``dt_bias`` are float32 whatever ``dtype`` is, as
+    the block uses them (``in_proj`` -> [z, x, B, C, dt])."""
+    M, Di, N, H = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.num_heads
+    kw = dict(stack=stack, device=device)
+    a_log = torch.log(torch.linspace(1.0, 16.0, H, dtype=torch.float32, device=device))
+    return {
+        "in_proj": dense_init(generator, (M, 2 * Di + 2 * N + H), dtype, **kw),
+        "conv_w": dense_init(generator, (cfg.conv_width, Di + 2 * N), dtype, scale=0.5, **kw),
+        "conv_b": _const((Di + 2 * N,), 0.0, dtype, stack, device),
+        "A_log": a_log.expand(stack, H).clone() if stack else a_log,
+        "D": _const((H,), 1.0, torch.float32, stack, device),
+        "dt_bias": _const((H,), 0.0, torch.float32, stack, device),
+        "norm": rmsnorm_init(Di, dtype, **kw),
+        "out_proj": dense_init(generator, (Di, M), dtype, **kw),
+    }
+
+
+def _causal_conv(x, w, b, conv_state=None):
+    """Depthwise causal conv over time: x (B, S, C), w (W, C), b (C,);
+    ``conv_state`` (B, W - 1, C) is the context before x (zeros when None).
+    The taps are summed in the JAX package's order.  Returns (out, the last
+    W - 1 rows of the context and x: the next call's ``conv_state``)."""
+    W, S = w.shape[0], x.shape[1]
+    pad = x.new_zeros((x.shape[0], W - 1, x.shape[2])) if conv_state is None else conv_state
+    xp = torch.cat([pad, x], dim=1)  # (B, S + W - 1, C)
+    out = xp[:, :S] * w[0]
+    for i in range(1, W):
+        out = out + xp[:, i:i + S] * w[i]
+    return out + b, xp[:, S:]
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor, Bm: torch.Tensor,
+             Cm: torch.Tensor, state: torch.Tensor, chunk: int = 0
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba2 recurrence, all float32: with decay_t = exp(dt_t A),
+    s_t = decay_t s_{t-1} + dt_t x_t B_t^T and y_t = s_t C_t, from
+    ``state`` s_0.  x (B, S, H, P), dt (B, S, H), A (H,), Bm / Cm (B, S, N),
+    state (B, H, P, N) -> (y (B, S, H, P), s_S).
+
+    S = 1 (a decode step) is the recurrence step itself.  Longer inputs go
+    by the chunked (SSD) form, in chunks of ``chunk`` tokens (the whole
+    sequence when 0): inside a chunk, with log-decays a_t = dt_t A,
+      y_t = exp(sum_{tau<=t} a_tau) s_0 C_t
+            + sum_{s<=t} (C_t . B_s) exp(sum_{s<tau<=t} a_tau) dt_s x_s,
+    the decay sums taken as cumulative sums of a masked (t, s) matrix, so a
+    near pair's sum is short and exact to float32 (a difference of two long
+    cumulative sums would lose the small one); then the state carries to the
+    next chunk, s <- exp(sum a) s + sum_s exp(sum_{s<tau} a_tau) dt_s x_s
+    B_s^T.  A last chunk shorter than the rest is padded with dt = 0 and
+    x = B = C = 0: no decay, nothing added, its rows dropped."""
+    Bsz, S, H, P = x.shape
+    if S == 1:
+        decay = torch.exp(dt[:, 0] * A)  # (B, H)
+        dbx = torch.einsum("bhp,bn,bh->bhpn", x[:, 0], Bm[:, 0], dt[:, 0])
+        state = decay[..., None, None] * state + dbx
+        return torch.einsum("bhpn,bn->bhp", state, Cm[:, 0])[:, None], state
+    N = Bm.shape[-1]
+    L = min(chunk, S) if chunk > 0 else S
+    nc = -(-S // L)
+    a, xdt = dt * A, x * dt[..., None]
+    if nc * L > S:
+        pad = nc * L - S
+        a, xdt, Bm, Cm = (F.pad(t, (0,) * (2 * (t.ndim - 2)) + (0, pad)) for t in (a, xdt, Bm, Cm))
+    a = a.reshape(Bsz, nc, L, H).permute(0, 1, 3, 2)  # (B, nc, H, L)
+    xc = xdt.reshape(Bsz, nc, L, H, P)
+    Bc, Cc = Bm.reshape(Bsz, nc, L, N), Cm.reshape(Bsz, nc, L, N)
+    ones = torch.ones((L, L), dtype=torch.bool, device=x.device)
+    # seg[..., t, s] = sum_{s < tau <= t} a_tau, -inf above the diagonal
+    seg = a[..., :, None].expand(*a.shape, L).masked_fill(~ones.tril(-1), 0.0).cumsum(dim=-2)
+    decay = torch.exp(seg.masked_fill(~ones.tril(), float("-inf")))  # (B, nc, H, t, s)
+    cb = torch.einsum("bctn,bcsn->bcts", Cc, Bc)
+    y = torch.einsum("bchts,bcshp->bcthp", cb[:, :, None] * decay, xc)
+    # each chunk's own addition to the state, decayed to its end
+    tail = xc * decay[..., -1, :].permute(0, 1, 3, 2)[..., None]  # (B, nc, L, H, P)
+    into = torch.einsum("bcshp,bcsn->bchpn", tail, Bc)
+    from_start = torch.exp(a.cumsum(dim=-1))  # (B, nc, H, L): decay since the chunk's start
+    carried = []
+    for c in range(nc):
+        carried.append(torch.einsum("bhpn,btn->bthp", state, Cc[:, c])
+                       * from_start[:, c].transpose(1, 2)[..., None])
+        state = from_start[:, c, :, -1, None, None] * state + into[:, c]
+    y = (y + torch.stack(carried, dim=1)).reshape(Bsz, nc * L, H, P)[:, :S]
+    return y, state
+
+
+def mamba2_apply(
+    params: PyTree,
+    cfg: Mamba2Config,
+    x: torch.Tensor,
+    ssm_state: Optional[torch.Tensor] = None,  # (B, H, head_dim, N) float32
+    conv_state: Optional[torch.Tensor] = None,  # (B, W - 1, Di + 2N)
+    chunk: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Returns (out, new_ssm_state, new_conv_state) for S >= 1 tokens; the
+    scan is :func:`ssd_scan` in chunks of ``chunk`` (the JAX package's remat
+    chunk of the same scan)."""
+    B, S, _ = x.shape
+    Di, N, H, P = cfg.d_inner, cfg.d_state, cfg.num_heads, cfg.head_dim
+    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    z = zxbcdt[..., :Di]
+    xbc, new_conv = _causal_conv(zxbcdt[..., Di:2 * Di + 2 * N], params["conv_w"].to(x.dtype),
+                                 params["conv_b"].to(x.dtype), conv_state)
+    xbc = F.silu(xbc)
+    xs = xbc[..., :Di].reshape(B, S, H, P).float()
+    dt = F.softplus(zxbcdt[..., -H:].float() + params["dt_bias"].float())  # (B, S, H)
+    A = -torch.exp(params["A_log"].float())  # (H,)
+    if ssm_state is None:
+        ssm_state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
+    y, ssm_state = ssd_scan(xs, dt, A, xbc[..., Di:Di + N].float(), xbc[..., Di + N:].float(),
+                            ssm_state, chunk)
+    y = y + params["D"].float()[:, None] * xs
+    y = y.reshape(B, S, Di).to(x.dtype)
+    y = rmsnorm(params["norm"], y) * F.silu(z)
+    return y @ params["out_proj"].to(x.dtype), ssm_state, new_conv

@@ -1,9 +1,10 @@
-"""LM assembly for the dense, MoE and RWKV6 families (``repro.models.lm``).
+"""LM assembly for the dense, VLM, MoE, RWKV6 and hybrid families
+(``repro.models.lm``).
 
 One ``LMConfig`` (every field of the JAX package's, so the config files copy
 verbatim) drives the block patterns; this port runs ``arch_type`` ``dense``,
-``moe`` (with or without MLA) and ``rwkv``, and the other families (hybrid,
-encdec, vlm) raise until ROADMAP queue A item 9 brings them.
+``vlm``, ``moe`` (with or without MLA), ``rwkv`` and ``hybrid``; ``encdec``
+raises until ROADMAP queue A item 9f brings it.
 
 Parameters keep ``repro``'s key paths and its STACKED layout: every layer
 parameter is one ``(L, ...)`` tensor under ``params["layers"]``, or for the
@@ -13,6 +14,15 @@ The layer loop is a Python loop over ``[i]`` views of those stacks (the JAX
 package's ``lax.scan``), so a truncated stack
 (``serving.cascade_serving.truncate_params``) is a view and never a copy of
 the weights.  The decode cache stacks the layers of both stacks in order.
+
+The VLM family (Qwen2-VL) is the dense stack with two batch fields:
+``vision_embeds`` (B, vision_tokens, d_model) replaces the embeddings of the
+first ``vision_tokens`` positions, and ``positions_3d`` (3, B, S), when
+given, rotates queries and keys by M-RoPE.  The hybrid family (Zamba2) is
+G = ``num_shared_attn`` groups, each ``shared_attn_period - 1`` Mamba2
+layers (``params["mamba_groups"]``, every leaf (G, per, ...)) and then the
+one ``params["shared_block"]`` (attention + SwiGLU, the same weights in
+every group, each application with its own KV cache).
 
 API (all functional, as in ``repro``):
   init_params(cfg, generator, device)  seeded params on ``device``
@@ -45,6 +55,7 @@ from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.models.layers import (
     AttnConfig,
+    Mamba2Config,
     MLAConfig,
     MoEConfig,
     RWKV6Config,
@@ -55,6 +66,8 @@ from repro_torch.models.layers import (
     kv_quantize,
     layernorm,
     layernorm_init,
+    mamba2_apply,
+    mamba2_init,
     mla_apply,
     mla_decode,
     mla_init,
@@ -71,14 +84,14 @@ from repro_torch.models.layers import (
 
 PyTree = Dict[str, Any]
 
-PORTED_ARCHS = ("dense", "moe", "rwkv")
+PORTED_ARCHS = ("dense", "vlm", "moe", "rwkv", "hybrid")
 
 
 def check_arch(cfg: "LMConfig") -> None:
     if cfg.arch_type not in PORTED_ARCHS:
         raise NotImplementedError(
             f"arch_type {cfg.arch_type!r} ({cfg.name}) comes with the port's LM "
-            f"stack (ROADMAP.md queue A item 9); ported: {PORTED_ARCHS}"
+            f"stack (ROADMAP.md queue A item 9f); ported: {PORTED_ARCHS}"
         )
 
 
@@ -183,6 +196,24 @@ class LMConfig:
             ffn_mult=self.d_ff / self.d_model,
         )
 
+    def mamba(self) -> Mamba2Config:
+        return Mamba2Config(
+            d_model=self.d_model,
+            d_state=self.ssm_state,
+            head_dim=self.mamba_head_dim,
+        )
+
+    @property
+    def num_shared_attn(self) -> int:
+        """Shared-attention applications (groups) in a hybrid stack."""
+        if self.arch_type != "hybrid":
+            return 0
+        return self.num_layers // self.shared_attn_period
+
+    @property
+    def num_mamba_layers(self) -> int:
+        return self.num_layers - self.num_shared_attn
+
 
 def reduced(cfg: LMConfig, **overrides) -> LMConfig:
     """Smoke-test variant: 2 layers, d_model<=256, <=4 experts."""
@@ -224,9 +255,11 @@ def reduced(cfg: LMConfig, **overrides) -> LMConfig:
 # ===========================================================================
 
 def _stack_init(generator: torch.Generator, cfg: LMConfig, kind: str, n: int, dt, dev) -> PyTree:
-    """``n`` layers of ``kind`` (dense | moe | rwkv) stacked: each parameter
-    one (n, ...) tensor.  A dense layer of the MoE family (``first_k_dense``)
-    attends through MLA when ``cfg.use_mla``, as a MoE layer does."""
+    """``n`` layers of ``kind`` (dense | moe | rwkv | mamba) stacked: each
+    parameter one (n, ...) tensor (``n`` = 0: one layer, unstacked, as the
+    hybrid's shared block is).  A dense layer of the MoE family
+    (``first_k_dense``) attends through MLA when ``cfg.use_mla``, as a MoE
+    layer does."""
     M, kw = cfg.d_model, dict(stack=n, device=dev)
     if kind == "rwkv":
         return {
@@ -234,6 +267,8 @@ def _stack_init(generator: torch.Generator, cfg: LMConfig, kind: str, n: int, dt
             "tm": rwkv6_init(generator, cfg.rwkv(), dt, **kw),
             "ln2": layernorm_init(M, dt, **kw),
         }
+    if kind == "mamba":
+        return {"norm": rmsnorm_init(M, dt, **kw), "mamba": mamba2_init(generator, cfg.mamba(), dt, **kw)}
     attn = (mla_init(generator, cfg.mla(), dt, **kw) if cfg.use_mla
             else attention_init(generator, cfg.attn(), dt, **kw))
     p: PyTree = {"norm1": rmsnorm_init(M, dt, **kw), "attn": attn, "norm2": rmsnorm_init(M, dt, **kw)}
@@ -254,7 +289,9 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
     leaves.  The numbers differ from ``repro``'s (another generator); tests
     carry weights across with ``convert.lm_params_from_jax``.  The MoE
     family has two stacks, ``dense_layers`` (``first_k_dense``) and
-    ``moe_layers`` (the rest); a stack of no layer is left out."""
+    ``moe_layers`` (the rest); a stack of no layer is left out.  The hybrid
+    family has ``mamba_groups`` (every leaf (G, per, ...)) and one
+    ``shared_block``; its ``A_log``, ``D`` and ``dt_bias`` are float32."""
     check_arch(cfg)
     dev = resolve_device(device)
     dt, L, M = dtype or cfg.act_dtype, cfg.num_layers, cfg.d_model
@@ -270,8 +307,14 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
                              ("moe_layers", "moe", L - cfg.first_k_dense)):
             if n:
                 p[key] = _stack_init(generator, cfg, kind, n, dt, dev)
+    elif cfg.arch_type == "hybrid":
+        G, per = cfg.num_shared_attn, cfg.shared_attn_period - 1
+        p["mamba_groups"] = tree_map(lambda a: a.reshape(G, per, *a.shape[1:]),
+                                     _stack_init(generator, cfg, "mamba", G * per, dt, dev))
+        p["shared_block"] = _stack_init(generator, cfg, "dense", 0, dt, dev)
     else:
-        p["layers"] = _stack_init(generator, cfg, cfg.arch_type, L, dt, dev)
+        p["layers"] = _stack_init(generator, cfg, "rwkv" if cfg.arch_type == "rwkv" else "dense",
+                                  L, dt, dev)
     return p
 
 
@@ -284,16 +327,32 @@ def layer_params(stack: PyTree, i: int) -> PyTree:
 # forward (prefill)
 # ===========================================================================
 
+def _as_tensor(x, device: torch.device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """A batch field (a tensor or host numpy) on ``device``, in ``dtype``."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.from_numpy(np.asarray(x))
+    return x.to(device=device, dtype=dtype)
+
+
 def _tokens(batch: Dict, device: torch.device) -> torch.Tensor:
-    tok = batch["tokens"]
-    if not isinstance(tok, torch.Tensor):
-        tok = torch.from_numpy(np.asarray(tok))
-    return tok.to(device=device, dtype=torch.int64)
+    return _as_tensor(batch["tokens"], device, torch.int64)
+
+
+def _positions_3d(batch: Dict, device: torch.device) -> Optional[torch.Tensor]:
+    """The batch's M-RoPE ids (3, B, S) on ``device``, or None."""
+    p3d = batch.get("positions_3d")
+    return None if p3d is None else _as_tensor(p3d, device, torch.int64)
 
 
 def _embed(params, cfg: LMConfig, batch) -> torch.Tensor:
+    """Token embeddings in the activation type; for the VLM family the first
+    ``vision_tokens`` positions are the batch's ``vision_embeds`` instead."""
     table = params["embed"]
-    return table.to(cfg.act_dtype)[_tokens(batch, table.device)]
+    emb = table.to(cfg.act_dtype)[_tokens(batch, table.device)]
+    if cfg.arch_type == "vlm" and cfg.vision_tokens:
+        ve = _as_tensor(batch["vision_embeds"], table.device, cfg.act_dtype)
+        emb = torch.cat([ve, emb[:, cfg.vision_tokens:]], dim=1)
+    return emb
 
 
 def _logits(params, cfg: LMConfig, h) -> torch.Tensor:
@@ -303,20 +362,22 @@ def _logits(params, cfg: LMConfig, h) -> torch.Tensor:
     return h @ w
 
 
-def _attend(lp, cfg: LMConfig, h, positions, plain: bool, return_kv: bool):
+def _attend(lp, cfg: LMConfig, h, positions, positions_3d, plain: bool, return_kv: bool):
     """The attention half of a block: (output, kv) where kv is the rotated
     (k, v), or MLA's (latent, rope key), with ``return_kv``, else None."""
     hn = rmsnorm(lp["norm1"], h)
     if cfg.use_mla:  # plain PyTorch either way: no kernel to hold it against
         a = mla_apply(lp["attn"], cfg.mla(), hn, positions, return_kv=return_kv)
     else:
-        a = attention_apply(lp["attn"], cfg.attn(), hn, positions, return_kv=return_kv,
-                            plain=plain)
+        a = attention_apply(lp["attn"], cfg.attn(), hn, positions, positions_3d,
+                            return_kv=return_kv, plain=plain)
     return a if return_kv else (a, None)
 
 
-def _dense_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
-    a, kv = _attend(lp, cfg, h, positions, plain, return_kv)
+def _dense_block(lp, cfg: LMConfig, h, positions, positions_3d=None, plain: bool = False,
+                 return_kv: bool = False):
+    """A dense layer, or the hybrid's shared block (the same keys)."""
+    a, kv = _attend(lp, cfg, h, positions, positions_3d, plain, return_kv)
     h = h + a
     h = h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
     return h, kv
@@ -324,7 +385,7 @@ def _dense_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv
 
 def _moe_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
     """A MoE layer: (h, its aux loss, kv)."""
-    a, kv = _attend(lp, cfg, h, positions, plain, return_kv)
+    a, kv = _attend(lp, cfg, h, positions, None, plain, return_kv)
     h = h + a
     out, aux = moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))
     return h + out, aux, kv
@@ -343,6 +404,13 @@ def _rwkv_block(lp, cfg: LMConfig, h, state, x_tm, x_cm, plain: bool = False):
     h = h + a
     c, x_cm = rwkv6_channel_mix(lp["tm"], layernorm(lp["ln2"], h), x_cm)
     return h + c, state, x_tm, x_cm
+
+
+def _mamba_block(lp, cfg: LMConfig, h, ssm, conv):
+    """A hybrid Mamba2 layer: (h, its SSM state, its conv state)."""
+    out, ssm, conv = mamba2_apply(lp["mamba"], cfg.mamba(), rmsnorm(lp["norm"], h), ssm, conv,
+                                  chunk=cfg.scan_chunk)
+    return h + out, ssm, conv
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -369,6 +437,18 @@ def _layers(params, cfg: LMConfig):
             for i in range(held[key]))
 
 
+def _groups(params, cfg: LMConfig):
+    """The hybrid's groups in order: each a list of its Mamba2 layers'
+    params (views).  ``params["mamba_groups"]`` must be (G, per, ...) as
+    ``cfg`` says."""
+    G, per = cfg.num_shared_attn, cfg.shared_attn_period - 1
+    shape = tuple(next(tree_leaves(params["mamba_groups"])).shape[:2])
+    if shape != (G, per):
+        raise ValueError(f"params hold mamba groups {shape}, config {cfg.name} says {(G, per)}")
+    return [[layer_params(gp, i) for i in range(per)]
+            for gp in (layer_params(params["mamba_groups"], g) for g in range(G))]
+
+
 def _remat(body, on: bool):
     """``body`` recomputed in the backward pass when ``on`` (the JAX
     package's ``jax.checkpoint`` around a layer, ``_maybe_remat``): only the
@@ -384,21 +464,33 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), aux): the MoE
     layers' load-balance losses summed in float32 (0 for the other
-    families).  Differentiable; with ``cfg.remat``, each layer is
-    checkpointed when a parameter requires grad under grad mode (serving
-    builds no graph)."""
+    families).  Differentiable; with ``cfg.remat``, each layer (a hybrid:
+    each group) is checkpointed when a parameter requires grad under grad
+    mode (serving builds no graph)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
     remat = cfg.remat and torch.is_grad_enabled() and any(
         t.requires_grad for t in tree_leaves(params))
-    positions = _positions(B, S, h.device)
+    positions, p3d = _positions(B, S, h.device), _positions_3d(batch, h.device)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.arch_type == "hybrid":
+        sp = params["shared_block"]
+
+        def group_body(hh, layers):
+            for lp in layers:
+                hh = _mamba_block(lp, cfg, hh, None, None)[0]
+            return _dense_block(sp, cfg, hh, positions, plain=plain)[0]
+
+        body = _remat(group_body, remat)
+        for layers in _groups(params, cfg):
+            h = body(h, layers)
+        return _logits(params, cfg, h), aux
     body = {
-        "dense": _remat(lambda hh, lp: _dense_block(lp, cfg, hh, positions, plain)[0], remat),
+        "dense": _remat(lambda hh, lp: _dense_block(lp, cfg, hh, positions, p3d, plain)[0], remat),
         "moe": _remat(lambda hh, lp: _moe_block(lp, cfg, hh, positions, plain)[:2], remat),
         "rwkv": _remat(lambda hh, lp: _rwkv_block(lp, cfg, hh, None, None, None, plain)[0], remat),
     }
-    aux = torch.zeros((), dtype=torch.float32, device=h.device)
     for kind, lp in _layers(params, cfg):
         if kind == "moe":
             h, aux_l = body[kind](h, lp)
@@ -410,15 +502,11 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
 
 def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) -> torch.Tensor:
     """Mean cross-entropy over the tokens whose label is >= 0, plus aux (the
-    MoE load-balance loss; 0 for the dense and RWKV families).  The logits
-    go to float32 first; the gold logit is a gather (``repro`` sums an iota
-    mask over a vocab-sharded axis, which adds exact zeros to the same
-    logit)."""
+    MoE load-balance loss; 0 for the other families).  The logits go to
+    float32 first; the gold logit is a gather (``repro`` sums an iota mask
+    over a vocab-sharded axis, which adds exact zeros to the same logit)."""
     logits, aux = forward(params, cfg, batch, plain=plain)
-    labels = batch["labels"]
-    if not isinstance(labels, torch.Tensor):
-        labels = torch.from_numpy(np.asarray(labels))
-    labels = labels.to(device=logits.device, dtype=torch.int64)
+    labels = _as_tensor(batch["labels"], logits.device, torch.int64)
     valid = labels >= 0
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
@@ -433,18 +521,32 @@ def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) 
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "cuda") -> PyTree:
     """Zeroed decode cache: ``k``/``v`` (L, B, C, K, D) in the activation type
-    for dense stacks and the MoE family's attention (``capacity`` C is the
-    window for a ring cache); with ``cfg.kv_quant`` ``k``/``v`` int8 and
+    for dense / VLM stacks and the MoE family's attention (``capacity`` C is
+    the window for a ring cache); with ``cfg.kv_quant`` ``k``/``v`` int8 and
     their scales ``k_s``/``v_s`` float32 (L, B, C, K).  MLA: the latent
     ``c`` (L, B, C, kv_lora_rank) and the rope key ``kr`` (L, B, C,
     qk_rope_dim).  For RWKV the float32 wkv ``state`` (L, B, H, hd, hd) and
-    the last token of each mix, ``tm_x``/``cm_x`` (L, B, M)."""
+    the last token of each mix, ``tm_x``/``cm_x`` (L, B, M).  For the hybrid
+    the float32 ``ssm`` (G, per, B, H, P, N), the ``conv`` context (G, per,
+    B, W - 1, Di + 2N) and each group's shared-attention cache
+    ``shared_k``/``shared_v`` (G, B, C, K, D)."""
     check_arch(cfg)
     dev = resolve_device(device)
     L, B, C, dt = cfg.num_layers, batch, capacity, cfg.act_dtype
     if cfg.use_mla:
         return {"c": torch.zeros((L, B, C, cfg.kv_lora_rank), dtype=dt, device=dev),
                 "kr": torch.zeros((L, B, C, cfg.qk_rope_dim), dtype=dt, device=dev)}
+    if cfg.arch_type == "hybrid":
+        mc, G, per = cfg.mamba(), cfg.num_shared_attn, cfg.shared_attn_period - 1
+        kv = (G, B, C, cfg.num_kv_heads, cfg.head_dim)
+        return {
+            "ssm": torch.zeros((G, per, B, mc.num_heads, mc.head_dim, mc.d_state),
+                               dtype=torch.float32, device=dev),
+            "conv": torch.zeros((G, per, B, mc.conv_width - 1, mc.d_inner + 2 * mc.d_state),
+                                dtype=dt, device=dev),
+            "shared_k": torch.zeros(kv, dtype=dt, device=dev),
+            "shared_v": torch.zeros(kv, dtype=dt, device=dev),
+        }
     if cfg.arch_type != "rwkv":
         shape = (L, B, C, cfg.num_kv_heads, cfg.head_dim)
         if cfg.kv_quant:
@@ -463,18 +565,18 @@ def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "c
 
 
 @torch.no_grad()
-def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int
-                ) -> Tuple[torch.Tensor, PyTree]:
+def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
+                positions_3d=None) -> Tuple[torch.Tensor, PyTree]:
     """One-token decode at position ``pos``; returns (logits (B, V), cache).
     The cache is updated IN PLACE (each layer writes its slot or state into
     its ``[i]`` view of the stacked buffers) and returned.  A MoE layer
     routes the step's B tokens as one batch of B tokens (the flat path
-    unless ``moe_groups`` divides B)."""
+    unless ``moe_groups`` divides B).  ``positions_3d`` (3, B, 1), optional
+    as in ``repro``, rotates a VLM's query and key by M-RoPE; without it
+    they take 1-D RoPE at ``pos``."""
     check_arch(cfg)
     table = params["embed"]
-    if not isinstance(tokens, torch.Tensor):
-        tokens = torch.from_numpy(np.asarray(tokens))
-    h = table.to(cfg.act_dtype)[tokens.to(device=table.device, dtype=torch.int64)][:, None, :]
+    h = table.to(cfg.act_dtype)[_as_tensor(tokens, table.device, torch.int64)][:, None, :]
     pos = int(pos)
     if cfg.arch_type == "rwkv":
         for i, (_, lp) in enumerate(_layers(params, cfg)):
@@ -485,13 +587,25 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int
             cache["cm_x"][i].copy_(xc)
         return _logits(params, cfg, h)[:, 0, :], cache
     acfg = cfg.attn()
+    if cfg.arch_type == "hybrid":
+        sp = params["shared_block"]
+        for g, layers in enumerate(_groups(params, cfg)):
+            for i, lp in enumerate(layers):
+                h, ssm, conv = _mamba_block(lp, cfg, h, cache["ssm"][g, i], cache["conv"][g, i])
+                cache["ssm"][g, i].copy_(ssm)
+                cache["conv"][g, i].copy_(conv)
+            a = attention_decode(sp["attn"], acfg, rmsnorm(sp["norm1"], h), cache["shared_k"][g],
+                                 cache["shared_v"][g], pos)[0]
+            h = _ffn(sp, cfg, h + a)
+        return _logits(params, cfg, h)[:, 0, :], cache
+    p3d = None if positions_3d is None else _as_tensor(positions_3d, h.device, torch.int64)
     for i, (_, lp) in enumerate(_layers(params, cfg)):
         hn = rmsnorm(lp["norm1"], h)
         if cfg.use_mla:
             a = mla_decode(lp["attn"], cfg.mla(), hn, cache["c"][i], cache["kr"][i], pos)[0]
         else:
             scales = (cache["k_s"][i], cache["v_s"][i]) if cfg.kv_quant else None
-            a = attention_decode(lp["attn"], acfg, hn, cache["k"][i], cache["v"][i], pos,
+            a = attention_decode(lp["attn"], acfg, hn, cache["k"][i], cache["v"][i], pos, p3d,
                                  scales)[0]
         h = _ffn(lp, cfg, h + a)
     return _logits(params, cfg, h)[:, 0, :], cache
@@ -515,9 +629,10 @@ def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] 
     """Parallel prefill: the full forward, filling a decode cache of
     ``capacity`` slots (default S) in the same pass; a capacity below S
     keeps the last ``capacity`` tokens at their ring slots (a window model's
-    ring cache; MLA's latents are laid out the same way, as in the JAX
-    package).  Returns (last-token logits (B, V), cache ready for
-    ``decode_step`` at position S)."""
+    ring cache, the hybrid's shared attention under a window too; MLA's
+    latents are laid out the same way, as in the JAX package).  Returns
+    (last-token logits (B, V), cache ready for ``decode_step`` at position
+    S)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
@@ -530,12 +645,23 @@ def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] 
             cache["tm_x"][i].copy_(xt)
             cache["cm_x"][i].copy_(xc)
         return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
-    positions = _positions(B, S, h.device)
+    positions, p3d = _positions(B, S, h.device), _positions_3d(batch, h.device)
+    if cfg.arch_type == "hybrid":
+        sp = params["shared_block"]
+        for g, layers in enumerate(_groups(params, cfg)):
+            for i, lp in enumerate(layers):
+                h, ssm, conv = _mamba_block(lp, cfg, h, None, None)
+                cache["ssm"][g, i].copy_(ssm)
+                cache["conv"][g, i].copy_(conv)
+            h, (k, v) = _dense_block(sp, cfg, h, positions, return_kv=True)
+            _fill_slots(k, cache["shared_k"][g])
+            _fill_slots(v, cache["shared_v"][g])
+        return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
     for i, (kind, lp) in enumerate(_layers(params, cfg)):
         if kind == "moe":
             h, _, kv = _moe_block(lp, cfg, h, positions, return_kv=True)
         else:
-            h, kv = _dense_block(lp, cfg, h, positions, return_kv=True)
+            h, kv = _dense_block(lp, cfg, h, positions, p3d, return_kv=True)
         if cfg.use_mla:
             _fill_slots(kv[0], cache["c"][i])
             _fill_slots(kv[1], cache["kr"][i])

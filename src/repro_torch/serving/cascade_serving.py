@@ -11,9 +11,13 @@ features of the weak logits -> the one-hidden-layer MLP (the
 batches and fits the engine on the weak logits' features; an engine either
 package fitted crosses over as the artifact ``save`` writes.  ``serve_batch``
 decides one batch; ``serve_stream`` streams batches through one
-:class:`repro_torch.runtime.OffloadSession`.  The port serves the dense and
-RWKV stacks (one layer stack each) and the MoE family (its two stacks,
-with or without MLA).
+:class:`repro_torch.runtime.OffloadSession`.  The port serves the dense,
+VLM and RWKV stacks (one layer stack each) and the MoE family (its two
+stacks, with or without MLA), as ``repro`` does.  A VLM batch's
+``vision_embeds`` and ``positions_3d`` go to every forward with the
+tokens.  The hybrid family has no early-exit cascade in ``repro``
+(its ``truncate_params`` knows only these stacks), and none here: it is
+served through ``decode_loop.generate``.
 """
 from __future__ import annotations
 
@@ -46,6 +50,13 @@ __all__ = [
 _STACKS = ("layers", "dense_layers", "moe_layers")
 
 
+def _check_cascade(cfg: LMConfig) -> None:
+    check_arch(cfg)
+    if cfg.arch_type == "hybrid":
+        raise ValueError(f"{cfg.name}: the early-exit cascade cuts the dense, VLM, MoE and RWKV "
+                         f"stacks, as repro's does; the hybrid family is served by generate")
+
+
 def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:
     """Early-exit params: the first ``exit_layer`` layers + the shared head.
     The MoE family's two stacks are cut as ``repro`` cuts them: the first
@@ -53,7 +64,7 @@ def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:
     that is 0) and the MoE layers after them (a stack of length 0 when the
     exit comes before the first).  Every tensor is a view of ``params`` (no
     weight is copied)."""
-    check_arch(cfg)
+    _check_cascade(cfg)
     p = {k: v for k, v in params.items() if k not in _STACKS}
     if "layers" in params:
         p["layers"] = tree_map(lambda a: a[:exit_layer], params["layers"])
@@ -68,7 +79,7 @@ def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:
 
 
 def truncated_config(cfg: LMConfig, exit_layer: int) -> LMConfig:
-    check_arch(cfg)
+    _check_cascade(cfg)
     kw = {"num_layers": exit_layer}
     if cfg.arch_type == "moe":
         kw["first_k_dense"] = min(cfg.first_k_dense, exit_layer)

@@ -74,14 +74,24 @@ def cascade_generate(
     stateful policies (``token_bucket``) carry across calls when the caller
     passes a long-lived ``session``; passing just ``engine`` opens a
     throwaway session for this batch.  ``batch`` values must share the
-    leading batch dimension (dense / RWKV stacks).  Each stack decodes its
-    rows, gathered by an index tensor on the params' device, through
-    :func:`generate`; sampling draws from ``generator``.  Returns the
-    generated tokens (a (B, steps) int32 tensor on the params' device) plus
-    the decisions (host numpy) and the session telemetry.
+    leading batch dimension (dense / RWKV / MoE stacks, a VLM batch without
+    ``positions_3d``).  Each stack decodes its rows, gathered by an index
+    tensor on the params' device, through :func:`generate`; sampling draws
+    from ``generator``.  Returns the generated tokens (a (B, steps) int32
+    tensor on the params' device) plus the decisions (host numpy) and the
+    session telemetry.
+
+    A batch with ``positions_3d`` (3, B, S) raises ``ValueError``: its batch
+    axis is the second, and ``repro``'s call cuts every value on the first
+    (``repro/serving/decode_loop.py:102``), so it would take the rows of the
+    three id planes instead of the batch's rows.
     """
     from repro_torch.serving.cascade_serving import truncate_params, truncated_config
 
+    if "positions_3d" in batch:
+        raise ValueError("cascade_generate cuts every batch value on axis 0, as repro's does; "
+                         "positions_3d (3, B, S) has its batch on axis 1: serve a VLM batch with "
+                         "M-RoPE ids through generate on each stack")
     if session is None:
         if engine is None:
             raise ValueError("pass engine= or session=")

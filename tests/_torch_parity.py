@@ -201,3 +201,29 @@ def perturbed(tree, seed, scale=0.02):
         lambda a: (np.asarray(a, np.float32) + rng.normal(0, scale, a.shape)).astype(np.float32),
         tree,
     )
+
+
+def grid_positions(B, S, prefix, width):
+    """(3, B, S) M-RoPE ids: the first ``prefix`` positions a grid of rows of
+    ``width`` (t = 0, h = row, w = column), the rest text (t = h = w) going
+    on from the grid's largest id + 1, as Qwen2-VL numbers them."""
+    p = np.zeros((3, B, S), np.int32)
+    cells = np.arange(prefix)
+    p[1, :, :prefix], p[2, :, :prefix] = cells // width, cells % width
+    start = max(prefix // width, width) if prefix else 0
+    p[:, :, prefix:] = start + np.arange(S - prefix)
+    return p
+
+
+def vlm_fields(cfg, B, S, seed):
+    """A VLM batch's fields besides tokens: a seeded vision prefix
+    (``vision_patch_embeddings``) and M-RoPE ids with a grid of rows of 4 on
+    it (the reduced configs' 8 vision tokens: 2 x 4); nothing for the other
+    families."""
+    if cfg.arch_type != "vlm":
+        return {}
+    from repro_torch.data.modality_stubs import vision_patch_embeddings
+
+    rng = np.random.default_rng(seed)
+    return {"vision_embeds": vision_patch_embeddings(rng, B, cfg.vision_tokens, cfg.d_model),
+            "positions_3d": grid_positions(B, S, cfg.vision_tokens, 4)}

@@ -475,6 +475,9 @@ def _route_launches(route, call):
     (1, 64, 512, 8, 2, 128, 128, 448),
     (2, 1, 40, 28, 4, 128, 0, 33),  # a decode step: one query at pos 33
     (1, 3, 4, 2, 1, 32, 2, 10),  # every row fully masked -> 0
+    (2, 100, 300, 4, 2, 80, 0, 200),  # D = 80 (zamba2-2.7b): 3 columns a lane, guarded
+    (2, 1, 528, 32, 32, 80, 0, 512),  # zamba2-2.7b's decode step in float32
+    (1, 77, 200, 4, 4, 80, 50, 100),  # D = 80 under a window
 ])
 def test_flash_sdpa_kernel(dev, B, S, T, H, K, D, window, off):
     from repro_torch.kernels.flash_sdpa.ops import flash_route
@@ -503,6 +506,10 @@ def test_flash_sdpa_kernel(dev, B, S, T, H, K, D, window, off):
     (1, 77, 333, 6, 3, 128, 100, 256, True),  # window + offset, ragged
     (2, 100, 150, 4, 4, 64, 0, 0, False),  # no causal mask
     (1, 9, 20, 4, 2, 128, 3, 30, True),  # rows that see no key -> 0
+    (8, 512, 512, 12, 2, 128, 0, 0, True),  # qwen2-vl-2b prefill (GQA 6)
+    (8, 512, 512, 32, 32, 80, 0, 0, True),  # zamba2-2.7b prefill: D = 80, MHA
+    (2, 200, 300, 4, 2, 80, 64, 100, True),  # D = 80: window + offset, ragged
+    (2, 100, 150, 4, 4, 80, 0, 0, False),  # D = 80, no causal mask
 ])
 def test_flash_sdpa_wgmma_route(dev, B, S, T, H, K, D, window, off, causal):
     rng = np.random.default_rng(B * S + T + D)
@@ -514,9 +521,9 @@ def test_flash_sdpa_wgmma_route(dev, B, S, T, H, K, D, window, off, causal):
     torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "wgmma"))
 
 
-@pytest.mark.parametrize("G", [1, 2, 7])
+@pytest.mark.parametrize("G", [1, 2, 6, 7])
 @pytest.mark.parametrize("T", [1, 40, 528])
-@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("D", [64, 80, 128])
 def test_flash_sdpa_decode_route(dev, G, T, D):
     """One query a head at the cache's last filled slot (T = 528: qwen2-7b's
     decode step at position 512 of a 528-slot cache), through the split-K
@@ -570,25 +577,78 @@ def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
     torch.testing.assert_close(sT, want_s, atol=tol_s, rtol=0 if big else 1e-5)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
+def _vlm_fields(cfg, B, S, dev, seed=0):
+    """A VLM batch's vision prefix (``vision_patch_embeddings``) and M-RoPE
+    ids (a grid of rows of 4 on the prefix, text after it); {} otherwise."""
+    if cfg.arch_type != "vlm":
+        return {}
+    from repro_torch.data.modality_stubs import vision_patch_embeddings
+
+    V = cfg.vision_tokens
+    p = np.zeros((3, B, S), np.int64)
+    p[1, :, :V], p[2, :, :V] = np.arange(V) // 4, np.arange(V) % 4
+    p[:, :, V:] = max(V // 4, 4) + np.arange(S - V)
+    ve = vision_patch_embeddings(np.random.default_rng(seed), B, V, cfg.d_model)
+    return {"vision_embeds": torch.from_numpy(ve).to(dev), "positions_3d": torch.from_numpy(p).to(dev)}
+
+
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                                  "qwen2_vl_2b", "zamba2_2b7"])
 def test_lm_decode_matches_forward_on_card(dev, arch):
     """A reduced float32 model on the card: kernels against the plain
     versions, and decode at position S against the forward on S + 1 tokens
-    (the contract of tests/test_archs_smoke.py)."""
+    (the contract of tests/test_archs_smoke.py; a VLM's decode step takes
+    1-D RoPE at S, so the forward's ids for that token are S)."""
     from repro_torch.configs import get_config
     from repro_torch.models import lm
 
     cfg = lm.reduced(get_config(arch))
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)), device=dev)
-    logits, _ = lm.forward(params, cfg, {"tokens": toks})
-    plain, _ = lm.forward(params, cfg, {"tokens": toks}, plain=True)
+    batch = {"tokens": toks, **_vlm_fields(cfg, 2, 16, dev)}
+    logits, _ = lm.forward(params, cfg, batch)
+    plain, _ = lm.forward(params, cfg, batch, plain=True)
     torch.testing.assert_close(logits, plain, atol=1e-5, rtol=0)
-    last, cache = lm.prefill(params, cfg, {"tokens": toks}, capacity=20)
+    last, cache = lm.prefill(params, cfg, batch, capacity=20)
     nxt = last.argmax(-1)
     dl, _ = lm.decode_step(params, cfg, cache, nxt, 16)
-    full, _ = lm.forward(params, cfg, {"tokens": torch.cat([toks, nxt[:, None]], 1)})
+    ext = dict(batch, tokens=torch.cat([toks, nxt[:, None]], 1))
+    if "positions_3d" in batch:
+        ext["positions_3d"] = torch.cat([batch["positions_3d"],
+                                         torch.full((3, 2, 1), 16, device=dev)], 2)
+    full, _ = lm.forward(params, cfg, ext)
     torch.testing.assert_close(dl, full[:, -1], atol=5e-4, rtol=0)
+
+
+@pytest.mark.parametrize("S", [1, 37, 512])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_apply_on_card_matches_cpu(dev, no_tf32, S, with_state):
+    """Mamba2 (the chunked SSD scan, chunks of 128) at zamba2-2.7b's head
+    layout with a narrow d_model, float32: the card against the CPU, output
+    and states at 1e-5 of each one's largest entry (float32 summation
+    order), and the card's bf16 forward finite."""
+    from repro_torch.models import layers
+    from repro_torch.tree import tree_map
+
+    cfg = layers.Mamba2Config(d_model=256, d_state=64, head_dim=64)
+    params = layers.mamba2_init(torch.Generator().manual_seed(4), cfg)
+    rng = np.random.default_rng(S)
+    x = torch.from_numpy(rng.normal(0, 1, (2, S, 256)).astype(np.float32))
+    st = cv = None
+    if with_state:
+        st = torch.from_numpy(rng.normal(0, 0.3, (2, cfg.num_heads, 64, 64)).astype(np.float32))
+        cv = torch.from_numpy(rng.normal(0, 1, (2, 3, cfg.d_inner + 128)).astype(np.float32))
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        mv = (lambda t: None if t is None else t.to(d))
+        out[d.type] = layers.mamba2_apply(tree_map(mv, params), cfg, x.to(d), mv(st), mv(cv),
+                                          chunk=128)
+    for a, b in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5 * max(1.0, float(b.abs().max())), rtol=0)
+    pb = layers.mamba2_init(torch.Generator(device=dev).manual_seed(4), cfg, torch.bfloat16, device=dev)
+    assert pb["A_log"].dtype == pb["D"].dtype == pb["dt_bias"].dtype == torch.float32
+    y, _, _ = layers.mamba2_apply(pb, cfg, x.to(dev).bfloat16(), chunk=128)
+    assert y.dtype == torch.bfloat16 and torch.isfinite(y.float()).all()
 
 
 @pytest.mark.parametrize("tokens", [4096, 8])  # the grouped path (16 groups) and the flat path
@@ -636,6 +696,8 @@ def _grads(fn, ins, upstream):
 @pytest.mark.parametrize("route,dtype,B,S,H,K,D", [
     ("wgmma", torch.bfloat16, 2, 512, 28, 4, 128),  # qwen2-7b's training shape, GQA 7
     ("simt", torch.float32, 2, 128, 4, 2, 32),
+    ("wgmma", torch.bfloat16, 2, 512, 32, 32, 80),  # zamba2-2.7b's training shape, D = 80
+    ("simt", torch.float32, 2, 128, 4, 2, 80),
 ])
 @pytest.mark.parametrize("window", [0, 32])
 def test_flash_sdpa_function_gradients_match_plain_on_card(dev, route, dtype, B, S, H, K, D, window):
@@ -744,7 +806,8 @@ def test_ring_and_int8_decode_on_card_match_cpu(dev, no_tf32, window, kv_quant):
         torch.testing.assert_close(a.cpu(), b, atol=2e-4 if i == 0 else 5e-4, rtol=0)
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                                  "qwen2_vl_2b", "zamba2_2b7"])
 def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
     """make_train_step on a reduced float32 model, card against CPU from one
     start: losses at 1e-4 relative, parameters within 2 lr_sum, at most 1%
@@ -764,7 +827,8 @@ def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
         params = lm.tree_map(lambda t: t.to(d), start)
         opt, step, losses = adamw_init(params), make_train_step(cfg, lr=lr), []
         for toks, labels in batches:
-            b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d)}
+            b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d),
+                 **_vlm_fields(cfg, 2, 32, d)}
             params, opt, loss = step(params, opt, b)
             losses.append(float(loss))
         runs[d.type] = (list(lm.tree_leaves(params)), losses)

@@ -40,9 +40,31 @@ BF16, F32 = torch.bfloat16, torch.float32
     (F32, 512, 128, 7, "simt"),  # float32 stays, at every S
     (F32, 1, 128, 7, "simt"),
     (F32, 1, 64, 1, "simt"),
+    (BF16, 512, 128, 6, "wgmma"),  # qwen2-vl-2b prefill (12 query heads over 2)
+    (BF16, 1, 128, 6, "decode"),  # qwen2-vl-2b decode step
+    (BF16, 512, 80, 1, "wgmma"),  # zamba2-2.7b prefill (32 / 32 heads of 80)
+    (BF16, 1, 80, 1, "decode"),  # zamba2-2.7b decode step
+    (F32, 512, 80, 1, "simt"),
+    (F32, 1, 80, 1, "simt"),
 ])
 def test_flash_route(dtype, S, D, G, route):
     assert flash_route(dtype, S, D, G) == route
+
+
+@pytest.mark.parametrize("dtype", [BF16, F32])
+@pytest.mark.parametrize("D,takes", [(80, True), (96, False), (48, False), (256, False)])
+def test_head_dims_the_wrapper_takes(dtype, D, takes):
+    """D = 80 passes _check in both types (on the CPU: the plain version,
+    equal to flash_sdpa_ref); an unsupported head dim still raises, with no
+    fallback on either device."""
+    rng = np.random.default_rng(D)
+    q, k, v = (torch.from_numpy(rng.normal(0, 1, s).astype(np.float32)).to(dtype)
+               for s in ((1, 5, 4, D), (1, 5, 2, D), (1, 5, 2, D)))
+    if takes:
+        assert torch.equal(flash_sdpa(q, k, v), flash_sdpa_ref(q, k, v))
+    else:
+        with pytest.raises(ValueError, match=f"head_dim {D} not supported"):
+            flash_sdpa(q, k, v)
 
 
 def test_decode_plan_qwen2_7b():
@@ -122,6 +144,7 @@ MERGE_CASES = [  # B, S, T, H, K, D, window, q_offset, splits
     (2, 3, 100, 6, 2, 64, 0, 97, 4),  # S = G = 3
     (1, 2, 200, 8, 4, 128, 40, 150, 5),  # a window: early splits see no key
     (1, 1, 4, 2, 1, 64, 2, 10, 1),  # no key at all -> 0
+    (1, 1, 100, 4, 4, 80, 0, 97, 3),  # zamba2-2.7b's head dim, MHA
 ]
 
 

@@ -4,14 +4,17 @@ Weights are drawn by ``repro`` (then perturbed from numpy, so that biases,
 norm scales, qk-norm, the RWKV6 bonus and decay base are not trivially 0 or
 1), and carried into the port by ``lm_params_from_jax``.  Float32 layers
 compare at 1e-5, the reference's own kernel tolerance; greedy tokens must be
-equal."""
+equal.  The hybrid's SSM state (entries up to ~12) is held at 1e-5 of its
+largest entry: a float32 sum of decayed terms whose inputs already differ
+by the two frameworks' matmul roundings.  The VLM batch carries a vision
+prefix and M-RoPE ids with distinct t / h / w (a grid on the prefix)."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
+from _torch_parity import vlm_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as j_get_config
@@ -27,8 +30,18 @@ from repro_torch.serving.cascade_serving import truncate_params, truncated_confi
 from repro_torch.serving.decode_loop import generate
 
 ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "qwen1_5_32b", "rwkv6_1b6", "deepseek_moe_16b",
-         "deepseek_v2_lite_16b"]
+         "deepseek_v2_lite_16b", "qwen2_vl_2b", "zamba2_2b7"]
 B, S = 2, 16
+
+
+def lm_batch(cfg, toks, seed=0):
+    """The tokens, and for the VLM family a seeded vision prefix and M-RoPE
+    ids (``vlm_fields``)."""
+    return {"tokens": toks, **vlm_fields(cfg, *toks.shape, seed)}
+
+
+def cache_tol(name, want):
+    return 1e-5 * max(1.0, float(np.abs(np.asarray(want)).max())) if name == "ssm" else 1e-5
 
 
 def perturbed(tree, seed, scale=0.05):
@@ -68,6 +81,47 @@ def test_apply_rope(theta):
     close(tl.rope_freqs(32, theta), jl.rope_freqs(32, theta), atol=1e-7)
     close(tl.apply_rope(t(x), torch.from_numpy(pos.copy()), theta),
           jl.apply_rope(jnp.asarray(x), jnp.asarray(pos), theta))
+
+
+@pytest.mark.parametrize("sections,D", [((4, 6, 6), 32), ((16, 24, 24), 128)])
+def test_apply_mrope(sections, D):
+    """Distinct t / h / w ids, so that each band's axis matters (equal ids
+    are 1-D RoPE, which the port also checks against its own apply_rope)."""
+    rng = np.random.default_rng(D)
+    x = rng.normal(0, 1, (2, 24, 3, D)).astype(np.float32)
+    p3d = rng.integers(0, 40, (3, 2, 24)).astype(np.int32)
+    want = jl.apply_mrope(jnp.asarray(x), jnp.asarray(p3d), sections, 1e6)
+    got = tl.apply_mrope(t(x), torch.from_numpy(p3d), sections, 1e6)
+    close(got, want)
+    flat = np.broadcast_to(p3d[:1], p3d.shape).copy()
+    assert torch.equal(tl.apply_mrope(t(x), torch.from_numpy(flat), sections),
+                       tl.apply_rope(t(x), torch.from_numpy(flat[0])))
+    assert not np.allclose(got.numpy(), tl.apply_rope(t(x), torch.from_numpy(p3d[0])).numpy())
+
+
+@pytest.mark.parametrize("S_", [1, 16, 37, 64])
+@pytest.mark.parametrize("with_state", [False, True])
+def test_mamba2_apply(S_, with_state):
+    """Outputs, SSM and conv states at 1e-5, with and without incoming
+    states; chunks of 16 (S = 37: a short last chunk; S = 1: the single
+    step)."""
+    jcfg = jl.Mamba2Config(d_model=64, d_state=16, head_dim=16)
+    tcfg = tl.Mamba2Config(**jcfg._asdict())
+    tree = perturbed(jl.mamba2_init(jax.random.PRNGKey(13), jcfg), 13)
+    tparams = jax.tree.map(t, tree)
+    rng = np.random.default_rng(S_)
+    x = rng.normal(0, 1, (B, S_, 64)).astype(np.float32)
+    st = cv = None
+    if with_state:
+        st = rng.normal(0, 0.3, (B, jcfg.num_heads, 16, 16)).astype(np.float32)
+        cv = rng.normal(0, 1, (B, jcfg.conv_width - 1, jcfg.d_inner + 32)).astype(np.float32)
+    want = jl.mamba2_apply(tree, jcfg, jnp.asarray(x), None if st is None else jnp.asarray(st),
+                           None if cv is None else jnp.asarray(cv), chunk=16)
+    got = tl.mamba2_apply(tparams, tcfg, t(x), None if st is None else t(st),
+                          None if cv is None else t(cv), chunk=16)
+    assert got[1].dtype == torch.float32 and got[1].shape == (B, jcfg.num_heads, 16, 16)
+    for g, w in zip(got, want):
+        close(g, w)
 
 
 ATTN = {  # (qkv_bias, qk_norm, num_kv_heads): qwen2 / yi / qwen3 attention
@@ -179,15 +233,19 @@ def models():
         jparams = jax.tree.map(jnp.asarray, tree)
         tparams = lm_params_from_jax(tree, tcfg, device="cpu")
         toks = np.random.default_rng(i).integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
-        out[arch] = (jcfg, jparams, tcfg, tparams, toks)
+        out[arch] = (jcfg, jparams, tcfg, tparams, lm_batch(tcfg, toks, seed=i))
     return out
+
+
+def jax_batch(batch):
+    return {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_forward(models, arch):
-    jcfg, jparams, tcfg, tparams, toks = models[arch]
-    want, want_aux = jlm.forward(jparams, jcfg, {"tokens": jnp.asarray(toks)})
-    got, aux = tlm.forward(tparams, tcfg, {"tokens": toks})
+    jcfg, jparams, tcfg, tparams, batch = models[arch]
+    want, want_aux = jlm.forward(jparams, jcfg, jax_batch(batch))
+    got, aux = tlm.forward(tparams, tcfg, batch)
     assert got.shape == (B, S, tcfg.vocab_size) and aux.dtype == torch.float32
     close(got, want)
     # the MoE layers' load-balance loss (1e-6, tests/test_perf_variants.py's); 0 otherwise
@@ -197,37 +255,44 @@ def test_forward(models, arch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_and_decode_step(models, arch):
-    jcfg, jparams, tcfg, tparams, toks = models[arch]
+    jcfg, jparams, tcfg, tparams, batch = models[arch]
     C = S + 4
-    jl_last, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=C)
-    tl_last, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=C)
+    jl_last, jcache = jlm.prefill(jparams, jcfg, jax_batch(batch), capacity=C)
+    tl_last, tcache = tlm.prefill(tparams, tcfg, batch, capacity=C)
     close(tl_last, jl_last)
     assert sorted(tcache) == sorted(jcache)
     for name in jcache:
-        close(tcache[name], jcache[name])
+        assert tcache[name].dtype == torch.float32 and tcache[name].shape == jcache[name].shape
+        close(tcache[name], jcache[name], cache_tol(name, jcache[name]))
     nxt = np.asarray(jnp.argmax(jl_last, -1)).astype(np.int32)
     jd, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), jnp.asarray(S, jnp.int32))
     td, tcache2 = tlm.decode_step(tparams, tcfg, tcache, torch.from_numpy(nxt), S)
     assert tcache2 is tcache
     close(td, jd)
     for name in jcache:
-        close(tcache[name], jcache[name])
-    # decode at S against the port's own forward on S + 1 tokens
-    full, _ = tlm.forward(tparams, tcfg, {"tokens": np.concatenate([toks, nxt[:, None]], 1)})
+        close(tcache[name], jcache[name], cache_tol(name, jcache[name]))
+    # decode at S against the port's own forward on S + 1 tokens (a VLM's
+    # decode step takes 1-D RoPE at S: the forward's ids go on so)
+    ext = dict(batch, tokens=np.concatenate([batch["tokens"], nxt[:, None]], 1))
+    if "positions_3d" in batch:
+        ext["positions_3d"] = np.concatenate(
+            [batch["positions_3d"], np.full((3, B, 1), S, np.int32)], 2)
+    full, _ = tlm.forward(tparams, tcfg, ext)
     close(td, full[:, -1].numpy(), atol=5e-4)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_greedy_generate_tokens_equal(models, arch):
-    jcfg, jparams, tcfg, tparams, toks = models[arch]
-    want = np.asarray(j_generate(jparams, jcfg, {"tokens": jnp.asarray(toks)}, steps=6))
-    got = generate(tparams, tcfg, {"tokens": torch.from_numpy(toks)}, steps=6)
+    jcfg, jparams, tcfg, tparams, batch = models[arch]
+    want = np.asarray(j_generate(jparams, jcfg, jax_batch(batch), steps=6))
+    got = generate(tparams, tcfg, batch, steps=6)
     assert got.dtype == torch.int32
     np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_sampled_generate_draws_from_the_distribution(models):
-    jcfg, jparams, tcfg, tparams, toks = models["yi_6b"]
+    jcfg, jparams, tcfg, tparams, batch = models["yi_6b"]
+    toks = batch["tokens"]
     g = torch.Generator().manual_seed(0)
     a = generate(tparams, tcfg, {"tokens": toks}, steps=4, greedy=False, generator=g)
     assert a.shape == (B, 4) and int(a.min()) >= 0 and int(a.max()) < tcfg.vocab_size
@@ -330,7 +395,8 @@ def test_init_params_shapes_match_repro():
 
 
 def test_truncate_params_shares_storage(models):
-    _, _, tcfg, tparams, toks = models["qwen2_7b"]
+    _, _, tcfg, tparams, batch = models["qwen2_7b"]
+    toks = batch["tokens"]
     weak = truncate_params(tparams, tcfg, 1)
     for name in ("embed", "unembed"):
         assert weak[name] is tparams[name]

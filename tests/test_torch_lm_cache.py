@@ -1,7 +1,9 @@
 """The two dense-attention decode caches in the port against the JAX
 package's, on the CPU: the sliding-window ring cache (``window > 0``,
 capacity below the prompt) and the int8 KV cache (``kv_quant``), with the
-registry's ``long_context_variant`` / ``all_configs``.
+registry's ``long_context_variant`` / ``all_configs``, and the hybrid
+family's ring (its shared attention windowed, its SSM and conv states
+carried as they are).
 
 Tolerances: ``kv_quantize`` bit for bit (int8 values and scales); prefill
 and decode logits at 2e-4 / 5e-4, those of
@@ -226,6 +228,58 @@ def test_decode_past_a_plain_cache_raises():
     _, cache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=4)
     with pytest.raises(ValueError, match="outside the cache"):
         tlm.decode_step(tparams, tcfg, cache, torch.zeros(1, dtype=torch.int32), 4)
+
+
+@pytest.mark.parametrize("S_", [5, S])
+def test_hybrid_ring_cache_matches_repro(S_):
+    """zamba2-2.7b reduced under ``long_context_variant`` (window 8): prefill
+    of S_ into the shared attention's ring of 8 (S_ = 12: the last 8 at their
+    ring slots; S_ = 5: slots fill in order), then decode steps past the
+    boundary, against repro (logits 2e-4 / 5e-4 as above; cache fields at
+    1e-5, the SSM state at 1e-5 of its largest entry, tests/test_torch_lm.py)
+    and against a forward under the same window."""
+    jcfg = jconfigs.long_context_variant(jlm.reduced(jconfigs.get_config("zamba2_2b7")), WINDOW)
+    tcfg = tconfigs.long_context_variant(tlm.reduced(tconfigs.get_config("zamba2_2b7")), WINDOW)
+    tree = perturbed(jax.jit(jlm.init_params, static_argnums=0)(jcfg, jax.random.PRNGKey(8)), seed=308)
+    jparams, tparams = jax.tree.map(jnp.asarray, tree), lm_params_from_jax(tree, tcfg, device="cpu")
+    toks = tokens(tcfg, 2, S_, 8)
+    jlast, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=WINDOW)
+    tlast, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=WINDOW)
+    close(tlast, jlast, 2e-4)
+    assert sorted(tcache) == sorted(jcache) == ["conv", "shared_k", "shared_v", "ssm"]
+    assert tcache["shared_k"].shape[2] == WINDOW
+    full, _ = tlm.forward(tparams, tcfg, {"tokens": toks})
+    close(tlast, full[:, -1].numpy(), 2e-4)
+    seq = toks
+    nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
+    end = WINDOW + 2 if S_ < WINDOW else S_ + DECODE_STEPS  # through pos C - 1, C and C + 1
+    for pos in range(S_, end):
+        jd, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32))
+        td, tcache = tlm.decode_step(tparams, tcfg, tcache, torch.from_numpy(nxt), pos)
+        close(td, jd, 5e-4)
+        seq = np.concatenate([seq, nxt[:, None]], 1)
+        ref, _ = tlm.forward(tparams, tcfg, {"tokens": seq})
+        close(td, ref[:, -1].numpy(), 5e-4)
+        nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
+    for name in jcache:
+        want = np.asarray(jcache[name])
+        close(tcache[name], want, 1e-5 * max(1.0, float(np.abs(want).max())) if name == "ssm" else 1e-5)
+
+
+def test_vlm_serve_step_broadcasts_the_position():
+    """make_serve_step gives a VLM's decode step M-RoPE ids (3, B, 1) all
+    equal to pos, as repro's serve_step does: the same logits as 1-D RoPE at
+    pos (decode_step without ids, as generate calls it), bit for bit."""
+    _, _, tcfg, tparams = pair("qwen2_vl_2b", 9)
+    rng = np.random.default_rng(9)
+    batch = {"tokens": tokens(tcfg, 2, S, 9),
+             "vision_embeds": rng.normal(0, 1, (2, tcfg.vision_tokens, tcfg.d_model)).astype(np.float32),
+             "positions_3d": rng.integers(0, S, (3, 2, S)).astype(np.int32)}
+    last, cache = make_prefill_step(tcfg, S + 1)(tparams, batch)
+    _, plain_cache = tlm.prefill(tparams, tcfg, batch, capacity=S + 1)
+    logits, _ = make_serve_step(tcfg)(tparams, cache, last.argmax(-1), S)
+    want, _ = tlm.decode_step(tparams, tcfg, plain_cache, last.argmax(-1), S)
+    assert torch.equal(logits, want)
 
 
 def test_prefill_and_serve_steps_are_prefill_and_decode_step():

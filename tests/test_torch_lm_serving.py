@@ -4,15 +4,19 @@
 weights and batch (offload masks exactly equal), batch by batch
 (``serve_batch``), as a stream through one session (``serve_stream``) and
 session-gated decoding (``cascade_generate``, greedy tokens exactly equal),
-plus the launcher (generate and ``--cascade``), for the dense, RWKV6 and MoE
-(with and without MLA) families; the MoE family's weak stack at exit 1 is
-its dense layer and a MoE stack of length 0.  ``LMCascade.fit`` itself is
-held against ``repro``'s in tests/test_torch_pipeline.py."""
+plus the launcher (generate and ``--cascade``), for the dense, RWKV6, MoE
+(with and without MLA) and VLM families; the MoE family's weak stack at
+exit 1 is its dense layer and a MoE stack of length 0.  A VLM batch carries
+a vision prefix and M-RoPE ids (``vlm_fields``); ``cascade_generate``
+refuses the ids (``repro``'s cuts them on the wrong axis) and serves the
+batch without them.  The hybrid family has no cascade (in neither package)
+and the launcher generates for it.  ``LMCascade.fit`` itself is held
+against ``repro``'s in tests/test_torch_pipeline.py."""
 import numpy as np
 import pytest
 import torch
 
-import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
+from _torch_parity import vlm_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.api.features import logits_features as j_logits_features
@@ -75,11 +79,11 @@ def test_sequence_nll():
 
 def _batch(seed, cfg, B=8, S=16):
     toks, labels = synth_lm_batch(np.random.default_rng(seed), B, S, cfg.vocab_size)
-    return {"tokens": toks, "labels": labels}
+    return {"tokens": toks, "labels": labels, **vlm_fields(cfg, B, S, seed)}
 
 
 @pytest.fixture(scope="module", params=["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b",
-                                        "deepseek_v2_lite_16b"])
+                                        "deepseek_v2_lite_16b", "qwen2_vl_2b"])
 def fitted(request, tmp_path_factory):
     """repro fits and saves an LMCascade; the port loads it and the weights."""
     arch = request.param
@@ -154,16 +158,21 @@ def test_cascade_views_and_ratio(fitted, tmp_path):
 
 def test_unported_entry_points_raise(fitted):
     """The streaming entry points take the families the port runs; the
-    hybrid family comes with ROADMAP queue A item 9 and raises naming it."""
+    encdec family comes with ROADMAP queue A item 9f and raises naming it.
+    The hybrid family has no early-exit cascade, in repro or here."""
     _, _, tcascade, tparams, tcfg = fitted
-    hybrid = tlm.reduced(get_config("zamba2_2b7"), num_layers=2)
-    hybrid_cascade = LMCascade(cfg=hybrid, exit_layer=1, engine=tcascade.engine)
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        hybrid_cascade.serve_stream(tparams, [_batch(5, tcfg)])
-    with pytest.raises(NotImplementedError, match="queue A item 9"):
-        cascade_generate(tparams, hybrid, _batch(5, tcfg), 4, exit_layer=1, engine=tcascade.engine)
+    batch = {k: v for k, v in _batch(5, tcfg).items() if k != "positions_3d"}
+    encdec = tlm.reduced(get_config("whisper_base"), num_layers=2)
+    encdec_cascade = LMCascade(cfg=encdec, exit_layer=1, engine=tcascade.engine)
+    with pytest.raises(NotImplementedError, match="queue A item 9f"):
+        encdec_cascade.serve_stream(tparams, [batch])
+    with pytest.raises(NotImplementedError, match="queue A item 9f"):
+        cascade_generate(tparams, encdec, batch, 4, exit_layer=1, engine=tcascade.engine)
+    hybrid = tlm.reduced(get_config("zamba2_2b7"))
+    with pytest.raises(ValueError, match="hybrid family is served by generate"):
+        LMCascade(cfg=hybrid, exit_layer=1, engine=tcascade.engine).serve_batch(tparams, batch)
     with pytest.raises(ValueError, match="engine= or session="):
-        cascade_generate(tparams, tcfg, _batch(5, tcfg), 4, exit_layer=1)
+        cascade_generate(tparams, tcfg, batch, 4, exit_layer=1)
 
 
 def _same_stream(got, want):
@@ -213,9 +222,15 @@ def test_serve_stream_matches_repro(fitted, set_ratio_at):
 
 def test_cascade_generate_matches_repro(fitted):
     """Greedy session-gated decoding: repro's masks and tokens exactly; each
-    row's tokens are ``generate``'s on its stack over the same row subset."""
+    row's tokens are ``generate``'s on its stack over the same row subset.
+    A VLM batch with M-RoPE ids raises (repro's call would cut the (3, B, S)
+    ids on their first axis); without them it decodes as repro's does."""
     jcascade, jparams, tcascade, tparams, tcfg = fitted
     batch = _batch(31, tcfg)
+    if "positions_3d" in batch:
+        with pytest.raises(ValueError, match="positions_3d"):
+            cascade_generate(tparams, tcfg, batch, 6, engine=tcascade.engine, exit_layer=1)
+        del batch["positions_3d"]
     tcascade.set_ratio(0.5)
     jcascade.set_ratio(0.5)
     try:
@@ -246,13 +261,17 @@ def test_cascade_generate_matches_repro(fitted):
     assert int(draws[0].min()) >= 0 and int(draws[0].max()) < tcfg.vocab_size
 
 
-@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+                                  "qwen2_vl_2b", "zamba2_2b7"])
 def test_launcher_on_cpu(arch, capsys):
     out = launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                          "--prompt-len", "8", "--tokens", "4"])
     assert out.shape == (2, 4)
     assert "generated (2, 4) on cpu" in capsys.readouterr().out
     out = launcher.main(["--arch", arch, "--device", "cpu", "--cascade"])
+    if arch == "zamba2_2b7":  # no cascade for the hybrid, as in repro: it generates
+        assert out.shape == (8, 16) and "generated (8, 16) on cpu" in capsys.readouterr().out
+        return
     assert out["offload"].shape == (8,) and 0 < out["offload"].sum() < 8
     assert np.isfinite(out["nll_final"]).all()
     assert capsys.readouterr().out.startswith("cascade: offload_ratio=")

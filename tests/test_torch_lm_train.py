@@ -1,8 +1,9 @@
 """LM training in the port against the JAX package's, on the CPU: ``loss_fn``,
 its gradients, ``make_train_step`` over N steps, remat, the kernels'
-autograd Functions, and the training launcher, for the dense, RWKV6 and MoE
-(with and without MLA; the MoE aux loss in the loss and its gradients)
-families.
+autograd Functions, and the training launcher, for the dense, RWKV6, MoE
+(with and without MLA; the MoE aux loss in the loss and its gradients), VLM
+(a vision prefix and M-RoPE ids in every batch) and hybrid (autograd through
+the chunked Mamba2 scan, remat a group) families.
 
 Weights are drawn by ``repro`` (perturbed from numpy, so that biases, norm
 scales and the RWKV6 bonus are not trivially 0 or 1) and carried into the
@@ -19,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import perturbed  # first: it imports repro.detection before repro's kernels
+from _torch_parity import perturbed, vlm_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as j_get_config
@@ -40,7 +41,8 @@ from repro_torch.models import lm as tlm
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train.adamw import adamw_init
 
-ARCHS = ["qwen2_7b", "yi_6b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b"]
+ARCHS = ["qwen2_7b", "yi_6b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
+         "qwen2_vl_2b", "zamba2_2b7"]
 B, S = 2, 16
 STEPS, LR = 3, 1e-3
 
@@ -79,8 +81,9 @@ def models():
 
 def both_batches(cfg, seed):
     toks, labels = lm_batch(cfg, seed)
-    return ({"tokens": jnp.asarray(toks), "labels": jnp.asarray(labels)},
-            {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels)})
+    batch = {"tokens": toks, "labels": labels, **vlm_fields(cfg, B, S, seed)}
+    return ({k: jnp.asarray(v) for k, v in batch.items()},
+            {k: torch.from_numpy(v) for k, v in batch.items()})
 
 
 def port_grads(params, cfg, batch, plain=False):
@@ -178,7 +181,8 @@ def test_remat_gives_bit_equal_gradients(models, arch):
 
 def test_remat_checkpoints_only_when_training(models, monkeypatch):
     """Serving (no parameter requires grad, or no grad mode) runs each layer
-    once; training runs it again in the backward pass."""
+    once; training runs it again in the backward pass (a hybrid: each group,
+    its Mamba2 layers and its shared block)."""
     _, _, tcfg, tparams = models["yi_6b"]
     _, tb = both_batches(tcfg, 6)
     calls = []
@@ -191,6 +195,13 @@ def test_remat_checkpoints_only_when_training(models, monkeypatch):
     calls.clear()
     port_grads(tparams, tcfg, tb)
     assert len(calls) == 2 * tcfg.num_layers  # forward + recompute
+    calls.clear()
+    mamba = tlm._mamba_block
+    monkeypatch.setattr(tlm, "_mamba_block", lambda *a, **k: calls.append(0) or mamba(*a, **k))
+    _, _, hcfg, hparams = models["zamba2_2b7"]
+    port_grads(hparams, hcfg, both_batches(hcfg, 6)[1])
+    assert calls.count(0) == 2 * hcfg.num_mamba_layers  # the shared block: 1s
+    assert calls.count(1) == 2 * hcfg.num_shared_attn
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -295,7 +306,8 @@ def test_bf16_compute_over_float32_params_trains(models):
     assert float(tlm.loss_fn(params, cfg, tb)) < float(loss)
 
 
-@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_1b6", "deepseek_v2_lite_16b"])
+@pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_1b6", "deepseek_v2_lite_16b", "qwen2_vl_2b",
+                                  "zamba2_2b7"])
 def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
     path = str(tmp_path / f"{arch}.npz")
     params, losses = launcher.main(["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16",
@@ -310,9 +322,7 @@ def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
 
 @pytest.mark.parametrize("argv,match", [
     (["--arch", "yi_6b", "--dryrun"], "queue A item 9g"),
-    (["--arch", "qwen2_vl_2b"], "queue A item 9d"),
     (["--arch", "whisper_base"], "queue A item 9f"),
-    (["--arch", "zamba2_2b7"], "queue A item 9"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, match):
     with pytest.raises(NotImplementedError, match=match):
