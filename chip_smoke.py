@@ -8,8 +8,9 @@ sharded plane, 1024 streams in four districts) and client mobility (moving
 clients, handover), the LM early-exit cascade (qwen2-7b, rwkv6-1.6b,
 deepseek-moe-16b, deepseek-v2-lite-16b and qwen2-vl-2b at full width, in
 batches and as streams, with the ring and int8 decode caches), the hybrid
-zamba2-2.7b through ``generate`` at full width, and LM training (five
-families at full width).
+zamba2-2.7b and the encoder-decoder whisper-base through ``generate`` at
+full width, LM training (six families at full width) and the single-card
+dry run of every architecture x assigned shape.
 
     python3 chip_smoke.py
 
@@ -56,8 +57,14 @@ first use.  Phases, each printing one line of its own:
                flash_sdpa's qwen2-7b (G = 7), deepseek-moe-16b (G = 1),
                qwen2-vl-2b (G = 6) or zamba2-2.7b (D = 80) prefill / decode
                shapes miss the ``wgmma`` / ``decode`` routes, or D = 80 in
-               float32 the ``simt`` route; each of those shapes is held and
-               timed too, beside its bound and scaled_dot_product_attention.
+               float32 the ``simt`` route, or whisper-base's encoder (S = T
+               = 1500), cross prefill (512 x 1500) and decoder prefill
+               (causal 512) the ``wgmma`` route and its cross decode step
+               (1 x 1500) the ``decode`` route, non-causal where there is no
+               mask; each of those shapes is held and timed too, beside its
+               bound and scaled_dot_product_attention (``is_causal=False``
+               where the call is non-causal).  The Functions' check also
+               holds one non-causal wgmma case (512 x 1500).
 4. ``serve``   the serve path with every launch count set to 0 first:
                1024 seeded shapes images; the WEAK detector + NMS and the
                reward model calibrate on the first 512; an engine artifact
@@ -263,36 +270,48 @@ first use.  Phases, each printing one line of its own:
                missed ``wkv6``.  qwen2-vl-2b's stream path generates
                through each stack (``cascade_generate`` refuses M-RoPE ids:
                repro's call cuts them on the wrong axis) and it skips the
-               cache checks.  zamba2-2.7b (``lm_hybrid_family``: no cascade,
-               as in repro) decodes 2 batches of 8 x 512, 16 greedy tokens
-               a row, through ``generate`` (flash_sdpa's launches must be
-               9 ``wgmma`` a prefill and 9 ``decode`` a step); then decode
-               and prefill against the forward and kernels against plain,
-               held on its first 2 groups in bf16 and float32, measured at
-               full depth.
+               cache checks.  zamba2-2.7b and whisper-base
+               (``lm_generate_family``: no cascade, as in repro) decode 2
+               batches of 8 x 512 (whisper-base's with 1500 seeded audio
+               frames each), 16 greedy tokens a row, through ``generate``
+               (flash_sdpa's launches must be 9 ``wgmma`` a prefill and 9
+               ``decode`` a step for zamba2-2.7b; 18 ``wgmma`` a prefill, 6
+               encoder + 6 decoder self + 6 cross, and 12 ``decode`` a step
+               for whisper-base); then decode and prefill against the
+               forward and kernels against plain, held on the first 2
+               groups (zamba2-2.7b) or the first 2 encoder and decoder
+               layers (whisper-base) in bf16 and float32, measured at full
+               depth.
 12. ``lm_train`` LM training, once per family at full width (rwkv6-1.6b
                whole; qwen2-7b with 2 of its 28 layers; deepseek-v2-lite-16b
                with 2 of its 27, one dense and one MoE; qwen2-vl-2b with 2
                of its 28; zamba2-2.7b with one group of its 9: 5 Mamba2
-               layers and the shared block), bf16 compute over
+               layers and the shared block; whisper-base whole, 6 + 6
+               layers over 1500 frames), bf16 compute over
                float32 parameters, remat on: every launch count set to 0
                first, 3 ``make_train_step`` steps at B 2 x S 512 on one
                ``synth_lm_batch`` batch at lr 0.01 / the largest fan-in
                (each loss finite and below the one before; launches must
-               equal attention or RWKV layers x (forward + recompute) x
-               steps), the last under
+               equal attention calls or RWKV layers x (forward +
+               recompute) x steps), the last under
                ``torch.profiler`` for the card's busy share.  Then, outside
                the count: one step taken apart (forward, backward, update;
                CUDA events); the gradients through the kernels against
                ``plain=True`` leaf by leaf on the first 128 tokens (relative
                L2; the kernels no farther than twice the plain bf16
                gradient from the float32 plain gradient, + 1e-3); 3 steps on
-               the six reduced float32 configs (lr 3e-4) on the card against the
+               the seven reduced float32 configs (lr 3e-4) on the card against the
                CPU (within 2 lr_sum, at most 1% of elements beyond 1e-5);
                ``python -m repro_torch.launch.train`` for 2 steps on the
                card.  Prints step ms, tokens/s, peak memory, the busy and
                backward shares.
-13. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+13. ``dryrun`` the single-card dry run (``launch.dryrun``) of the 10
+               architectures x 4 assigned shapes against this card's memory
+               (``torch.cuda.get_device_properties``) and the data sheet's
+               rates: argument bytes (parameters, AdamW state, batch or
+               cache) from meta tensors, whether they fit, model FLOPs and
+               the roofline's dominant term.
+14. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape and by LM family), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
@@ -2816,7 +2835,7 @@ def mobility(torch, smi, dev):
 
 
 LM_ARCHS = ("qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b", "qwen2_vl_2b",
-            "zamba2_2b7")
+            "zamba2_2b7", "whisper_base")
 LM_BATCH, LM_SEQ, LM_SERVED, LM_TOKENS, LM_RATIO = 8, 512, 4, 16, 0.25
 LM_HIDDEN, LM_TOP_K = 64, 8
 LM_REBUDGET = {16: 0.5}  # the LM stream's re-budget: request -> ratio
@@ -2856,7 +2875,11 @@ def hold_rel(name, got, want, tol):
 # the keys of the kernels line that carry the times at the LM path's other shapes
 EXTRA_SHAPES = {"decode": "decode", "prefill G=1": "prefill_G1", "decode G=1": "decode_G1",
                 "prefill G=6": "prefill_G6", "decode G=6": "decode_G6",
-                "prefill D=80": "prefill_D80", "decode D=80": "decode_D80", "simt D=80": "simt_D80"}
+                "prefill D=80": "prefill_D80", "decode D=80": "decode_D80", "simt D=80": "simt_D80",
+                "whisper encoder": "whisper_encoder",
+                "whisper cross prefill": "whisper_cross_prefill",
+                "whisper self prefill": "whisper_self_prefill",
+                "whisper cross decode": "whisper_cross_decode"}
 
 
 class RoutingLog:
@@ -2942,6 +2965,7 @@ def check_lm_kernels(torch, timer, dev):
     reference tests' cases and at the LM path's shapes; times and bounds at
     the prefill shapes."""
     import torch.nn.functional as Fn
+    from repro_torch.configs import get_config
     from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
     from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 
@@ -3039,6 +3063,34 @@ def check_lm_kernels(torch, timer, dev):
     if taken != {"wgmma": 4, "decode": 4, "decode_combine": 4, "simt": 1}:
         fail(f"flash_sdpa at qwen2-vl-2b's (G = 6) and zamba2-2.7b's (D = 80) shapes took the "
              f"routes {taken} (with the shapes above)")
+    # whisper-base: MHA (8 / 8), D 64, bf16, no window.  The encoder attends
+    # bidirectionally over its 1500 frames and the cross-attention over them
+    # from 512 prompt tokens (wgmma, non-causal, T ragged: 1500 is no multiple
+    # of a 128-key tile), the decoder's self-attention causally (wgmma), and
+    # a decode step's cross-attention over every frame (decode, non-causal);
+    # the same bounds as above
+    F, HW, DW = get_config("whisper_base").encoder_frames, 8, 64
+    qe, ke, ve = normal((B, F, HW, DW), bf), normal((B, F, HW, DW), bf), normal((B, F, HW, DW), bf)
+    hold("flash_sdpa", f"encoder B={B} S=T={F} H=K={HW} D={DW} bf16 non-causal (whisper-base)",
+         flash_sdpa(qe, ke, ve, causal=False), flash_sdpa_ref(qe, ke, ve, causal=False),
+         BF16_P_ATOL * float(ve.float().abs().max()), 2 ** -7)
+    qx = normal((B, S, HW, DW), bf)
+    hold("flash_sdpa", f"cross prefill B={B} S={S} T={F} H=K={HW} D={DW} bf16 non-causal "
+         f"(whisper-base)", flash_sdpa(qx, ke, ve, causal=False),
+         flash_sdpa_ref(qx, ke, ve, causal=False), BF16_P_ATOL * float(ve.float().abs().max()),
+         2 ** -7)
+    kself, vself = normal((B, S, HW, DW), bf), normal((B, S, HW, DW), bf)
+    hold("flash_sdpa", f"self prefill B={B} S=T={S} H=K={HW} D={DW} bf16 causal (whisper-base)",
+         flash_sdpa(qx, kself, vself), flash_sdpa_ref(qx, kself, vself),
+         BF16_P_ATOL * float(vself.float().abs().max()), 2 ** -7)
+    qxd = normal((B, 1, HW, DW), bf)
+    hold("flash_sdpa", f"cross decode B={B} S=1 T={F} H=K={HW} D={DW} bf16 non-causal "
+         f"(whisper-base)", flash_sdpa(qxd, ke, ve, causal=False),
+         flash_sdpa_ref(qxd, ke, ve, causal=False), 1e-6, 2 ** -7)
+    taken = {r: flash_sdpa.launches_by_route[r] - n for r, n in routes.items()}
+    if taken != {"wgmma": 7, "decode": 5, "decode_combine": 5, "simt": 1}:
+        fail(f"flash_sdpa at whisper-base's encoder, cross prefill, self prefill (wgmma) and "
+             f"cross decode (decode) shapes took the routes {taken} (with the shapes above)")
 
     # wkv6: tests/test_kernels.py's cases (1e-5 in float32, 5e-2 in bf16, as
     # there), then rwkv6-1.6b's prefill and decode shapes with the layer's
@@ -3071,30 +3123,32 @@ def check_lm_kernels(torch, timer, dev):
     refused = check_grad_refusals(torch, dev)
 
     # times and bounds at the prefill shapes (and flash_sdpa's decode step)
-    def flash_record(label, q_, k_, v_, q_offset=0):
-        """Times and cost of one causal flash_sdpa call: a prefill (S = T,
-        the causal pairs) or a decode step (S = 1 at ``q_offset``: the keys
-        0..q_offset are read, the rest of the cache is masked); the library
-        call is scaled_dot_product_attention on the same (B, heads, S, D)
-        views (over the visible keys at decode)."""
+    def flash_record(label, q_, k_, v_, q_offset=0, causal=True):
+        """Times and cost of one flash_sdpa call: a causal prefill (S = T,
+        the causal pairs), a causal decode step (S = 1 at ``q_offset``: the
+        keys 0..q_offset are read, the rest of the cache is masked) or a
+        non-causal call (every key of every row); the library call is
+        scaled_dot_product_attention on the same (B, heads, S, D) views
+        (over the visible keys at a causal decode step)."""
         Bq, Sq, Hq, Dq = q_.shape
-        Kq, size = k_.shape[2], q_.element_size()
-        keys = q_offset + 1 if Sq == 1 else None
+        Tq, Kq, size = k_.shape[1], k_.shape[2], q_.element_size()
+        keys = q_offset + 1 if causal and Sq == 1 else Tq
         gqa = {"enable_gqa": True} if Hq != Kq else {}
-        kl, vl = (k_, v_) if keys is None else (k_[:, :keys], v_[:, :keys])
-        if keys is None:
-            pairs, kv_rows = Bq * Hq * Sq * (Sq + 1) // 2, Bq * Sq
+        kl, vl = k_[:, :keys], v_[:, :keys]
+        if causal and Sq > 1:
+            pairs = Bq * Hq * Sq * (Sq + 1) // 2
         else:
-            pairs, kv_rows = Bq * Hq * keys, Bq * keys
-        slow = {"reps": 5, "windows": 11} if keys is None else {}
+            pairs = Bq * Hq * Sq * keys
+        slow = {"reps": 5, "windows": 11} if Sq > 1 else {}
         return dict(
             shape=label,
-            ms=timer(lambda: flash_sdpa(q_, k_, v_, q_offset=q_offset)),
-            plain_ms=timer(lambda: flash_sdpa_ref(q_, k_, v_, q_offset=q_offset), **slow),
+            ms=timer(lambda: flash_sdpa(q_, k_, v_, causal=causal, q_offset=q_offset)),
+            plain_ms=timer(lambda: flash_sdpa_ref(q_, k_, v_, causal=causal, q_offset=q_offset),
+                           **slow),
             library_ms=timer(lambda: Fn.scaled_dot_product_attention(
-                q_.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2), is_causal=keys is None,
-                **gqa)),
-            bytes=size * (2 * Bq * Sq * Hq * Dq + 2 * kv_rows * Kq * Dq), ops=4 * Dq * pairs,
+                q_.transpose(1, 2), kl.transpose(1, 2), vl.transpose(1, 2),
+                is_causal=causal and Sq > 1, **gqa)),
+            bytes=size * (2 * Bq * Sq * Hq * Dq + 2 * Bq * keys * Kq * Dq), ops=4 * Dq * pairs,
             peak_ops=PEAK_BF16_OPS_PER_S if q_.dtype == bf else PEAK_F32_OPS_PER_S,
         )
 
@@ -3121,6 +3175,18 @@ def check_lm_kernels(torch, timer, dev):
         "flash_sdpa (simt D=80)": flash_record(
             f"B={B} S=T={S} H={H8} K={K8} D={D8} f32 causal (zamba2-2.7b prefill, float32)",
             q8f, k8f, v8f),
+        "flash_sdpa (whisper encoder)": flash_record(
+            f"B={B} S=T={F} H=K={HW} D={DW} bf16 non-causal (whisper-base encoder)", qe, ke, ve,
+            causal=False),
+        "flash_sdpa (whisper cross prefill)": flash_record(
+            f"B={B} S={S} T={F} H=K={HW} D={DW} bf16 non-causal (whisper-base cross prefill)",
+            qx, ke, ve, causal=False),
+        "flash_sdpa (whisper self prefill)": flash_record(
+            f"B={B} S=T={S} H=K={HW} D={DW} bf16 causal (whisper-base decoder prefill)",
+            qx, kself, vself),
+        "flash_sdpa (whisper cross decode)": flash_record(
+            f"B={B} S=1 T={F} H=K={HW} D={DW} bf16 non-causal (whisper-base cross decode step)",
+            qxd, ke, ve, causal=False),
     }
     B, T, H, K, V = LM_BATCH, LM_SEQ, 32, 64, 64
     args = wkv_inputs(B, T, H, K, V, bf, torch.float32)
@@ -3175,7 +3241,8 @@ LM_GRAD_TOL = 1e-6
 def check_lm_grads(torch, timer, dev, normal, wkv_inputs):
     """flash_sdpa's and wkv6's autograd Functions against the plain versions'
     autograd on the card: flash_sdpa on the wgmma route (bf16, D 128, GQA 7)
-    and the simt route (float32, D 32), causal, with and without a window;
+    and the simt route (float32, D 32), causal, with and without a window,
+    and on the wgmma route non-causal (whisper-base's cross-attention);
     wkv6 in float32 and bf16, gradients of out and sT to r, k, v, w, u and s0.
     Then the forward and backward times at the training shapes (lm_train:
     B 2 x S 512).  Returns (cases, times)."""
@@ -3220,6 +3287,16 @@ def check_lm_grads(torch, timer, dev, normal, wkv_inputs):
                        lambda q, k, v: flash_sdpa_ref(q, k, v, window=window), (q, k, v), (g,))
             if flash_sdpa.launches_by_route[route] != before + 1:
                 fail(f"flash_sdpa's Function did not launch the {route} route")
+    # non-causal on wgmma: whisper-base's cross-attention in training (512
+    # queries over the 1500 frames, MHA 8, D 64)
+    q, k, v = normal((2, 512, 8, 64), bf), normal((2, 1500, 8, 64), bf), normal((2, 1500, 8, 64), bf)
+    g = normal((2, 512, 8, 64), bf)
+    before = flash_sdpa.launches_by_route["wgmma"]
+    hold_grads("flash_sdpa", "wgmma B=2 S=512 T=1500 H=K=8 D=64 non-causal",
+               lambda q, k, v: flash_sdpa(q, k, v, causal=False),
+               lambda q, k, v: flash_sdpa_ref(q, k, v, causal=False), (q, k, v), (g,))
+    if flash_sdpa.launches_by_route["wgmma"] != before + 1:
+        fail("flash_sdpa's Function did not launch the wgmma route (non-causal)")
     for dt in (torch.float32, bf):
         B, T, H, K = 2, 64, 4, 64
         ins = wkv_inputs(B, T, H, K, K, dt, torch.float32)
@@ -3349,18 +3426,22 @@ def split_counts(counters):
     return out
 
 
-def vlm_fields(torch, cfg, B, S, dev, rng):
-    """A VLM batch's fields besides the tokens: the vision prefix
+def modality_fields(torch, cfg, B, S, dev, rng):
+    """A batch's fields besides the tokens.  A VLM's: the vision prefix
     (``vision_patch_embeddings``, float32) and M-RoPE ids (3, B, S) with a
     grid on the prefix (rows of the largest divisor of ``vision_tokens`` not
     above its square root: 16 x 16 at qwen2-vl-2b; t = 0, h = row, w =
     column) and text after it (t = h = w, from the grid's largest id + 1),
     so that the three axes differ and M-RoPE is not its 1-D special case.
-    {} for the other families."""
+    An encoder-decoder's: ``audio_frame_embeddings`` (B, encoder_frames,
+    d_model), float32.  {} for the other families."""
+    from repro_torch.data.modality_stubs import audio_frame_embeddings, vision_patch_embeddings
+
+    if cfg.arch_type == "encdec":
+        return {"audio_frames": torch.from_numpy(
+            audio_frame_embeddings(rng, B, cfg.encoder_frames, cfg.d_model)).to(dev)}
     if cfg.arch_type != "vlm":
         return {}
-    from repro_torch.data.modality_stubs import vision_patch_embeddings
-
     V = cfg.vision_tokens
     width = max(w for w in range(1, int(V ** 0.5) + 1) if V % w == 0)
     p3d = np.zeros((3, B, S), np.int64)
@@ -3378,14 +3459,16 @@ def batch_rows(batch, idx):
 
 def batch_cut(batch, rows, seq):
     """The first ``rows`` rows and ``seq`` positions of a batch (a VLM's
-    vision prefix cut with the sequence)."""
-    return {k: v[:, :rows, :seq] if k == "positions_3d" else v[:rows, :seq] for k, v in batch.items()}
+    vision prefix cut with the sequence; an encoder-decoder's audio frames
+    whole: the encoder's length is the config's)."""
+    return {k: v[:, :rows, :seq] if k == "positions_3d" else v[:rows] if k == "audio_frames"
+            else v[:rows, :seq] for k, v in batch.items()}
 
 
 def lm_serve_family(torch, dev, cfg, seed, counters):
     """One family's LM cascade at the width of ``cfg``: the counted main
     path, then the checks.  Returns (report, launches of the main path).
-    A VLM batch carries its vision prefix and M-RoPE ids (``vlm_fields``);
+    A VLM batch carries its vision prefix and M-RoPE ids (``modality_fields``);
     ``cascade_generate`` refuses the ids (repro's call cuts them on the
     wrong axis), so a VLM's stream path generates through each stack
     instead, as the served batches do."""
@@ -3421,7 +3504,7 @@ def lm_serve_family(torch, dev, cfg, seed, counters):
     def lm_batch():
         toks, labels = synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)
         return {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
-                **vlm_fields(torch, cfg, LM_BATCH, LM_SEQ, dev, rng)}
+                **modality_fields(torch, cfg, LM_BATCH, LM_SEQ, dev, rng)}
 
     cal, served = lm_batch(), [lm_batch() for _ in range(LM_SERVED)]
     # the library's first calls (cuBLAS handles) outside the counted, timed run
@@ -3775,27 +3858,53 @@ def kernels_vs_plain(lm, params, cfg, batch, tol):
     return wk, out
 
 
-# zamba2-2.7b (no cascade: repro serves the hybrid through generate):
-# LM_HYBRID_SERVED batches of 8 x 512 through generate; its bf16 and float32
-# holds run on its first LM_HYBRID_HELD_GROUPS groups (10 Mamba2 layers and
-# two applications of the shared block), and the full depth is measured:
-# seeded deep stacks amplify bf16 roundings (PERF.md section 6)
-LM_HYBRID_SERVED, LM_HYBRID_HELD_GROUPS = 2, 2
+# zamba2-2.7b and whisper-base (no cascade: repro serves both through
+# generate): LM_GENERATE_SERVED batches of 8 x 512 through generate (for
+# whisper-base each with its 1500 seeded audio frames); the bf16 and float32
+# holds run on a cut of the stack (zamba2-2.7b: its first LM_HYBRID_HELD_GROUPS
+# groups, 10 Mamba2 layers and two applications of the shared block;
+# whisper-base: its first LM_ENCDEC_HELD_LAYERS encoder and decoder layers),
+# and the full depth is measured: seeded deep stacks amplify bf16 roundings
+# (PERF.md section 6)
+LM_GENERATE_SERVED, LM_HYBRID_HELD_GROUPS, LM_ENCDEC_HELD_LAYERS = 2, 2, 2
 
 
-def hybrid_groups(lm, params, cfg, groups):
-    """The first ``groups`` groups of a hybrid (views) and their config."""
-    cut = dict(params, mamba_groups=lm.tree_map(lambda a: a[:groups], params["mamba_groups"]))
-    return cut, dataclasses.replace(cfg, num_layers=groups * cfg.shared_attn_period)
+def held_cut(lm, params, cfg):
+    """The cut of a generate-only family that its holds run on (views) and
+    its config."""
+    if cfg.arch_type == "hybrid":
+        g = LM_HYBRID_HELD_GROUPS
+        cut = dict(params, mamba_groups=lm.tree_map(lambda a: a[:g], params["mamba_groups"]))
+        return cut, dataclasses.replace(cfg, num_layers=g * cfg.shared_attn_period)
+    n = LM_ENCDEC_HELD_LAYERS
+    cut = dict(params, **{k: lm.tree_map(lambda a: a[:n], params[k])
+                          for k in ("enc_layers", "dec_layers")})
+    return cut, dataclasses.replace(cfg, num_layers=n, encoder_layers=n)
 
 
-def lm_hybrid_family(torch, dev, cfg, seed, counters):
-    """The hybrid family at the width of ``cfg``: LM_HYBRID_SERVED batches of
-    8 x 512 through ``generate`` (prefill + LM_TOKENS - 1 greedy decode
-    steps, LM_TOKENS tokens a row), counted; then, outside the count, decode
-    and prefill against the forward and the kernels against the plain
-    versions, held on the first LM_HYBRID_HELD_GROUPS groups in bf16 and in
-    float32, measured at full depth.  Returns (report, launches)."""
+def generate_routes(cfg, n):
+    """flash_sdpa's launches by route for ``n`` generate calls of LM_TOKENS
+    tokens: a wgmma launch for each attention of the prefill, a decode
+    launch and its merge for each attention of each of the LM_TOKENS - 1
+    decode steps (the hybrid: the shared block's, once a group; the
+    encoder-decoder: the encoder's, then the decoder's self- and
+    cross-attention at prefill, the decoder's two at a step)."""
+    if cfg.arch_type == "hybrid":
+        prefill = step = cfg.num_shared_attn
+    else:
+        prefill, step = cfg.encoder_layers + 2 * cfg.num_layers, 2 * cfg.num_layers
+    steps = step * (LM_TOKENS - 1) * n
+    return {"wgmma": prefill * n, "decode": steps, "decode_combine": steps, "simt": 0}
+
+
+def lm_generate_family(torch, dev, cfg, seed, counters):
+    """A family served through ``generate`` (the hybrid, the encoder-decoder)
+    at the width of ``cfg``: LM_GENERATE_SERVED batches of 8 x 512 through
+    ``generate`` (prefill + LM_TOKENS - 1 greedy decode steps, LM_TOKENS
+    tokens a row), counted; then, outside the count, decode and prefill
+    against the forward and the kernels against the plain versions, held on
+    ``held_cut`` in bf16 and in float32, measured at full depth.  Returns
+    (report, launches)."""
     from repro_torch.data.lm_synth import synth_lm_batch
     from repro_torch.models import lm
     from repro_torch.serving.decode_loop import generate
@@ -3808,9 +3917,10 @@ def lm_hybrid_family(torch, dev, cfg, seed, counters):
     sync()
     init_ms = (time.perf_counter() - t0) * 1e3
     rng = np.random.default_rng(seed)
-    batches = [{"tokens": torch.from_numpy(synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)[0]).to(dev)}
-               for _ in range(LM_HYBRID_SERVED)]
-    lm.forward(params, cfg, {"tokens": batches[0]["tokens"][:1, :8]})  # first library calls
+    batches = [{"tokens": torch.from_numpy(synth_lm_batch(rng, LM_BATCH, LM_SEQ, cfg.vocab_size)[0]).to(dev),
+                **modality_fields(torch, cfg, LM_BATCH, LM_SEQ, dev, rng)}
+               for _ in range(LM_GENERATE_SERVED)]
+    lm.forward(params, cfg, batch_cut(batches[0], 1, 8))  # first library calls
     sync()
     reset_counts(counters)
     stage: Dict[str, float] = {}
@@ -3818,11 +3928,10 @@ def lm_hybrid_family(torch, dev, cfg, seed, counters):
     sync()
     launches = {c.__name__: c.launches for c in counters}
     split = split_counts(counters)
-    G, n = cfg.num_shared_attn, LM_HYBRID_SERVED
-    want = {"wgmma": G * n, "decode": G * (LM_TOKENS - 1) * n,
-            "decode_combine": G * (LM_TOKENS - 1) * n, "simt": 0}
+    n = LM_GENERATE_SERVED
+    want = generate_routes(cfg, n)
     if split["flash_sdpa"]["by_route"] != want or sum(launches.values()) != launches["flash_sdpa"]:
-        fail(f"{cfg.name}: launches on the hybrid path {launches}, flash_sdpa by route "
+        fail(f"{cfg.name}: launches on the generate path {launches}, flash_sdpa by route "
              f"{split['flash_sdpa']['by_route']}, derived {want}")
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30 if dev.type == "cuda" else None
     all_toks = torch.cat(tokens)
@@ -3832,7 +3941,7 @@ def lm_hybrid_family(torch, dev, cfg, seed, counters):
              f"[0, {cfg.vocab_size})")
 
     b0 = batches[0]
-    hparams, hcfg = hybrid_groups(lm, params, cfg, LM_HYBRID_HELD_GROUPS)
+    hparams, hcfg = held_cut(lm, params, cfg)
     h32 = lm.tree_map(lambda t: t.float(), hparams)
     c32 = dataclasses.replace(hcfg, dtype="float32")
     checks = decode_vs_forward(torch, lm, hparams, hcfg, b0, LM_BF16_REL_TOL)
@@ -3841,15 +3950,18 @@ def lm_hybrid_family(torch, dev, cfg, seed, counters):
     checks["kernels_vs_plain"] = kernels_vs_plain(lm, hparams, hcfg, b0, LM_BF16_REL_TOL)[1]
     checks["kernels_vs_plain_f32"] = kernels_vs_plain(lm, h32, c32, b0, LM_F32_REL_TOL)[1]
     checks["kernels_vs_plain_full_depth_bf16"] = kernels_vs_plain(lm, params, cfg, b0, None)[1]
-    checks["held_groups"] = LM_HYBRID_HELD_GROUPS
+    checks["held_layers"] = {"num_layers": hcfg.num_layers, "encoder_layers": hcfg.encoder_layers}
     del h32
     cache = lm.init_cache(cfg, LM_BATCH, LM_SEQ + LM_TOKENS, device=dev)
     cache_bytes = {k: v.numel() * v.element_size() for k, v in cache.items()}
     del cache
     gen_ms = stage["prefill_ms"] + stage["decode_ms"]
+    family = ({"mamba_layers": cfg.num_mamba_layers, "groups": cfg.num_shared_attn}
+              if cfg.arch_type == "hybrid" else
+              {"encoder_layers": cfg.encoder_layers, "encoder_frames": cfg.encoder_frames})
     report = {
         "arch": cfg.name, "params": sum(t.numel() for t in lm.tree_leaves(params)),
-        "layers": cfg.num_layers, "mamba_layers": cfg.num_mamba_layers, "groups": G,
+        "layers": cfg.num_layers, **family,
         "d_model": cfg.d_model, "vocab": cfg.vocab_size, "dtype": cfg.dtype,
         "batch": LM_BATCH, "seq": LM_SEQ, "batches": n, "tokens_per_row": LM_TOKENS,
         "init_params_ms": init_ms,
@@ -3858,7 +3970,7 @@ def lm_hybrid_family(torch, dev, cfg, seed, counters):
         "generated_tokens_per_s": n * LM_BATCH * LM_TOKENS / (gen_ms / 1e3),
         "cache_bytes": {"batch": LM_BATCH, "slots": LM_SEQ + LM_TOKENS, **cache_bytes},
         "peak_memory_gib": peak_gib, "checks": checks,
-        "launches": launches, "launches_split": split,
+        "launches": launches, "launches_derived": want, "launches_split": split,
     }
     return report, launches
 
@@ -3957,7 +4069,8 @@ def lm_cache_checks(torch, dev, params, cfg, tokens):
 
 def lm_serve(torch, smi, dev):
     """The LM phase: each family in turn, its model freed before the next
-    (the hybrid through ``lm_hybrid_family``: no cascade, no stream).
+    (the hybrid and the encoder-decoder through ``lm_generate_family``: no
+    cascade, no stream).
     Returns the launches of the main-path runs, summed, and their by-route /
     by-shape split; then the same for the families' streams; and each
     family's main-path launches."""
@@ -3974,7 +4087,7 @@ def lm_serve(torch, smi, dev):
     split_total, stream_split, by_family = {}, {}, {}
     for i, cfg in enumerate(get_config(a) for a in LM_ARCHS):
         t0 = time.perf_counter()
-        family = lm_hybrid_family if cfg.arch_type == "hybrid" else lm_serve_family
+        family = lm_generate_family if cfg.arch_type in ("hybrid", "encdec") else lm_serve_family
         report, launches = family(torch, dev, cfg, seed=10 + i, counters=counters)
         report["seconds"] = time.perf_counter() - t0
         report["card"] = smi
@@ -4002,7 +4115,8 @@ def lm_serve(torch, smi, dev):
 LM_TRAIN_MODELS = (("rwkv6_1b6", {}), ("qwen2_7b", {"num_layers": 2}),
                    ("deepseek_v2_lite_16b", {"num_layers": 2}),  # one dense layer, one MoE
                    ("qwen2_vl_2b", {"num_layers": 2}),
-                   ("zamba2_2b7", {"num_layers": 6}))  # one group: 5 Mamba2 layers + the shared block
+                   ("zamba2_2b7", {"num_layers": 6}),  # one group: 5 Mamba2 layers + the shared block
+                   ("whisper_base", {}))  # 6 encoder + 6 decoder layers, 1500 frames
 LM_TRAIN_BATCH, LM_TRAIN_SEQ, LM_TRAIN_STEPS = 2, 512, 3
 LM_TRAIN_LR = 3e-4  # the launcher's default: the card-vs-CPU steps on the reduced configs
 # AdamW's first steps move every element by about lr (m_hat / sqrt(v_hat) is
@@ -4088,7 +4202,7 @@ def lm_train_family(torch, dev, cfg, seed, counters):
     rng = np.random.default_rng(0)
     toks, labels = synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_SEQ, cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks).to(dev), "labels": torch.from_numpy(labels).to(dev),
-             **vlm_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev, rng)}
+             **modality_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_SEQ, dev, rng)}
     lr = train_lr(cfg)
 
     def events():
@@ -4130,9 +4244,11 @@ def lm_train_family(torch, dev, cfg, seed, counters):
         fail(f"{cfg.name}: training losses on one batch do not fall step by step: {losses}")
     # launches: forward + remat recompute an attention or RWKV layer a step
     # (MLA attends in plain PyTorch: no kernel; the hybrid attends once a
-    # group, its Mamba2 layers are tensor ops)
+    # group, its Mamba2 layers are tensor ops; the encoder-decoder once an
+    # encoder layer and twice a decoder layer)
     kernel = "wkv6" if cfg.arch_type == "rwkv" else None if cfg.use_mla else "flash_sdpa"
-    layers = cfg.num_shared_attn if cfg.arch_type == "hybrid" else cfg.num_layers
+    layers = {"hybrid": cfg.num_shared_attn,
+              "encdec": cfg.encoder_layers + 2 * cfg.num_layers}.get(cfg.arch_type, cfg.num_layers)
     derived = layers * (2 if cfg.remat else 1) * LM_TRAIN_STEPS if kernel else 0
     if (kernel and launches[kernel] != derived) or sum(launches.values()) != derived:
         fail(f"{cfg.name}: lm_train launches {launches}, derived {kernel} {derived}")
@@ -4230,7 +4346,7 @@ def lm_train_parity(torch, dev):
         for _ in range(LM_TRAIN_PARITY_STEPS):
             toks, labels = synth_lm_batch(rng, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, cfg.vocab_size)
             batches.append({"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(labels),
-                            **vlm_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, "cpu", rng)})
+                            **modality_fields(torch, cfg, LM_TRAIN_BATCH, LM_TRAIN_PARITY_SEQ, "cpu", rng)})
         got = {}
         for d in (dev, torch.device("cpu")):
             params = lm.tree_map(lambda t: t.to(d), start)
@@ -4287,6 +4403,33 @@ def lm_train(torch, smi, dev):
     return total, split_total, by_family
 
 
+def dry_run(smi):
+    """The single-card dry run (``launch.dryrun``) of every arch x shape,
+    read against this card's memory (``torch.cuda.get_device_properties``):
+    meta tensors only, nothing runs on the card."""
+    from repro_torch.configs import ARCH_IDS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.input_specs import SHAPES
+
+    t0 = time.perf_counter()
+    card = dryrun.card_spec()
+    if not card["memory_source"].startswith("torch.cuda.get_device_properties"):
+        fail(f"the dry run did not read the card's memory: {card}")
+    rows = []
+    for arch in ARCH_IDS:
+        for shape in SHAPES:
+            r = dryrun.report(arch, shape, card)
+            if not (r["model_flops"] > 0 and r["argument_bytes"]["total"] > 0):
+                fail(f"dry run {arch} {shape}: {r}")
+            rows.append({"arch": arch, "shape": shape, "fits_one_card": r["fits_one_card"],
+                         "argument_bytes": r["argument_bytes"]["total"],
+                         "model_flops": r["model_flops"], "recurrence_flops": r["recurrence_flops"],
+                         **r["roofline"]})
+    emit("dryrun", {"card": card, "card_smi": smi, "cases": len(rows),
+                    "fit_one_card": sum(r["fits_one_card"] for r in rows), "reports": rows,
+                    "seconds": time.perf_counter() - t0})
+
+
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
     "iou_matrix": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
     "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
@@ -4339,6 +4482,7 @@ def main() -> None:
     mobility_launches, mobility_split = mobility(torch, smi, dev)
     lm_launches, lm_split, lm_stream, lm_stream_split, lm_by_family = lm_serve(torch, smi, dev)
     lm_train_launches, lm_train_split, lm_train_by_family = lm_train(torch, smi, dev)
+    dry_run(smi)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)

@@ -103,8 +103,10 @@ def lm_params_from_jax(tree: Mapping[str, Any], cfg, device: DeviceLike = "cuda"
     is used: ``cfg.act_dtype`` for matmul weights, norms, embeddings and mix
     factors, float32 for the RWKV6 ``bonus``, the MoE ``router`` and Mamba2's
     ``A_log`` / ``dt_bias`` / ``D``.  The MoE family's ``dense_layers`` /
-    ``moe_layers`` stacks and the hybrid's ``mamba_groups`` (G, per, ...) /
-    ``shared_block`` carry across as any other subtree.  That is the value of the
+    ``moe_layers`` stacks, the hybrid's ``mamba_groups`` (G, per, ...) /
+    ``shared_block`` and the encoder-decoder's ``enc_layers`` /
+    ``dec_layers`` / ``enc_norm`` (its LayerNorms and GELU biases in the
+    activation type) carry across as any other subtree.  That is the value of the
     reference's cast at every use, made once here instead of on every call.
     ``dtype`` stores every leaf in that type instead: training keeps
     ``torch.float32`` leaves, as ``repro`` does, and casts at each use."""

@@ -32,16 +32,18 @@ KERNEL_PATHS = ("compiled", "reference")
 DeviceLike = Union[str, torch.device, None]
 
 
-def resolve_device(device: DeviceLike = "cuda") -> torch.device:
+def resolve_device(device: DeviceLike = "cuda", *, allow_meta: bool = False) -> torch.device:
     """``torch.device`` for ``device`` (``None`` means ``"cuda"``); raises
-    when CUDA is asked for and no GPU is present."""
+    when CUDA is asked for and no GPU is present.  ``allow_meta`` lets
+    ``"meta"`` through, for the callers that compute nothing (parameter and
+    cache shapes for the dry run); a kernel never takes it."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(dev)!r} requested but torch.cuda.is_available() is "
             "False; pass device='cpu' to run the plain PyTorch versions"
         )
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu") and not (allow_meta and dev.type == "meta"):
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")
     return dev
 

@@ -7,12 +7,16 @@ with optional ORIC cascade gating (``repro.launch.serve``).
   python -m repro_torch.launch.serve --arch deepseek_v2_lite_16b --cascade
   python -m repro_torch.launch.serve --arch qwen2_vl_2b --cascade
   python -m repro_torch.launch.serve --arch zamba2_2b7 --device cpu
+  python -m repro_torch.launch.serve --arch whisper_base --device cpu
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--cascade`` fits an
 ``LMCascade`` on one calibration batch and serves that batch through it;
-the hybrid family has no cascade (as in ``repro``) and generates instead.
-A VLM batch carries ``repro``'s launcher's vision prefix (zeros) and M-RoPE
-ids (the positions 0..S-1 on all three axes).
+the hybrid and encoder-decoder families have no cascade (as in ``repro``)
+and generate instead.  A VLM batch carries ``repro``'s launcher's vision
+prefix (zeros) and M-RoPE ids (the positions 0..S-1 on all three axes), an
+encoder-decoder batch its ``audio_frames`` (B, encoder_frames, d_model),
+N(0, 1) from the launcher's generator after the tokens, as ``repro``'s
+launcher draws them.
 """
 from __future__ import annotations
 
@@ -31,6 +35,13 @@ from repro_torch.serving.cascade_serving import LMCascade
 from repro_torch.serving.decode_loop import generate
 
 
+def audio_frames(rng: np.random.Generator, B: int, cfg, device: torch.device) -> torch.Tensor:
+    """An encoder-decoder batch's frame embeddings as ``repro``'s launchers
+    draw them: N(0, 1) of shape (B, encoder_frames, d_model), float32."""
+    x = rng.normal(0, 1, (B, cfg.encoder_frames, cfg.d_model)).astype(np.float32)
+    return torch.from_numpy(x).to(device)
+
+
 def main(argv: Optional[Sequence[str]] = None) -> Union[torch.Tensor, Dict]:
     """The generated tokens, or with ``--cascade`` the served batch's result
     (``LMCascade.serve_batch``)."""
@@ -47,14 +58,16 @@ def main(argv: Optional[Sequence[str]] = None) -> Union[torch.Tensor, Dict]:
     dev = resolve_device(args.device)
     cfg = reduced(get_config(args.arch))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(args.seed), device=dev)
-    toks, labels = synth_lm_batch(np.random.default_rng(args.seed), args.batch, args.prompt_len,
-                                  cfg.vocab_size)
+    rng = np.random.default_rng(args.seed)
+    toks, labels = synth_lm_batch(rng, args.batch, args.prompt_len, cfg.vocab_size)
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
     if cfg.arch_type == "vlm":
         batch["vision_embeds"] = torch.zeros((args.batch, cfg.vision_tokens, cfg.d_model),
                                              dtype=torch.float32, device=dev)
         batch["positions_3d"] = torch.arange(args.prompt_len, device=dev).expand(
             3, args.batch, args.prompt_len)
+    if cfg.arch_type == "encdec":
+        batch["audio_frames"] = audio_frames(rng, args.batch, cfg, dev)
 
     if args.cascade and cfg.arch_type in ("dense", "vlm", "moe", "rwkv"):
         cal = dict(batch, labels=torch.from_numpy(labels).to(dev))

@@ -1,20 +1,20 @@
 """Step builders (``repro.launch.steps``): the train, prefill and serve
-steps of the ported families (dense, VLM, MoE with or without MLA, RWKV6,
-hybrid).
+steps of every family, and the dry run's abstract optimizer state.
 
 ``repro`` builds these for ``jax.jit`` with ``cfg`` closed over; here they
 are plain functions over the port's parameter trees, functional as there:
 a step returns new parameters and optimizer state and leaves its inputs as
-they are.  ``abstract_opt_state`` belongs to the dry run and comes with the
-rest of ``launch/`` (ROADMAP.md queue A item 9g).
+they are.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.estimator import value_and_grad
+from repro_torch.launch.input_specs import INDEX_DTYPE
 from repro_torch.models.lm import LMConfig, decode_step, loss_fn, prefill
-from repro_torch.train.adamw import adamw_update
+from repro_torch.train.adamw import AdamWState, adamw_update
+from repro_torch.tree import Tree, tree_map
 
 
 def make_train_step(cfg: LMConfig, lr: float = 1e-4):
@@ -54,3 +54,15 @@ def make_serve_step(cfg: LMConfig):
         return decode_step(params, cfg, cache, tokens, pos)
 
     return serve_step
+
+
+def abstract_opt_state(params_abstract: Tree) -> AdamWState:
+    """The AdamW state of ``params_abstract`` (meta tensors, from
+    ``models.lm.abstract_params``) as meta tensors: ``mu`` and ``nu`` like
+    the parameters, ``step`` a scalar (int64 where the JAX package's is
+    int32).  Nothing is allocated."""
+    def like(t):
+        return torch.empty_like(t, device="meta")
+
+    return AdamWState(step=torch.empty((), dtype=INDEX_DTYPE, device="meta"),
+                      mu=tree_map(like, params_abstract), nu=tree_map(like, params_abstract))

@@ -7,17 +7,22 @@ variant of ``--arch`` on synthetic tokens with ``launch.steps``'
   python -m repro_torch.launch.train --arch deepseek_moe_16b --steps 4 --device cpu
   python -m repro_torch.launch.train --arch qwen2_vl_2b --steps 4 --device cpu
   python -m repro_torch.launch.train --arch zamba2_2b7 --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch whisper_base --steps 4 --device cpu
+  python -m repro_torch.launch.train --arch yi_6b --dryrun
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are float32,
 as ``repro``'s are; ``--ckpt`` writes them in ``repro``'s ``save_pytree``
 format.  A VLM batch carries ``repro``'s launcher's vision prefix (zeros)
-and M-RoPE ids (the positions 0..S-1 on all three axes).  ``--dryrun`` (the
-production-mesh lowering) comes with the rest of ``launch/`` (ROADMAP.md
-queue A item 9g).
+and M-RoPE ids (the positions 0..S-1 on all three axes), an encoder-decoder
+batch its audio frames, drawn from the batch generator after each step's
+tokens (``launch.serve.audio_frames``).  ``--dryrun`` prints the single-card
+dry-run report of ``--arch`` at ``train_4k`` (``launch.dryrun``) and trains
+nothing.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import time
 from typing import List, Optional, Sequence, Tuple
 
@@ -27,20 +32,16 @@ import torch
 from repro_torch.configs import get_config
 from repro_torch.data.lm_synth import synth_lm_batch
 from repro_torch.kernels.dispatch import resolve_device
+from repro_torch.launch import dryrun
+from repro_torch.launch.serve import audio_frames
 from repro_torch.launch.steps import make_train_step
 from repro_torch.models.lm import init_params, reduced
 from repro_torch.train.adamw import adamw_init
 from repro_torch.train.checkpoint import save_pytree
 
-# the batch fields repro's launcher adds for these families, and the ROADMAP
-# item that brings each family
-_LATER_FIELDS = {
-    "encdec": ("audio_frames", "9f"),
-}
-
-
 def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
-    """The trained parameters and the losses of the steps."""
+    """The trained parameters and the losses of the steps (with ``--dryrun``
+    the report and no loss)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--steps", type=int, default=30)
@@ -52,15 +53,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
     ap.add_argument("--dryrun", action="store_true")
     args = ap.parse_args(argv)
     if args.dryrun:
-        raise NotImplementedError("--dryrun (the production-mesh lowering) comes with the rest "
-                                  "of launch/ (ROADMAP.md queue A item 9g)")
+        rep = dryrun.report(args.arch, "train_4k")
+        print(json.dumps(rep), flush=True)
+        return rep, []
 
     dev = resolve_device(args.device)
     cfg = reduced(get_config(args.arch))
-    if cfg.arch_type in _LATER_FIELDS:
-        fields, item = _LATER_FIELDS[cfg.arch_type]
-        raise NotImplementedError(f"the {fields} batch fields ({cfg.arch_type}) come with the "
-                                  f"port's LM stack (ROADMAP.md queue A item {item})")
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
                          dtype=torch.float32)
     opt = adamw_init(params)
@@ -75,6 +73,8 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
             batch["vision_embeds"] = torch.zeros((args.batch, cfg.vision_tokens, cfg.d_model),
                                                  dtype=torch.float32, device=dev)
             batch["positions_3d"] = torch.arange(args.seq, device=dev).expand(3, args.batch, args.seq)
+        if cfg.arch_type == "encdec":
+            batch["audio_frames"] = audio_frames(rng, args.batch, cfg, dev)
         params, opt, loss = step(params, opt, batch)
         losses.append(float(loss))
         if it % 10 == 0 or it == args.steps - 1:

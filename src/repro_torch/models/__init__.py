@@ -1,5 +1,5 @@
-"""The weak/strong grid detectors (``detector``) and the dense and RWKV6
-language models of the early-exit cascade (``lm``, ``layers``)."""
+"""The weak/strong grid detectors (``detector``) and the language models of
+every assigned family (``lm``, ``layers``)."""
 from repro_torch.models.detector import (
     STRONG,
     WEAK,

@@ -1,5 +1,5 @@
 """Transformer, MoE, MLA, RWKV6 and Mamba2 layers for the LM (the dense, VLM,
-MoE, RWKV and hybrid families of ``repro.models.layers``).
+MoE, RWKV, hybrid and encoder-decoder families of ``repro.models.layers``).
 
 Everything is functional, as in the JAX package: parameters are nested dicts
 of tensors under ``repro``'s keys, and ``*_apply(params, x, ...)`` computes in
@@ -222,10 +222,14 @@ def causal_mask(S: int, T: int, offset: int, window: int = 0, device=None) -> to
     return sdpa_mask(S, T, True, window, offset, device=device)[None]
 
 
-def _sdpa(q, k, v, *, window: int, q_offset: int, plain: bool = False) -> torch.Tensor:
-    """Causal GQA attention (B, S, H, D) x (B, T, K, D) -> (B, S, H * D)."""
+def _sdpa(q, k, v, *, window: int, q_offset: int, plain: bool = False,
+          causal: bool = True) -> torch.Tensor:
+    """GQA attention (B, S, H, D) x (B, T, K, D) -> (B, S, H * D), causal
+    unless ``causal`` is False (every key visible: ``window`` must be 0)."""
+    if not causal and window:
+        raise ValueError(f"non-causal attention takes no window (got {window})")
     fn = flash_sdpa_ref if plain else flash_sdpa
-    out = fn(q, k, v, causal=True, window=window, q_offset=q_offset)
+    out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return out.reshape(q.shape[0], q.shape[1], -1)
 
 
@@ -238,12 +242,16 @@ def attention_apply(
     return_kv: bool = False,
     *,
     plain: bool = False,
+    causal: bool = True,
 ):
-    """Causal self-attention over the whole sequence (prefill); M-RoPE at
-    ``positions_3d`` (3, B, S) where the config has sections.  ``return_kv``
-    also returns the rotated (k, v) for the decode cache."""
+    """Self-attention over the whole sequence (prefill); M-RoPE at
+    ``positions_3d`` (3, B, S) where the config has sections.  Causal under
+    ``cfg.window``, or with ``causal=False`` bidirectional over every key and
+    no window (the JAX package's all-ones ``mask``: the whisper encoder).
+    ``return_kv`` also returns the rotated (k, v) for the decode cache."""
     q, k, v = _project_qkv(params, cfg, x, positions, positions_3d)
-    out = _sdpa(q, k, v, window=cfg.window, q_offset=0, plain=plain)
+    out = _sdpa(q, k, v, window=cfg.window if causal else 0, q_offset=0, plain=plain,
+                causal=causal)
     out = out @ params["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
@@ -339,6 +347,24 @@ def swiglu(params: PyTree, x: torch.Tensor) -> torch.Tensor:
     g = F.silu(x @ params["gate"].to(x.dtype))
     u = x @ params["up"].to(x.dtype)
     return (g * u) @ params["down"].to(x.dtype)
+
+
+def gelu_mlp_init(generator: torch.Generator, d_model: int, d_ff: int, dtype=torch.float32, *,
+                  stack: int = 0, device=None) -> PyTree:
+    kw = dict(stack=stack, device=device)
+    return {
+        "up": dense_init(generator, (d_model, d_ff), dtype, **kw),
+        "up_b": _const((d_ff,), 0.0, dtype, stack, device),
+        "down": dense_init(generator, (d_ff, d_model), dtype, **kw),
+        "down_b": _const((d_model,), 0.0, dtype, stack, device),
+    }
+
+
+def gelu_mlp(params: PyTree, x: torch.Tensor) -> torch.Tensor:
+    """The whisper MLP: GELU in its tanh approximation, ``jax.nn.gelu``'s
+    default, between two biased projections."""
+    h = F.gelu(x @ params["up"].to(x.dtype) + params["up_b"].to(x.dtype), approximate="tanh")
+    return h @ params["down"].to(x.dtype) + params["down_b"].to(x.dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,9 @@
-"""LM assembly for the dense, VLM, MoE, RWKV6 and hybrid families
-(``repro.models.lm``).
+"""LM assembly for the dense, VLM, MoE, RWKV6, hybrid and encoder-decoder
+families (``repro.models.lm``).
 
 One ``LMConfig`` (every field of the JAX package's, so the config files copy
-verbatim) drives the block patterns; this port runs ``arch_type`` ``dense``,
-``vlm``, ``moe`` (with or without MLA), ``rwkv`` and ``hybrid``; ``encdec``
-raises until ROADMAP queue A item 9f brings it.
+verbatim) drives the block patterns: ``arch_type`` ``dense``, ``vlm``,
+``moe`` (with or without MLA), ``rwkv``, ``hybrid`` and ``encdec``.
 
 Parameters keep ``repro``'s key paths and its STACKED layout: every layer
 parameter is one ``(L, ...)`` tensor under ``params["layers"]``, or for the
@@ -22,10 +21,18 @@ given, rotates queries and keys by M-RoPE.  The hybrid family (Zamba2) is
 G = ``num_shared_attn`` groups, each ``shared_attn_period - 1`` Mamba2
 layers (``params["mamba_groups"]``, every leaf (G, per, ...)) and then the
 one ``params["shared_block"]`` (attention + SwiGLU, the same weights in
-every group, each application with its own KV cache).
+every group, each application with its own KV cache).  The encoder-decoder
+family (Whisper) has ``params["enc_layers"]`` (LayerNorm, bidirectional
+attention, GELU MLP) over the batch's ``audio_frames`` (B, encoder_frames,
+d_model) plus a sinusoid, closed by ``enc_norm``, and ``params["dec_layers"]``
+(causal self-attention, cross-attention to the encoder output, GELU MLP)
+over the token embeddings plus a sinusoid; no RoPE.  Its decode cache holds
+the self-attention's ``k``/``v`` and the cross-attention's ``xk``/``xv``,
+computed once at prefill; it ignores ``kv_quant``, as the JAX package does.
 
 API (all functional, as in ``repro``):
   init_params(cfg, generator, device)  seeded params on ``device``
+  abstract_params(cfg)                 meta tensors (dry run, no allocation)
   forward(params, cfg, batch)          (logits (B, S, V), MoE aux loss)
   loss_fn(params, cfg, batch)          mean token cross-entropy (+ aux)
   init_cache(cfg, B, capacity, device) decode cache
@@ -63,6 +70,8 @@ from repro_torch.models.layers import (
     attention_decode,
     attention_init,
     dense_init,
+    gelu_mlp,
+    gelu_mlp_init,
     kv_quantize,
     layernorm,
     layernorm_init,
@@ -80,19 +89,18 @@ from repro_torch.models.layers import (
     rwkv6_time_mix,
     swiglu,
     swiglu_init,
+    _sdpa,
 )
 
 PyTree = Dict[str, Any]
 
-PORTED_ARCHS = ("dense", "vlm", "moe", "rwkv", "hybrid")
+PORTED_ARCHS = ("dense", "vlm", "moe", "rwkv", "hybrid", "encdec")
 
 
 def check_arch(cfg: "LMConfig") -> None:
     if cfg.arch_type not in PORTED_ARCHS:
-        raise NotImplementedError(
-            f"arch_type {cfg.arch_type!r} ({cfg.name}) comes with the port's LM "
-            f"stack (ROADMAP.md queue A item 9f); ported: {PORTED_ARCHS}"
-        )
+        raise ValueError(f"unknown arch_type {cfg.arch_type!r} ({cfg.name}); "
+                         f"known: {PORTED_ARCHS}")
 
 
 @dataclass(frozen=True)
@@ -255,12 +263,24 @@ def reduced(cfg: LMConfig, **overrides) -> LMConfig:
 # ===========================================================================
 
 def _stack_init(generator: torch.Generator, cfg: LMConfig, kind: str, n: int, dt, dev) -> PyTree:
-    """``n`` layers of ``kind`` (dense | moe | rwkv | mamba) stacked: each
-    parameter one (n, ...) tensor (``n`` = 0: one layer, unstacked, as the
-    hybrid's shared block is).  A dense layer of the MoE family
-    (``first_k_dense``) attends through MLA when ``cfg.use_mla``, as a MoE
-    layer does."""
+    """``n`` layers of ``kind`` (dense | moe | rwkv | mamba | enc | dec)
+    stacked: each parameter one (n, ...) tensor (``n`` = 0: one layer,
+    unstacked, as the hybrid's shared block is).  A dense layer of the MoE
+    family (``first_k_dense``) attends through MLA when ``cfg.use_mla``, as a
+    MoE layer does."""
     M, kw = cfg.d_model, dict(stack=n, device=dev)
+    if kind == "enc":
+        return {"norm1": layernorm_init(M, dt, **kw),
+                "attn": attention_init(generator, cfg.attn(), dt, **kw),
+                "norm2": layernorm_init(M, dt, **kw),
+                "mlp": gelu_mlp_init(generator, M, cfg.d_ff, dt, **kw)}
+    if kind == "dec":
+        return {"norm1": layernorm_init(M, dt, **kw),
+                "self_attn": attention_init(generator, cfg.attn(), dt, **kw),
+                "norm_x": layernorm_init(M, dt, **kw),
+                "cross_attn": attention_init(generator, cfg.attn(), dt, **kw),
+                "norm2": layernorm_init(M, dt, **kw),
+                "mlp": gelu_mlp_init(generator, M, cfg.d_ff, dt, **kw)}
     if kind == "rwkv":
         return {
             "ln1": layernorm_init(M, dt, **kw),
@@ -279,7 +299,7 @@ def _stack_init(generator: torch.Generator, cfg: LMConfig, kind: str, n: int, dt
     return p
 
 
-def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = "cuda", *,
+def init_params(cfg: LMConfig, generator: Optional[torch.Generator], device: DeviceLike = "cuda", *,
                 dtype: Optional[torch.dtype] = None) -> PyTree:
     """Seeded parameters with the shapes and scales of ``repro``'s
     ``init_params``, drawn on ``device`` from ``generator`` (which must live
@@ -291,13 +311,16 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
     family has two stacks, ``dense_layers`` (``first_k_dense``) and
     ``moe_layers`` (the rest); a stack of no layer is left out.  The hybrid
     family has ``mamba_groups`` (every leaf (G, per, ...)) and one
-    ``shared_block``; its ``A_log``, ``D`` and ``dt_bias`` are float32."""
+    ``shared_block``; its ``A_log``, ``D`` and ``dt_bias`` are float32.  The
+    encoder-decoder family has ``enc_layers``, ``dec_layers`` and
+    ``enc_norm``.  On ``device="meta"`` nothing is drawn or allocated (the
+    generator may be None): :func:`abstract_params`."""
     check_arch(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     dt, L, M = dtype or cfg.act_dtype, cfg.num_layers, cfg.d_model
     p: PyTree = {
         "embed": dense_init(generator, (cfg.vocab_size, M), dt, scale=0.02, device=dev),
-        "final_norm": (layernorm_init(M, dt, device=dev) if cfg.arch_type == "rwkv"
+        "final_norm": (layernorm_init(M, dt, device=dev) if cfg.arch_type in ("rwkv", "encdec")
                        else rmsnorm_init(M, dt, device=dev)),
     }
     if not cfg.tie_embeddings:
@@ -312,10 +335,23 @@ def init_params(cfg: LMConfig, generator: torch.Generator, device: DeviceLike = 
         p["mamba_groups"] = tree_map(lambda a: a.reshape(G, per, *a.shape[1:]),
                                      _stack_init(generator, cfg, "mamba", G * per, dt, dev))
         p["shared_block"] = _stack_init(generator, cfg, "dense", 0, dt, dev)
+    elif cfg.arch_type == "encdec":
+        p["enc_layers"] = _stack_init(generator, cfg, "enc", cfg.encoder_layers, dt, dev)
+        p["dec_layers"] = _stack_init(generator, cfg, "dec", L, dt, dev)
+        p["enc_norm"] = layernorm_init(M, dt, device=dev)
     else:
         p["layers"] = _stack_init(generator, cfg, "rwkv" if cfg.arch_type == "rwkv" else "dense",
                                   L, dt, dev)
     return p
+
+
+def abstract_params(cfg: LMConfig) -> PyTree:
+    """``repro``'s ``abstract_params`` as meta tensors: the shapes of
+    ``init_params``, every float32 leaf re-typed to ``cfg.act_dtype`` (the
+    MoE router, the RWKV6 bonus and Mamba2's float32 leaves too, as there).
+    Nothing is allocated."""
+    params = init_params(cfg, None, device="meta", dtype=torch.float32)
+    return tree_map(lambda t: t.to(cfg.act_dtype) if t.dtype == torch.float32 else t, params)
 
 
 def layer_params(stack: PyTree, i: int) -> PyTree:
@@ -356,7 +392,7 @@ def _embed(params, cfg: LMConfig, batch) -> torch.Tensor:
 
 
 def _logits(params, cfg: LMConfig, h) -> torch.Tensor:
-    h = (layernorm(params["final_norm"], h) if cfg.arch_type == "rwkv"
+    h = (layernorm(params["final_norm"], h) if cfg.arch_type in ("rwkv", "encdec")
          else rmsnorm(params["final_norm"], h))
     w = params["embed"].to(h.dtype).T if cfg.tie_embeddings else params["unembed"].to(h.dtype)
     return h @ w
@@ -460,13 +496,99 @@ def _remat(body, on: bool):
     return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
+def _stack(params, key: str, n: int):
+    """The ``n`` layers of the stack ``params[key]`` in order (views)."""
+    held = int(next(tree_leaves(params[key])).shape[0])
+    if held != n:
+        raise ValueError(f"params hold {held} layers in {key}, the config says {n}")
+    return [layer_params(params[key], i) for i in range(n)]
+
+
+def _sinusoid(n: int, d: int, dtype, device=None, *, start: int = 0) -> torch.Tensor:
+    """(n, d) absolute positions start..start+n-1: sin, then cos, of
+    pos / 10000^(2 i / d) for i < d / 2, the angles in float32, then cast."""
+    pos = torch.arange(start, start + n, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device), 2 * dim / d)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
+def _sinusoid_at(pos: int, d: int, dtype, device=None) -> torch.Tensor:
+    """The (d,) row of :func:`_sinusoid` at position ``pos``."""
+    return _sinusoid(1, d, dtype, device, start=pos)[0]
+
+
+def _encode(params, cfg: LMConfig, batch, plain: bool = False, remat: bool = False) -> torch.Tensor:
+    """The Whisper encoder over the batch's precomputed frame embeddings
+    ``audio_frames`` (the conv frontend is a stub): frames + sinusoid, then
+    per layer bidirectional attention and the GELU MLP (each with a
+    LayerNorm first), then ``enc_norm``.  (B, F, d_model)."""
+    x = _as_tensor(batch["audio_frames"], params["embed"].device, cfg.act_dtype)
+    h = x + _sinusoid(x.shape[1], cfg.d_model, x.dtype, x.device)[None]
+    acfg = cfg.attn()
+
+    def body(hh, lp):
+        hh = hh + attention_apply(lp["attn"], acfg, layernorm(lp["norm1"], hh), None,
+                                  causal=False, plain=plain)
+        return hh + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], hh))
+
+    body = _remat(body, remat)
+    for lp in _stack(params, "enc_layers", cfg.encoder_layers):
+        h = body(h, lp)
+    return layernorm(params["enc_norm"], h)
+
+
+def _cross_kv(ap, cfg: LMConfig, enc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cross-attention's keys and values (B, F, K, D) from the encoder
+    output: its ``wk`` / ``wv`` without bias, as in the JAX package."""
+    B = enc.shape[0]
+    K, D = cfg.num_kv_heads, cfg.head_dim
+    k = (enc @ ap["wk"].to(enc.dtype)).reshape(B, -1, K, D)
+    v = (enc @ ap["wv"].to(enc.dtype)).reshape(B, -1, K, D)
+    return k, v
+
+
+def _cross_attention_cached(ap, cfg: LMConfig, x, xk, xv, plain: bool = False) -> torch.Tensor:
+    """Cross-attention of the queries of ``x`` (B, S, M) against the keys and
+    values ``xk`` / ``xv`` (B, F, K, D): every frame visible, no window."""
+    B, S, _ = x.shape
+    q = x @ ap["wq"].to(x.dtype)
+    if cfg.qkv_bias:
+        q = q + ap["bq"].to(x.dtype)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    out = _sdpa(q, xk, xv, window=0, q_offset=0, plain=plain, causal=False)
+    return out @ ap["wo"].to(x.dtype)
+
+
+def _cross_attention(ap, cfg: LMConfig, x, enc, plain: bool = False) -> torch.Tensor:
+    """Cross-attention reusing the GQA projections: q from ``x``, k / v from
+    the encoder output ``enc``."""
+    return _cross_attention_cached(ap, cfg, x, *_cross_kv(ap, cfg, enc), plain)
+
+
+def _dec_block(lp, cfg: LMConfig, h, enc, plain: bool = False, return_kv: bool = False):
+    """A Whisper decoder layer over the whole sequence: causal
+    self-attention (under ``cfg.window``), cross-attention to ``enc``, the
+    GELU MLP.  Returns (h, kv): with ``return_kv`` the self-attention's
+    (k, v) and the cross-attention's (xk, xv), else None."""
+    a = attention_apply(lp["self_attn"], cfg.attn(), layernorm(lp["norm1"], h), None,
+                        return_kv=return_kv, plain=plain)
+    a, kv = a if return_kv else (a, None)
+    h = h + a
+    xk, xv = _cross_kv(lp["cross_attn"], cfg, enc)
+    h = h + _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h), xk, xv, plain)
+    h = h + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h))
+    return h, (kv + (xk, xv) if return_kv else None)
+
+
 def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), aux): the MoE
     layers' load-balance losses summed in float32 (0 for the other
     families).  Differentiable; with ``cfg.remat``, each layer (a hybrid:
-    each group) is checkpointed when a parameter requires grad under grad
-    mode (serving builds no graph)."""
+    each group; an encoder-decoder: each encoder and each decoder layer) is
+    checkpointed when a parameter requires grad under grad mode (serving
+    builds no graph)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
@@ -474,6 +596,13 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
         t.requires_grad for t in tree_leaves(params))
     positions, p3d = _positions(B, S, h.device), _positions_3d(batch, h.device)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    if cfg.arch_type == "encdec":
+        enc = _encode(params, cfg, batch, plain, remat)
+        h = h + _sinusoid(S, cfg.d_model, h.dtype, h.device)[None]
+        body = _remat(lambda hh, lp, e: _dec_block(lp, cfg, hh, e, plain)[0], remat)
+        for lp in _stack(params, "dec_layers", cfg.num_layers):
+            h = body(h, lp, enc)
+        return _logits(params, cfg, h), aux
     if cfg.arch_type == "hybrid":
         sp = params["shared_block"]
 
@@ -529,10 +658,21 @@ def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "c
     the last token of each mix, ``tm_x``/``cm_x`` (L, B, M).  For the hybrid
     the float32 ``ssm`` (G, per, B, H, P, N), the ``conv`` context (G, per,
     B, W - 1, Di + 2N) and each group's shared-attention cache
-    ``shared_k``/``shared_v`` (G, B, C, K, D)."""
+    ``shared_k``/``shared_v`` (G, B, C, K, D).  For the encoder-decoder
+    ``k``/``v`` (L, B, C, K, D) of the decoder's self-attention and the
+    cross-attention's ``xk``/``xv`` (L, B, encoder_frames, K, D), whatever
+    ``kv_quant`` says.  ``device="meta"`` allocates nothing (the dry run's
+    specs)."""
     check_arch(cfg)
-    dev = resolve_device(device)
+    dev = resolve_device(device, allow_meta=True)
     L, B, C, dt = cfg.num_layers, batch, capacity, cfg.act_dtype
+    if cfg.arch_type == "encdec":
+        self_kv = (L, B, C, cfg.num_kv_heads, cfg.head_dim)
+        cross_kv = (L, B, cfg.encoder_frames, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(self_kv, dtype=dt, device=dev),
+                "v": torch.zeros(self_kv, dtype=dt, device=dev),
+                "xk": torch.zeros(cross_kv, dtype=dt, device=dev),
+                "xv": torch.zeros(cross_kv, dtype=dt, device=dev)}
     if cfg.use_mla:
         return {"c": torch.zeros((L, B, C, cfg.kv_lora_rank), dtype=dt, device=dev),
                 "kr": torch.zeros((L, B, C, cfg.qk_rope_dim), dtype=dt, device=dev)}
@@ -573,7 +713,10 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
     routes the step's B tokens as one batch of B tokens (the flat path
     unless ``moe_groups`` divides B).  ``positions_3d`` (3, B, 1), optional
     as in ``repro``, rotates a VLM's query and key by M-RoPE; without it
-    they take 1-D RoPE at ``pos``."""
+    they take 1-D RoPE at ``pos``.  An encoder-decoder step adds the
+    sinusoid at ``pos``, attends over its self-attention cache and then
+    over the whole of the prefill's cross-attention cache (``xk``/``xv``,
+    read only)."""
     check_arch(cfg)
     table = params["embed"]
     h = table.to(cfg.act_dtype)[_as_tensor(tokens, table.device, torch.int64)][:, None, :]
@@ -587,6 +730,15 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
             cache["cm_x"][i].copy_(xc)
         return _logits(params, cfg, h)[:, 0, :], cache
     acfg = cfg.attn()
+    if cfg.arch_type == "encdec":
+        h = h + _sinusoid_at(pos, cfg.d_model, h.dtype, h.device)
+        for i, lp in enumerate(_stack(params, "dec_layers", cfg.num_layers)):
+            h = h + attention_decode(lp["self_attn"], acfg, layernorm(lp["norm1"], h),
+                                     cache["k"][i], cache["v"][i], pos)[0]
+            h = h + _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h),
+                                            cache["xk"][i], cache["xv"][i])
+            h = h + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h))
+        return _logits(params, cfg, h)[:, 0, :], cache
     if cfg.arch_type == "hybrid":
         sp = params["shared_block"]
         for g, layers in enumerate(_groups(params, cfg)):
@@ -630,7 +782,8 @@ def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] 
     ``capacity`` slots (default S) in the same pass; a capacity below S
     keeps the last ``capacity`` tokens at their ring slots (a window model's
     ring cache, the hybrid's shared attention under a window too; MLA's
-    latents are laid out the same way, as in the JAX package).  Returns
+    latents are laid out the same way, as in the JAX package; an
+    encoder-decoder's cross-attention cache holds every frame).  Returns
     (last-token logits (B, V), cache ready for ``decode_step`` at position
     S)."""
     check_arch(cfg)
@@ -644,6 +797,16 @@ def prefill(params: PyTree, cfg: LMConfig, batch: Dict, capacity: Optional[int] 
             cache["state"][i].copy_(st)
             cache["tm_x"][i].copy_(xt)
             cache["cm_x"][i].copy_(xc)
+        return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
+    if cfg.arch_type == "encdec":
+        enc = _encode(params, cfg, batch)
+        h = h + _sinusoid(S, cfg.d_model, h.dtype, h.device)[None]
+        for i, lp in enumerate(_stack(params, "dec_layers", cfg.num_layers)):
+            h, (k, v, xk, xv) = _dec_block(lp, cfg, h, enc, return_kv=True)
+            _fill_slots(k, cache["k"][i])
+            _fill_slots(v, cache["v"][i])
+            cache["xk"][i].copy_(xk)
+            cache["xv"][i].copy_(xv)
         return _logits(params, cfg, h[:, -1:, :])[:, 0, :], cache
     positions, p3d = _positions(B, S, h.device), _positions_3d(batch, h.device)
     if cfg.arch_type == "hybrid":
@@ -681,6 +844,7 @@ __all__ = [
     "PORTED_ARCHS",
     "reduced",
     "init_params",
+    "abstract_params",
     "layer_params",
     "tree_leaves",
     "tree_map",

@@ -15,9 +15,9 @@ decides one batch; ``serve_stream`` streams batches through one
 VLM and RWKV stacks (one layer stack each) and the MoE family (its two
 stacks, with or without MLA), as ``repro`` does.  A VLM batch's
 ``vision_embeds`` and ``positions_3d`` go to every forward with the
-tokens.  The hybrid family has no early-exit cascade in ``repro``
-(its ``truncate_params`` knows only these stacks), and none here: it is
-served through ``decode_loop.generate``.
+tokens.  The hybrid and encoder-decoder families have no early-exit
+cascade in ``repro`` (its ``truncate_params`` knows only these stacks), and
+none here: they are served through ``decode_loop.generate``.
 """
 from __future__ import annotations
 
@@ -52,9 +52,10 @@ _STACKS = ("layers", "dense_layers", "moe_layers")
 
 def _check_cascade(cfg: LMConfig) -> None:
     check_arch(cfg)
-    if cfg.arch_type == "hybrid":
+    if cfg.arch_type in ("hybrid", "encdec"):
         raise ValueError(f"{cfg.name}: the early-exit cascade cuts the dense, VLM, MoE and RWKV "
-                         f"stacks, as repro's does; the hybrid family is served by generate")
+                         f"stacks, as repro's does; the {cfg.arch_type} family is served by "
+                         f"generate")
 
 
 def truncate_params(params: PyTree, cfg: LMConfig, exit_layer: int) -> PyTree:

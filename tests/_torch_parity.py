@@ -215,15 +215,18 @@ def grid_positions(B, S, prefix, width):
     return p
 
 
-def vlm_fields(cfg, B, S, seed):
-    """A VLM batch's fields besides tokens: a seeded vision prefix
-    (``vision_patch_embeddings``) and M-RoPE ids with a grid of rows of 4 on
-    it (the reduced configs' 8 vision tokens: 2 x 4); nothing for the other
-    families."""
-    if cfg.arch_type != "vlm":
-        return {}
-    from repro_torch.data.modality_stubs import vision_patch_embeddings
+def modality_fields(cfg, B, S, seed):
+    """A batch's fields besides tokens: for the VLM family a seeded vision
+    prefix (``vision_patch_embeddings``) and M-RoPE ids with a grid of rows
+    of 4 on it (the reduced configs' 8 vision tokens: 2 x 4); for the
+    encoder-decoder family seeded ``audio_frame_embeddings`` (B,
+    encoder_frames, d_model); nothing for the other families."""
+    from repro_torch.data.modality_stubs import audio_frame_embeddings, vision_patch_embeddings
 
     rng = np.random.default_rng(seed)
-    return {"vision_embeds": vision_patch_embeddings(rng, B, cfg.vision_tokens, cfg.d_model),
-            "positions_3d": grid_positions(B, S, cfg.vision_tokens, 4)}
+    if cfg.arch_type == "vlm":
+        return {"vision_embeds": vision_patch_embeddings(rng, B, cfg.vision_tokens, cfg.d_model),
+                "positions_3d": grid_positions(B, S, cfg.vision_tokens, 4)}
+    if cfg.arch_type == "encdec":
+        return {"audio_frames": audio_frame_embeddings(rng, B, cfg.encoder_frames, cfg.d_model)}
+    return {}

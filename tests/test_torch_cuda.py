@@ -510,6 +510,8 @@ def test_flash_sdpa_kernel(dev, B, S, T, H, K, D, window, off):
     (8, 512, 512, 32, 32, 80, 0, 0, True),  # zamba2-2.7b prefill: D = 80, MHA
     (2, 200, 300, 4, 2, 80, 64, 100, True),  # D = 80: window + offset, ragged
     (2, 100, 150, 4, 4, 80, 0, 0, False),  # D = 80, no causal mask
+    (8, 1500, 1500, 8, 8, 64, 0, 0, False),  # whisper-base encoder: bidirectional, ragged T
+    (8, 512, 1500, 8, 8, 64, 0, 0, False),  # whisper-base cross-attention prefill
 ])
 def test_flash_sdpa_wgmma_route(dev, B, S, T, H, K, D, window, off, causal):
     rng = np.random.default_rng(B * S + T + D)
@@ -545,6 +547,20 @@ def test_flash_sdpa_decode_route(dev, G, T, D):
         torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "decode"))
 
 
+@pytest.mark.parametrize("G,T,D", [(1, 1500, 64), (1, 33, 64), (7, 1500, 128)])
+def test_flash_sdpa_decode_route_non_causal(dev, G, T, D):
+    """A decode step's cross-attention (whisper-base: G 1, D 64, the 1500
+    encoder frames): every key visible whatever q_offset says, through the
+    split-K route."""
+    B, K = 8, 8 if G == 1 else 4
+    rng = np.random.default_rng(G * T + D + 1)
+    q, k, v = _flash_inputs(rng, B, 1, T, G * K, K, D, dev, torch.bfloat16)
+    want = flash_sdpa_ref(q, k, v, causal=False)
+    for off in (0, 17):
+        got = _route_launches("decode", lambda: flash_sdpa(q, k, v, causal=False, q_offset=off))
+        torch.testing.assert_close(got.float(), want.float(), **_bf16_tol(v, "decode"))
+
+
 @pytest.mark.parametrize("B,T,H,K,V", [(1, 8, 1, 8, 8), (2, 64, 3, 16, 16), (2, 33, 2, 64, 64),
                                         (3, 1, 4, 32, 32), (2, 70, 2, 64, 64), (8, 512, 32, 64, 64),
                                         (2, 45, 3, 64, 33), (1, 17, 2, 32, 128)])
@@ -577,12 +593,17 @@ def test_wkv6_kernel(dev, B, T, H, K, V, xdt, wdt):
     torch.testing.assert_close(sT, want_s, atol=tol_s, rtol=0 if big else 1e-5)
 
 
-def _vlm_fields(cfg, B, S, dev, seed=0):
+def _modality_fields(cfg, B, S, dev, seed=0):
     """A VLM batch's vision prefix (``vision_patch_embeddings``) and M-RoPE
-    ids (a grid of rows of 4 on the prefix, text after it); {} otherwise."""
+    ids (a grid of rows of 4 on the prefix, text after it); an
+    encoder-decoder batch's ``audio_frame_embeddings``; {} otherwise."""
+    from repro_torch.data.modality_stubs import audio_frame_embeddings, vision_patch_embeddings
+
+    if cfg.arch_type == "encdec":
+        af = audio_frame_embeddings(np.random.default_rng(seed), B, cfg.encoder_frames, cfg.d_model)
+        return {"audio_frames": torch.from_numpy(af).to(dev)}
     if cfg.arch_type != "vlm":
         return {}
-    from repro_torch.data.modality_stubs import vision_patch_embeddings
 
     V = cfg.vision_tokens
     p = np.zeros((3, B, S), np.int64)
@@ -593,7 +614,7 @@ def _vlm_fields(cfg, B, S, dev, seed=0):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-                                  "qwen2_vl_2b", "zamba2_2b7"])
+                                  "qwen2_vl_2b", "zamba2_2b7", "whisper_base"])
 def test_lm_decode_matches_forward_on_card(dev, arch):
     """A reduced float32 model on the card: kernels against the plain
     versions, and decode at position S against the forward on S + 1 tokens
@@ -605,7 +626,7 @@ def test_lm_decode_matches_forward_on_card(dev, arch):
     cfg = lm.reduced(get_config(arch))
     params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     toks = torch.tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 16)), device=dev)
-    batch = {"tokens": toks, **_vlm_fields(cfg, 2, 16, dev)}
+    batch = {"tokens": toks, **_modality_fields(cfg, 2, 16, dev)}
     logits, _ = lm.forward(params, cfg, batch)
     plain, _ = lm.forward(params, cfg, batch, plain=True)
     torch.testing.assert_close(logits, plain, atol=1e-5, rtol=0)
@@ -807,7 +828,7 @@ def test_ring_and_int8_decode_on_card_match_cpu(dev, no_tf32, window, kv_quant):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-                                  "qwen2_vl_2b", "zamba2_2b7"])
+                                  "qwen2_vl_2b", "zamba2_2b7", "whisper_base"])
 def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
     """make_train_step on a reduced float32 model, card against CPU from one
     start: losses at 1e-4 relative, parameters within 2 lr_sum, at most 1%
@@ -828,7 +849,7 @@ def test_lm_train_steps_on_card_match_cpu(dev, no_tf32, arch):
         opt, step, losses = adamw_init(params), make_train_step(cfg, lr=lr), []
         for toks, labels in batches:
             b = {"tokens": torch.from_numpy(toks).to(d), "labels": torch.from_numpy(labels).to(d),
-                 **_vlm_fields(cfg, 2, 32, d)}
+                 **_modality_fields(cfg, 2, 32, d)}
             params, opt, loss = step(params, opt, b)
             losses.append(float(loss))
         runs[d.type] = (list(lm.tree_leaves(params)), losses)

@@ -7,14 +7,15 @@ compare at 1e-5, the reference's own kernel tolerance; greedy tokens must be
 equal.  The hybrid's SSM state (entries up to ~12) is held at 1e-5 of its
 largest entry: a float32 sum of decayed terms whose inputs already differ
 by the two frameworks' matmul roundings.  The VLM batch carries a vision
-prefix and M-RoPE ids with distinct t / h / w (a grid on the prefix)."""
+prefix and M-RoPE ids with distinct t / h / w (a grid on the prefix), the
+encoder-decoder batch seeded audio frames (``modality_fields``)."""
 import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import vlm_fields  # first: it imports repro.detection before repro's kernels
+from _torch_parity import modality_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as j_get_config
@@ -22,7 +23,7 @@ from repro.models import layers as jl
 from repro.models import lm as jlm
 from repro.serving.decode_loop import generate as j_generate
 
-from repro_torch.configs import ARCH_IDS, get_config
+from repro_torch.configs import all_configs, get_config
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import layers as tl
 from repro_torch.models import lm as tlm
@@ -30,14 +31,14 @@ from repro_torch.serving.cascade_serving import truncate_params, truncated_confi
 from repro_torch.serving.decode_loop import generate
 
 ARCHS = ["qwen2_7b", "yi_6b", "qwen3_14b", "qwen1_5_32b", "rwkv6_1b6", "deepseek_moe_16b",
-         "deepseek_v2_lite_16b", "qwen2_vl_2b", "zamba2_2b7"]
+         "deepseek_v2_lite_16b", "qwen2_vl_2b", "zamba2_2b7", "whisper_base"]
 B, S = 2, 16
 
 
 def lm_batch(cfg, toks, seed=0):
     """The tokens, and for the VLM family a seeded vision prefix and M-RoPE
-    ids (``vlm_fields``)."""
-    return {"tokens": toks, **vlm_fields(cfg, *toks.shape, seed)}
+    ids, for the encoder-decoder its audio frames (``modality_fields``)."""
+    return {"tokens": toks, **modality_fields(cfg, *toks.shape, seed)}
 
 
 def cache_tol(name, want):
@@ -409,8 +410,16 @@ def test_truncate_params_shares_storage(models):
     assert logits.shape == (B, S, tcfg.vocab_size)
 
 
-@pytest.mark.parametrize("arch", sorted(set(ARCH_IDS) - set(ARCHS)))
-def test_unported_families_raise(arch):
-    cfg = tlm.reduced(get_config(arch))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tlm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+@pytest.mark.parametrize("entry", ["init_params", "init_cache", "lm_params_from_jax"])
+def test_unported_families_raise(entry):
+    """Every family of the registry is ported; an arch_type that no config
+    has raises ValueError at each entry point that reads it."""
+    assert {c.arch_type for c in all_configs().values()} == set(tlm.PORTED_ARCHS)
+    cfg = dataclasses.replace(tlm.reduced(get_config("yi_6b")), arch_type="retnet")
+    call = {
+        "init_params": lambda: tlm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu"),
+        "init_cache": lambda: tlm.init_cache(cfg, 1, 4, device="cpu"),
+        "lm_params_from_jax": lambda: lm_params_from_jax({}, cfg, device="cpu"),
+    }[entry]
+    with pytest.raises(ValueError, match="unknown arch_type 'retnet'"):
+        call()

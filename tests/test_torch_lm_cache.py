@@ -1,9 +1,11 @@
 """The two dense-attention decode caches in the port against the JAX
 package's, on the CPU: the sliding-window ring cache (``window > 0``,
 capacity below the prompt) and the int8 KV cache (``kv_quant``), with the
-registry's ``long_context_variant`` / ``all_configs``, and the hybrid
+registry's ``long_context_variant`` / ``all_configs``, the hybrid
 family's ring (its shared attention windowed, its SSM and conv states
-carried as they are).
+carried as they are) and the encoder-decoder's (its decoder self-attention
+windowed; its cross-attention cache holds every frame and ignores
+``kv_quant``, as the JAX package's does).
 
 Tolerances: ``kv_quantize`` bit for bit (int8 values and scales); prefill
 and decode logits at 2e-4 / 5e-4, those of
@@ -16,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import perturbed  # first: it imports repro.detection before repro's kernels
+from _torch_parity import modality_fields, perturbed  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro import configs as jconfigs
@@ -31,6 +33,7 @@ from repro_torch.models import layers as tl
 from repro_torch.models import lm as tlm
 
 ARCHS = ["yi_6b", "qwen2_7b", "deepseek_moe_16b"]  # the MoE family attends as the dense one
+RING_ARCHS = ARCHS + ["whisper_base"]
 WINDOW, S = 8, 12
 DECODE_STEPS = 3  # decode steps past the ring's boundary (positions S, S + 1, ...)
 
@@ -52,6 +55,13 @@ def pair(arch, seed, **overrides):
 
 def tokens(cfg, B, n, seed):
     return np.random.default_rng(seed).integers(0, cfg.vocab_size, (B, n)).astype(np.int32)
+
+
+def inputs(cfg, toks, seed):
+    """The port's batch of ``toks`` and repro's: an encoder-decoder's carries
+    seeded audio frames (the same for any length of ``toks``)."""
+    batch = {"tokens": toks, **modality_fields(cfg, toks.shape[0], toks.shape[1], seed)}
+    return batch, {k: jnp.asarray(v) for k, v in batch.items()}
 
 
 # ------------------------------------------------------------------ int8
@@ -140,7 +150,7 @@ def test_fill_slots_layout_equals_repro(S_, C):
         np.testing.assert_array_equal(tlm._fill_slots(torch.from_numpy(arr), full).numpy(), want)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", RING_ARCHS)
 @pytest.mark.parametrize("kv_quant", [False, True])
 def test_ring_prefill_and_decode_match_repro(arch, kv_quant):
     """Prefill of S 12 into a ring of window 8, then decode steps past the
@@ -150,13 +160,15 @@ def test_ring_prefill_and_decode_match_repro(arch, kv_quant):
     jcfg, jparams, tcfg, tparams = pair(arch, 3, window=WINDOW, kv_quant=kv_quant)
     B = 1
     toks = tokens(tcfg, B, S, 3)
-    jlast, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=WINDOW)
-    tlast, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=WINDOW)
+    tb, jb = inputs(tcfg, toks, 3)
+    jlast, jcache = jlm.prefill(jparams, jcfg, jb, capacity=WINDOW)
+    tlast, tcache = tlm.prefill(tparams, tcfg, tb, capacity=WINDOW)
     close(tlast, jlast, 2e-4)
-    if not kv_quant:
+    if not kv_quant or tcfg.arch_type == "encdec":  # the encoder-decoder's cache is never int8
+        assert sorted(tcache) == sorted(jcache)
         for name in jcache:
             close(tcache[name], jcache[name], 1e-5)
-    full, _ = tlm.forward(tparams, tcfg, {"tokens": toks})
+    full, _ = tlm.forward(tparams, tcfg, tb)
     close(tlast, full[:, -1].numpy(), 2e-4)
     seq = toks
     nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
@@ -166,19 +178,19 @@ def test_ring_prefill_and_decode_match_repro(arch, kv_quant):
         close(td, jd, 5e-4)
         seq = np.concatenate([seq, nxt[:, None]], 1)
         if not kv_quant:
-            ref, _ = tlm.forward(tparams, tcfg, {"tokens": seq})
+            ref, _ = tlm.forward(tparams, tcfg, inputs(tcfg, seq, 3)[0])
             close(td, ref[:, -1].numpy(), 5e-4)
         nxt = np.asarray(jnp.argmax(jd, -1)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", RING_ARCHS)
 def test_ring_decode_from_an_empty_ring_matches_repro(arch):
     """Prefill shorter than the ring, then decode across the boundary: slots
     fill in order (pos < C), then wrap (pos % C)."""
     jcfg, jparams, tcfg, tparams = pair(arch, 4, window=WINDOW)
-    toks = tokens(tcfg, 1, 5, 4)
-    jlast, jcache = jlm.prefill(jparams, jcfg, {"tokens": jnp.asarray(toks)}, capacity=WINDOW)
-    tlast, tcache = tlm.prefill(tparams, tcfg, {"tokens": toks}, capacity=WINDOW)
+    tb, jb = inputs(tcfg, tokens(tcfg, 1, 5, 4), 4)
+    jlast, jcache = jlm.prefill(jparams, jcfg, jb, capacity=WINDOW)
+    tlast, tcache = tlm.prefill(tparams, tcfg, tb, capacity=WINDOW)
     nxt = np.asarray(jnp.argmax(jlast, -1)).astype(np.int32)
     for pos in range(5, 5 + WINDOW + 2):  # through pos C - 1, C and C + 1
         jd, jcache = jlm.decode_step(jparams, jcfg, jcache, jnp.asarray(nxt), jnp.asarray(pos, jnp.int32))

@@ -7,7 +7,7 @@ session-gated decoding (``cascade_generate``, greedy tokens exactly equal),
 plus the launcher (generate and ``--cascade``), for the dense, RWKV6, MoE
 (with and without MLA) and VLM families; the MoE family's weak stack at
 exit 1 is its dense layer and a MoE stack of length 0.  A VLM batch carries
-a vision prefix and M-RoPE ids (``vlm_fields``); ``cascade_generate``
+a vision prefix and M-RoPE ids (``modality_fields``); ``cascade_generate``
 refuses the ids (``repro``'s cuts them on the wrong axis) and serves the
 batch without them.  The hybrid family has no cascade (in neither package)
 and the launcher generates for it.  ``LMCascade.fit`` itself is held
@@ -16,7 +16,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import vlm_fields  # first: it imports repro.detection before repro's kernels
+from _torch_parity import modality_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.api.features import logits_features as j_logits_features
@@ -79,7 +79,7 @@ def test_sequence_nll():
 
 def _batch(seed, cfg, B=8, S=16):
     toks, labels = synth_lm_batch(np.random.default_rng(seed), B, S, cfg.vocab_size)
-    return {"tokens": toks, "labels": labels, **vlm_fields(cfg, B, S, seed)}
+    return {"tokens": toks, "labels": labels, **modality_fields(cfg, B, S, seed)}
 
 
 @pytest.fixture(scope="module", params=["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b",
@@ -157,17 +157,19 @@ def test_cascade_views_and_ratio(fitted, tmp_path):
 
 
 def test_unported_entry_points_raise(fitted):
-    """The streaming entry points take the families the port runs; the
-    encdec family comes with ROADMAP queue A item 9f and raises naming it.
-    The hybrid family has no early-exit cascade, in repro or here."""
+    """The encoder-decoder and hybrid families have no early-exit cascade, in
+    repro (its truncate_params knows neither) or here: the cascade's entry
+    points raise ValueError for them, naming generate."""
     _, _, tcascade, tparams, tcfg = fitted
     batch = {k: v for k, v in _batch(5, tcfg).items() if k != "positions_3d"}
     encdec = tlm.reduced(get_config("whisper_base"), num_layers=2)
     encdec_cascade = LMCascade(cfg=encdec, exit_layer=1, engine=tcascade.engine)
-    with pytest.raises(NotImplementedError, match="queue A item 9f"):
+    with pytest.raises(ValueError, match="encdec family is served by generate"):
         encdec_cascade.serve_stream(tparams, [batch])
-    with pytest.raises(NotImplementedError, match="queue A item 9f"):
+    with pytest.raises(ValueError, match="encdec family is served by generate"):
         cascade_generate(tparams, encdec, batch, 4, exit_layer=1, engine=tcascade.engine)
+    with pytest.raises(ValueError, match="encdec family is served by generate"):
+        truncate_params(tparams, encdec, 1)
     hybrid = tlm.reduced(get_config("zamba2_2b7"))
     with pytest.raises(ValueError, match="hybrid family is served by generate"):
         LMCascade(cfg=hybrid, exit_layer=1, engine=tcascade.engine).serve_batch(tparams, batch)
@@ -262,14 +264,14 @@ def test_cascade_generate_matches_repro(fitted):
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-                                  "qwen2_vl_2b", "zamba2_2b7"])
+                                  "qwen2_vl_2b", "zamba2_2b7", "whisper_base"])
 def test_launcher_on_cpu(arch, capsys):
     out = launcher.main(["--arch", arch, "--device", "cpu", "--batch", "2",
                          "--prompt-len", "8", "--tokens", "4"])
     assert out.shape == (2, 4)
     assert "generated (2, 4) on cpu" in capsys.readouterr().out
     out = launcher.main(["--arch", arch, "--device", "cpu", "--cascade"])
-    if arch == "zamba2_2b7":  # no cascade for the hybrid, as in repro: it generates
+    if arch in ("zamba2_2b7", "whisper_base"):  # no cascade for these, as in repro: they generate
         assert out.shape == (8, 16) and "generated (8, 16) on cpu" in capsys.readouterr().out
         return
     assert out["offload"].shape == (8,) and 0 < out["offload"].sum() < 8

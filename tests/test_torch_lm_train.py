@@ -2,8 +2,10 @@
 its gradients, ``make_train_step`` over N steps, remat, the kernels'
 autograd Functions, and the training launcher, for the dense, RWKV6, MoE
 (with and without MLA; the MoE aux loss in the loss and its gradients), VLM
-(a vision prefix and M-RoPE ids in every batch) and hybrid (autograd through
-the chunked Mamba2 scan, remat a group) families.
+(a vision prefix and M-RoPE ids in every batch), hybrid (autograd through
+the chunked Mamba2 scan, remat a group) and encoder-decoder (audio frames in
+every batch, remat each encoder and decoder layer) families; and the
+launcher's ``--dryrun`` report.
 
 Weights are drawn by ``repro`` (perturbed from numpy, so that biases, norm
 scales and the RWKV6 bonus are not trivially 0 or 1) and carried into the
@@ -15,12 +17,13 @@ beyond 1e-5.  On the CPU the kernels' Functions differentiate the same plain
 versions as plain autograd, and remat recomputes the same ops: both are held
 bit for bit."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
 import torch
 
-from _torch_parity import perturbed, vlm_fields  # first: it imports repro.detection before repro's kernels
+from _torch_parity import perturbed, modality_fields  # first: it imports repro.detection before repro's kernels
 import jax
 import jax.numpy as jnp
 from repro.configs import get_config as j_get_config
@@ -42,7 +45,7 @@ from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.train.adamw import adamw_init
 
 ARCHS = ["qwen2_7b", "yi_6b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
-         "qwen2_vl_2b", "zamba2_2b7"]
+         "qwen2_vl_2b", "zamba2_2b7", "whisper_base"]
 B, S = 2, 16
 STEPS, LR = 3, 1e-3
 
@@ -81,7 +84,7 @@ def models():
 
 def both_batches(cfg, seed):
     toks, labels = lm_batch(cfg, seed)
-    batch = {"tokens": toks, "labels": labels, **vlm_fields(cfg, B, S, seed)}
+    batch = {"tokens": toks, "labels": labels, **modality_fields(cfg, B, S, seed)}
     return ({k: jnp.asarray(v) for k, v in batch.items()},
             {k: torch.from_numpy(v) for k, v in batch.items()})
 
@@ -307,7 +310,7 @@ def test_bf16_compute_over_float32_params_trains(models):
 
 
 @pytest.mark.parametrize("arch", ["yi_6b", "rwkv6_1b6", "deepseek_v2_lite_16b", "qwen2_vl_2b",
-                                  "zamba2_2b7"])
+                                  "zamba2_2b7", "whisper_base"])
 def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
     path = str(tmp_path / f"{arch}.npz")
     params, losses = launcher.main(["--arch", arch, "--steps", "2", "--batch", "2", "--seq", "16",
@@ -320,10 +323,14 @@ def test_launcher_trains_and_repro_reads_its_checkpoint(tmp_path, arch):
         np.testing.assert_array_equal(g, w, err_msg=name)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--arch", "yi_6b", "--dryrun"], "queue A item 9g"),
-    (["--arch", "whisper_base"], "queue A item 9f"),
-])
-def test_launcher_refuses_what_is_not_ported(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
-        launcher.main(argv + ["--steps", "1", "--device", "cpu"])
+@pytest.mark.parametrize("arch", ["yi_6b", "whisper_base"])
+def test_launcher_dryrun_prints_the_report(arch, capsys):
+    """``--dryrun`` trains nothing: it prints the single-card report of the
+    full-size arch at train_4k (launch.dryrun), read against the data sheet
+    on a host without a card."""
+    rep, losses = launcher.main(["--arch", arch, "--dryrun", "--device", "cpu"])
+    assert losses == []
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rep
+    assert (rep["arch"], rep["shape"], rep["kind"]) == (arch, "train_4k", "train")
+    assert rep["card"]["memory_source"] == rep["card"]["rates_source"] == "NVIDIA H100 SXM data sheet"
+    assert rep["argument_bytes"]["opt_state"] == 2 * rep["argument_bytes"]["params"] + 8

@@ -18,7 +18,7 @@ from _torch_parity import (  # noqa: F401  (pipelines, repro_init: shared fixtur
     pipelines,
     random_detection_arrays,
     repro_init,
-    vlm_fields,
+    modality_fields,
 )
 
 import repro.detection.batch  # noqa: F401  (first: repro's kernels import it back)
@@ -122,7 +122,7 @@ def test_cnn_reward_model_behind_engine(tmp_path):
 
 def _lm_batch(seed, cfg, B=16, S=16):
     toks, labels = synth_lm_batch(np.random.default_rng(seed), B, S, cfg.vocab_size)
-    return {"tokens": toks, "labels": labels, **vlm_fields(cfg, B, S, seed)}
+    return {"tokens": toks, "labels": labels, **modality_fields(cfg, B, S, seed)}
 
 
 @pytest.mark.parametrize("arch", ["qwen2_7b", "rwkv6_1b6", "deepseek_moe_16b", "deepseek_v2_lite_16b",
