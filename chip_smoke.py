@@ -9,8 +9,11 @@ clients, handover), the LM early-exit cascade (qwen2-7b, rwkv6-1.6b,
 deepseek-moe-16b, deepseek-v2-lite-16b and qwen2-vl-2b at full width, in
 batches and as streams, with the ring and int8 decode caches), the hybrid
 zamba2-2.7b and the encoder-decoder whisper-base through ``generate`` at
-full width, LM training (six families at full width) and the single-card
-dry run of every architecture x assigned shape.
+full width, LM training (six families at full width), the single-card
+dry run of every architecture x assigned shape, and the multi-device half:
+qwen2-7b's prefill, decode and train steps sharded over the visible cards
+(``DTensor`` placements by the sharding rules) and the dry run on the
+production mesh of a fake process group.
 
     python3 chip_smoke.py
 
@@ -311,7 +314,30 @@ first use.  Phases, each printing one line of its own:
                rates: argument bytes (parameters, AdamW state, batch or
                cache) from meta tensors, whether they fit, model FLOPs and
                the roofline's dominant term.
-14. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+14. ``mesh``  the multi-device half.  In parallel subprocesses, the dry
+               run on the 32 x 8 production mesh (``python -m
+               repro_torch.launch.dryrun --mesh single_pod``, a fake
+               process group of 256 ranks, meta tensors) of one cell per
+               family (``MESH_DRYRUN_CELLS``): per-device FLOPs, bytes and
+               collective bytes by kind and axis, rank 0's argument bytes,
+               the roofline, ``model_flops_ratio`` (must be in (0, 1.5]).
+               Meanwhile one NCCL rank per visible card (one card: world 1,
+               said so; NCCL takes one rank a device) on the mesh (1, world)
+               of ("data", "model"): qwen2-7b at full width (bf16, seeded,
+               ``attn_seq_shard``) under ``bind_mesh``, parameters placed by
+               ``param_shardings`` (``tp``): the prefill of 8 x 512 and 16
+               greedy decode steps on the ``"seq"`` cache, then one train
+               step at 2 layers, B 2 x S 512 in ``tp`` and in ``fsdp``.  Each
+               is held against the unbound path on the same card (each
+               timed after a short warm-up of its own, outside the count):
+               bit-equal at world 1; at world > 1 the prefill's and every
+               decode step's logits and the loss within ``LM_BF16_REL_TOL``,
+               the steps teacher-forced with the unbound path's tokens (a
+               free run's first flipped token is printed).  The launch
+               counts are set to 0 just before the sharded runs and read
+               just after; flash_sdpa must launch.  Times (sharded and
+               unbound) are printed beside the card's line.
+15. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape and by LM family), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
@@ -320,11 +346,12 @@ first use.  Phases, each printing one line of its own:
                source, launches and timed shapes, and the video and fleet
                paths' launches by shape).  The paths: detection, train, stream
                (the detection stream and both LM streams), repro, video,
-               fleet, mobility, lm and lm_train; the run fails if score_pipeline,
+               fleet, mobility, lm, lm_train and mesh; the run fails if score_pipeline,
                estimator_mlp or iou_matrix_batch never launched on the train,
                stream, repro or fleet path, estimator_mlp or iou_matrix_batch
                on the video path, estimator_mlp on the mobility path, or
-               flash_sdpa or wkv6 on the lm_train path.
+               flash_sdpa or wkv6 on the lm_train path, or flash_sdpa on
+               the mesh path.
 
 The run's seconds are printed on the line before the card's line, and the
 last line is ``{"ok": true, "device": {...}}``.  ``python3 chip_smoke.py
@@ -4430,6 +4457,285 @@ def dry_run(smi):
                     "seconds": time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# the mesh phase: the multi-device half
+# ---------------------------------------------------------------------------
+
+MESH_DRYRUN_CELLS = (("qwen2_7b", "train_4k"), ("qwen2_vl_2b", "prefill_32k"),
+                     ("deepseek_moe_16b", "train_4k"), ("rwkv6_1b6", "decode_32k"),
+                     ("zamba2_2b7", "prefill_32k"), ("whisper_base", "train_4k"))
+MESH_ARCH, MESH_SEED = "qwen2_7b", 50
+MESH_PREFILL, MESH_STEPS = (8, 512), 16  # the serve step's batch x prompt, greedy decode steps
+MESH_TRAIN = (2, 2, 512)  # layers, batch, sequence of the train step
+MESH_PATH_KERNELS = ("flash_sdpa",)  # must launch on the mesh path
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _mesh_launches(counters):
+    return {c.__name__: c.launches for c in counters}, split_counts(counters)
+
+
+def mesh_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One NCCL rank of the mesh phase (spawned, one a card): qwen2-7b's
+    prefill, greedy decode and train steps unbound on this card (the
+    reference) and sharded over the (1, world) mesh; rank 0 writes what it
+    held and measured to ``out``."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.lm_synth import synth_lm_batch
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.launch import mesh as lmesh
+    from repro_torch.launch import sharding as tsh
+    from repro_torch.launch.meshctx import bind_mesh
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import lm
+    from repro_torch.train.adamw import adamw_init
+    from repro_torch.tree import tree_leaves
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=rank,
+                            world_size=world, device_id=dev)
+    counters = (flash_sdpa, wkv6)
+    report = {"world": world, "mesh": [1, world], "arch": MESH_ARCH}
+
+    def held(name, got, want, tol):
+        got = got.full_tensor() if hasattr(got, "full_tensor") else got
+        if world == 1:
+            if not torch.equal(got, want):
+                fail(f"mesh {name}: the sharded result is not bit-equal to the unbound one "
+                     f"at world 1 ({rel_diff(got, want)})")
+            return {"bit_equal": True}
+        return hold_rel(f"mesh {name}", got, want, tol)
+
+    def timed(fn):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        out_ = fn()
+        torch.cuda.synchronize(dev)
+        return out_, (time.perf_counter() - t0) * 1e3
+
+    try:
+        mesh = lmesh.make_mesh((1, world), ("data", "model"), device_type="cuda")
+        mapping = lmesh.logical_axes()
+        cfg = get_config(MESH_ARCH)
+        B, S = MESH_PREFILL
+        params = lm.init_params(cfg, torch.Generator(device=dev).manual_seed(MESH_SEED), dev)
+        rng = np.random.default_rng(MESH_SEED)
+        tokens = torch.from_numpy(synth_lm_batch(rng, B, S, cfg.vocab_size)[0]).to(dev, torch.int64)
+
+        def serve(p, batch, n=MESH_STEPS, forced=None):
+            """Prefill, then ``n`` decode steps on the greedy tokens, or on
+            ``forced``'s (teacher forcing: both paths decode one sequence)."""
+            logits, cache = lm.prefill(p, cfg, batch, capacity=S + MESH_STEPS)
+            first = logits
+            toks, steps = [], []
+            for t in range(n):
+                full = logits.full_tensor() if hasattr(logits, "full_tensor") else logits
+                tok = full.argmax(-1) if forced is None else forced[:, t]
+                toks.append(full.argmax(-1))
+                logits, cache = lm.decode_step(p, cfg, cache, tok, S + t)
+                steps.append(logits)
+            return first, torch.stack(toks, 1), steps, cache
+
+        # each timed run follows a short warm-up of its own path (kernels'
+        # first launches, DTensor's sharding propagation), outside the count
+        serve(params, {"tokens": tokens}, 2)
+        (first_u, toks_u, steps_u, _), unbound_ms = timed(lambda: serve(params, {"tokens": tokens}))
+        # at world > 1 the sharded steps decode the unbound path's tokens: in
+        # bf16 a near-tie argmax of seeded weights flips under another
+        # summation order, after which two free runs decode different text
+        forced = None if world == 1 else toks_u
+        with bind_mesh(mesh, mapping, cache_mode="seq"):
+            p = tsh.distribute(params, tsh.param_shardings(params, mesh, mapping))
+            batch = {"tokens": tokens}
+            b = tsh.distribute(batch, tsh.batch_shardings(batch, mesh, mapping))
+            serve(p, b, 2)
+            reset_counts(counters)
+            (first_s, toks_s, steps_s, cache_s), sharded_ms = timed(
+                lambda: serve(p, b, forced=forced))
+            serve_launches = _mesh_launches(counters)
+            free = toks_s if world == 1 else serve(p, b)[1]
+        flips = (free != toks_u).any(dim=0).nonzero()
+        report["serve"] = {
+            "prefill_logits": held("prefill logits", first_s, first_u, LM_BF16_REL_TOL),
+            "step_logits": [held(f"decode step {i} logits", g, w, LM_BF16_REL_TOL)
+                            for i, (g, w) in enumerate(zip(steps_s, steps_u))],
+            "teacher_forced": forced is not None,
+            "argmax_agree": float((toks_s == toks_u).float().mean()),
+            "tokens_equal": bool(torch.equal(free, toks_u)),
+            "first_free_flip": int(flips[0]) if len(flips) else None,
+            "cache_placements": {k: [str(x) for x in v.placements] for k, v in cache_s.items()},
+            "ms": sharded_ms, "unbound_ms": unbound_ms, "launches": serve_launches[0],
+            "launches_split": serve_launches[1]}
+        if world == 1 and not report["serve"]["tokens_equal"]:
+            fail("mesh: the sharded greedy tokens differ from the unbound ones at world 1")
+        del params, p, cache_s, steps_s, steps_u
+        torch.cuda.empty_cache()
+
+        L, Bt, St = MESH_TRAIN
+        tcfg = dataclasses.replace(cfg, num_layers=L)
+        toks, labels = synth_lm_batch(rng, Bt, St, cfg.vocab_size)
+        tbatch = {"tokens": torch.from_numpy(toks).to(dev, torch.int64),
+                  "labels": torch.from_numpy(labels).to(dev, torch.int64)}
+        step = make_train_step(tcfg, lr=train_lr(tcfg))
+        split = json.loads(json.dumps(serve_launches[1]))
+
+        def train_run(mode):
+            """One step from the seeded float32 parameters, unbound (mode None)
+            or sharded; the loss, AdamW ``mu`` and new parameters come back to
+            the host (the card holds one run at a time)."""
+            tparams = lm.init_params(tcfg, torch.Generator(device=dev).manual_seed(MESH_SEED + 1),
+                                     dev, dtype=torch.float32)
+            if mode is None:
+                step(tparams, adamw_init(tparams), tbatch)
+                (p1, o1, loss), ms = timed(lambda: step(tparams, adamw_init(tparams), tbatch))
+                launches = None
+            else:
+                with bind_mesh(mesh, mapping):
+                    ps = tsh.distribute(tparams, tsh.param_shardings(tparams, mesh, mapping, mode))
+                    del tparams
+                    os_ = adamw_init(ps)  # zeros placed like the parameters, as the rules place them
+                    bs = tsh.distribute(tbatch, tsh.batch_shardings(tbatch, mesh, mapping))
+                    step(ps, os_, bs)
+                    reset_counts(counters)
+                    (p1, o1, loss), ms = timed(lambda: step(ps, os_, bs))
+                    launches = _mesh_launches(counters)
+                    del ps, os_
+
+            def host(t):
+                return (t.full_tensor() if hasattr(t, "full_tensor") else t).cpu()
+
+            got = (host(loss), [host(t) for t in tree_leaves(o1.mu)],
+                   [host(t) for t in tree_leaves(p1)])
+            del p1, o1
+            torch.cuda.empty_cache()
+            return got, ms, launches
+
+        (loss_u, mu_u, p_u), unbound_ms, _ = train_run(None)
+        report["train"] = {"unbound_ms": unbound_ms, "loss": float(loss_u)}
+        train_launches = {c.__name__: 0 for c in counters}
+        for mode in ("tp", "fsdp"):
+            (loss_s, mu_s, p_s), ms, (launches, by) = train_run(mode)
+            for k, n in launches.items():
+                train_launches[k] += n
+            merge_split(split, by)
+            row = {"ms": ms, "loss": held(f"{mode} train loss", loss_s, loss_u, LM_BF16_REL_TOL)}
+            row["grad_max_rel"] = max(rel_diff(g, w)["rel"] for g, w in zip(mu_s, mu_u))
+            if world == 1:
+                for what, got, want in (("mu", mu_s, mu_u), ("params", p_s, p_u)):
+                    for g, w in zip(got, want):
+                        held(f"{mode} train {what}", g, w, None)
+                row["bit_equal"] = True
+            report["train"][mode] = row
+        report["train"]["launches"] = train_launches
+        report["launches"] = {k: serve_launches[0][k] + train_launches[k]
+                              for k in serve_launches[0]}
+        report["launches_split"] = split
+        report["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+        if rank == 0:
+            with open(out, "w") as f:
+                json.dump(report, f)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_step_check(world=None):
+    """Spawn one NCCL rank a card (``world`` of them, default every visible
+    card) for ``mesh_rank``; returns rank 0's report."""
+    import torch
+    import torch.multiprocessing as mp
+
+    world = world or torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = str(Path(tmp) / "mesh.json")
+        mp.spawn(mesh_rank, args=(world, _free_port(), out), nprocs=world, join=True)
+        with open(out) as f:
+            return json.load(f)
+
+
+def mesh_dry_run_start():
+    """The dry-run cells on the production mesh, one subprocess each, all
+    started at once (meta tensors and a fake process group: no card)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape in MESH_DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh", "single_pod",
+               "--arch", arch, "--shape", shape]
+        procs.append((arch, shape, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)))
+    return procs
+
+
+def mesh_dry_run_finish(procs):
+    rows = []
+    for arch, shape, t0, proc in procs:
+        out, err = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            fail(f"mesh dry run {arch} {shape} exited {proc.returncode}: {err[-2000:]}")
+        r = json.loads([x for x in out.splitlines() if x.startswith("{")][-1])
+        ratio = r["model_flops_ratio"]
+        if not (r["devices"] == 256 and r["per_device"]["hlo_flops"] > 0 and ratio
+                and 0 < ratio <= 1.5):
+            fail(f"mesh dry run {arch} {shape}: {r}")
+        pd = r["per_device"]
+        rows.append({"arch": arch, "shape": shape, "mesh": r["mesh"],
+                     "seconds": time.perf_counter() - t0, "trace_s": r["lower_s"],
+                     "flops": pd["hlo_flops"], "bytes": pd["hlo_bytes"],
+                     "collective_bytes": pd["collective_bytes"],
+                     "collectives": pd["collectives"], "by_axis": pd["collectives_by_axis"],
+                     "argument_bytes": r["memory"]["argument_bytes"],
+                     "fits_one_card": r["memory"]["fits_one_card"],
+                     "roofline": {k: v for k, v in r["roofline"].items() if k != "rates"},
+                     "model_flops_ratio": ratio})
+    return rows
+
+
+def mesh(torch, smi):
+    """The mesh phase.  Returns the sharded runs' launches and their split."""
+    t_phase = time.perf_counter()
+    procs = mesh_dry_run_start()
+    world = torch.cuda.device_count()
+    report = mesh_step_check(world)
+    report["card"] = smi
+    if world == 1:
+        report["note"] = "one card: world 1 (NCCL takes one rank a device)"
+    missing = [k for k in MESH_PATH_KERNELS if report["launches"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the mesh path: {missing}")
+    emit("mesh_step", report)
+    rows = mesh_dry_run_finish(procs)
+    emit("mesh_dryrun", {"cells": rows, "card": smi,
+                         "phase_seconds": time.perf_counter() - t_phase})
+    # every counter's split (the other kernels do not run on this path)
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    reset_counts(counters)
+    split = split_counts(counters)
+    split.update(report["launches_split"])
+    return report["launches"], split
+
+
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
     "iou_matrix": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
     "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
@@ -4483,15 +4789,18 @@ def main() -> None:
     lm_launches, lm_split, lm_stream, lm_stream_split, lm_by_family = lm_serve(torch, smi, dev)
     lm_train_launches, lm_train_split, lm_train_by_family = lm_train(torch, smi, dev)
     dry_run(smi)
+    mesh_launches, mesh_split = mesh(torch, smi)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
              "repro": repro_launches, "video": video_launches, "fleet": fleet_launches,
-             "mobility": mobility_launches, "lm": lm_launches, "lm_train": lm_train_launches}
+             "mobility": mobility_launches, "lm": lm_launches, "lm_train": lm_train_launches,
+             "mesh": {k: mesh_launches.get(k, 0) for k in lm_launches}}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
               "repro": repro_split, "video": video_split, "fleet": fleet_split,
-              "mobility": mobility_split, "lm": lm_split, "lm_train": lm_train_split}
+              "mobility": mobility_split, "lm": lm_split, "lm_train": lm_train_split,
+              "mesh": mesh_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -4554,6 +4863,9 @@ def main() -> None:
     missing = [k for k in MOBILE_PATH_KERNELS if paths["mobility"][k] == 0]
     if missing:
         fail(f"kernels never launched on the mobility path: {missing}")
+    missing = [k for k in MESH_PATH_KERNELS if paths["mesh"][k] == 0]
+    if missing:
+        fail(f"kernels never launched on the mesh path: {missing}")
     print(json.dumps({"seconds": time.perf_counter() - t_start}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

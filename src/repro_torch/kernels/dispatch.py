@@ -5,10 +5,14 @@ Two paths, chosen by where the data lies (there is no interpreter path):
 ``"compiled"``
     The hand-written Hopper kernel (``kernels/csrc``), for CUDA tensors.
 ``"reference"``
-    The plain PyTorch version beside each kernel, for CPU tensors.
+    The plain PyTorch version beside each kernel, for CPU tensors, and for
+    meta tensors inside :func:`meta_reference` (the dry run: shapes only,
+    nothing computed; elsewhere a meta tensor raises).
 
 A CUDA tensor never takes the plain version and a CPU tensor never takes the
-kernel: asking for either raises instead of falling back.
+kernel: asking for either raises instead of falling back.  A ``DTensor``
+(a tensor of a mesh) raises: kernels take each rank's local shard
+(``launch.meshctx.local_call``).
 
 ``resolve_device`` is the rule every entry point of the port follows: it
 runs on ``cuda`` unless the caller asks for the CPU, and asking for ``cuda``
@@ -23,6 +27,8 @@ needs one instead of returning a detached result.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
 from typing import Optional, Union
 
 import torch
@@ -65,15 +71,47 @@ def refuse_grad(kernel: str, *tensors: torch.Tensor) -> None:
         )
 
 
+_meta = threading.local()
+
+
+@contextlib.contextmanager
+def meta_reference():
+    """Within it, meta tensors take the ``"reference"`` path: the dry run
+    traces the plain versions' shapes on this thread, allocating nothing."""
+    prev = getattr(_meta, "on", False)
+    _meta.on = True
+    try:
+        yield
+    finally:
+        _meta.on = prev
+
+
+def meta_traced(x: torch.Tensor) -> bool:
+    """Whether ``x`` is a meta tensor inside :func:`meta_reference`."""
+    return x.device.type == "meta" and getattr(_meta, "on", False)
+
+
+def refuse_dtensor(*tensors) -> None:
+    """Raise if a ``DTensor`` reaches a kernel wrapper: a kernel reads one
+    device's memory, so it takes a rank's local shard, never a tensor of a
+    mesh."""
+    from torch.distributed.tensor import DTensor
+
+    if any(isinstance(t, DTensor) for t in tensors):
+        raise TypeError("a DTensor reached a kernel wrapper; pass each rank's local shard "
+                        "(launch.meshctx.local_call)")
+
+
 def resolve_path(x: torch.Tensor, path: Optional[str] = None) -> str:
     """The kernel path for tensor ``x``: ``"compiled"`` on CUDA,
-    ``"reference"`` on CPU.  An explicit ``path`` must agree with the
-    tensor's device."""
+    ``"reference"`` on CPU (and on meta inside :func:`meta_reference`).  An
+    explicit ``path`` must agree with the tensor's device."""
     if path is not None and path not in KERNEL_PATHS:
         raise ValueError(f"unknown kernel path {path!r}; use one of {KERNEL_PATHS}")
+    refuse_dtensor(x)
     if x.device.type == "cuda":
         resolved = "compiled"
-    elif x.device.type == "cpu":
+    elif x.device.type == "cpu" or meta_traced(x):
         resolved = "reference"
     else:
         raise ValueError(f"unsupported device {x.device}")

@@ -40,7 +40,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path, wants_grad
+from repro_torch.kernels.dispatch import refuse_dtensor, resolve_path, wants_grad
 from repro_torch.kernels.flash_sdpa.ref import flash_sdpa_ref
 
 __all__ = ["flash_sdpa", "flash_route", "decode_plan", "DecodePlan"]
@@ -219,6 +219,7 @@ def flash_sdpa(
     sits at position ``q_offset + i``; ``causal`` hides later keys and
     ``window > 0`` keys at or before ``position - window``.  A row that sees
     no key gives 0, and a gradient of 0."""
+    refuse_dtensor(q, k, v)
     _check(q, k, v, window, q_offset)
     if wants_grad(q, k, v):
         return _FlashSdpaGrad.apply(q, k, v, causal, window, q_offset)

@@ -24,7 +24,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.dispatch import resolve_path, wants_grad
+from repro_torch.kernels.dispatch import meta_traced, refuse_dtensor, resolve_path, wants_grad
 from repro_torch.kernels.wkv6.ref import wkv6_ref
 
 __all__ = ["wkv6"]
@@ -104,6 +104,25 @@ class _Wkv6Grad(torch.autograd.Function):
         return tuple(next(got) if x.requires_grad else None for x in xs)
 
 
+class _Wkv6Shapes(torch.autograd.Function):
+    """The dry run's stand-in on meta tensors: the recurrence's output and
+    state shapes, and its gradients' (a loop over T computes nothing on meta;
+    the dry run counts the recurrence's FLOPs analytically)."""
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, s0):
+        ctx.shapes = [(t.shape, t.dtype) for t in (r, k, v, w, u, s0)]
+        B, T, H, _ = r.shape
+        V = v.shape[3]
+        return (r.new_empty((B, T, H, V), dtype=torch.float32),
+                r.new_empty((B, H, r.shape[3], V), dtype=torch.float32))
+
+    @staticmethod
+    def backward(ctx, g_out, g_state):
+        return tuple(g_out.new_empty(shape, dtype=dt) if need else None
+                     for (shape, dt), need in zip(ctx.shapes, ctx.needs_input_grad))
+
+
 def wkv6(
     r: torch.Tensor,  # (B, T, H, K)
     k: torch.Tensor,
@@ -114,7 +133,10 @@ def wkv6(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The RWKV6 recurrence; returns (out (B, T, H, V), sT (B, H, K, V)),
     both float32."""
+    refuse_dtensor(r, k, v, w, u, s0)
     _check(r, k, v, w, u, s0)
+    if meta_traced(r):
+        return _Wkv6Shapes.apply(r, k, v, w, u, s0)
     if wants_grad(r, k, v, w, u, s0):
         return _Wkv6Grad.apply(r, k, v, w, u, s0)
     return _forward(r, k, v, w, u, s0)

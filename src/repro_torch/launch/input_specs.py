@@ -68,17 +68,23 @@ def input_specs(arch: str, shape: str) -> Tuple[LMConfig, Dict[str, Any]]:
       decode  -> {"cache": <cache tree>, "tokens": (B,), "pos": (), "capacity": C}
     """
     cfg = resolve_config(arch, shape)
+    return cfg, specs(cfg, shape)
+
+
+def specs(cfg: LMConfig, shape: str) -> Dict[str, Any]:
+    """:func:`input_specs`' specs for a given config (a probe depth, an
+    override)."""
     meta = SHAPES[shape]
     B, seq, kind = meta["batch"], meta["seq_len"], meta["kind"]
     if kind == "train":
         batch = batch_specs(cfg, B, seq)
         batch["labels"] = _meta((B, seq), INDEX_DTYPE)
-        return cfg, {"kind": kind, "batch": batch}
+        return {"kind": kind, "batch": batch}
     if kind == "prefill":
-        return cfg, {"kind": kind, "batch": batch_specs(cfg, B, seq)}
+        return {"kind": kind, "batch": batch_specs(cfg, B, seq)}
     # decode: ONE token against a seq-deep cache (a window's ring under long_500k)
     capacity = min(seq, cfg.window) if cfg.window > 0 else seq
-    return cfg, {
+    return {
         "kind": kind,
         "cache": init_cache(cfg, B, capacity, device="meta"),
         "tokens": _meta((B,), INDEX_DTYPE),

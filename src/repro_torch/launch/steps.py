@@ -12,6 +12,8 @@ import torch
 
 from repro_torch.core.estimator import value_and_grad
 from repro_torch.launch.input_specs import INDEX_DTYPE
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import constrain
 from repro_torch.models.lm import LMConfig, decode_step, loss_fn, prefill
 from repro_torch.train.adamw import AdamWState, adamw_update
 from repro_torch.tree import Tree, tree_map
@@ -25,10 +27,28 @@ def make_train_step(cfg: LMConfig, lr: float = 1e-4):
     def train_step(params, opt_state, batch):
         with torch.enable_grad():
             value, grads = value_and_grad(loss_fn, params, cfg, batch)
+        grads = tree_map(_placed_like, grads, params)
         params, opt_state = adamw_update(grads, opt_state, params, lr)
-        return params, opt_state, value
+        return params, opt_state, constrain(value)  # replicated under a mesh
 
     return train_step
+
+
+def _placed_like(g, p):
+    """A gradient reduced once to its parameter's placements under a mesh
+    (it comes back partial over the batch axes, and each elementwise op of
+    the update that needs it whole would reduce it again); else itself."""
+    if not meshctx.is_sharded(g) or tuple(g.placements) == tuple(p.placements):
+        return g
+    from torch.distributed.tensor import Shard
+
+    # first to the parameter's shards (a slice, or a reduce-scatter of a
+    # partial sum), so that the reductions over the other axes move only
+    # the shard
+    sliced = tuple(q if isinstance(q, Shard) else h for h, q in zip(g.placements, p.placements))
+    if sliced != tuple(g.placements):
+        g = g.redistribute(p.device_mesh, sliced)
+    return g.redistribute(p.device_mesh, p.placements)
 
 
 def make_prefill_step(cfg: LMConfig, capacity: int):

@@ -9,6 +9,7 @@ variant of ``--arch`` on synthetic tokens with ``launch.steps``'
   python -m repro_torch.launch.train --arch zamba2_2b7 --steps 4 --device cpu
   python -m repro_torch.launch.train --arch whisper_base --steps 4 --device cpu
   python -m repro_torch.launch.train --arch yi_6b --dryrun
+  python -m repro_torch.launch.train --arch yi_6b --dryrun --mesh single_pod
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  Parameters are float32,
 as ``repro``'s are; ``--ckpt`` writes them in ``repro``'s ``save_pytree``
@@ -17,7 +18,9 @@ and M-RoPE ids (the positions 0..S-1 on all three axes), an encoder-decoder
 batch its audio frames, drawn from the batch generator after each step's
 tokens (``launch.serve.audio_frames``).  ``--dryrun`` prints the single-card
 dry-run report of ``--arch`` at ``train_4k`` (``launch.dryrun``) and trains
-nothing.
+nothing; with ``--mesh single_pod|multi_pod|both`` the dry run's
+multi-device half instead: the train step on the production mesh of a fake
+process group (this process's).
 """
 from __future__ import annotations
 
@@ -51,7 +54,12 @@ def main(argv: Optional[Sequence[str]] = None) -> Tuple[dict, List[float]]:
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--dryrun", action="store_true")
+    ap.add_argument("--mesh", default=None, choices=("single_pod", "multi_pod", "both"),
+                    help="with --dryrun: on the production mesh")
     args = ap.parse_args(argv)
+    if args.dryrun and args.mesh:
+        reps = dryrun.main(["--mesh", args.mesh, "--arch", args.arch, "--shape", "train_4k"])
+        return reps, []
     if args.dryrun:
         rep = dryrun.report(args.arch, "train_4k")
         print(json.dumps(rep), flush=True)

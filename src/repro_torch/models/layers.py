@@ -19,10 +19,24 @@ The decode cache may be a ring (``window > 0``: slot ``pos % C``) and may
 hold int8 keys and values with per-(slot, head) scales (``cache_scales``,
 :func:`kv_quantize`), as in the JAX package.
 
-The JAX package's sharding hints (``constrain``, ``seq_shard``) and query
-chunking (``attn_chunk``) bound memory or place data on a TPU mesh without
+Sharding: the JAX package's ``constrain`` hints sit at the same points
+here (``launch.meshctx.constrain``): with no mesh bound each returns its
+input, and under a bound mesh (``launch.meshctx.bind_mesh``) the
+activations are ``DTensor``s and each hint redistributes them.  A kernel
+takes plain tensors, so under a mesh ``flash_sdpa``, ``wkv6`` and the
+Mamba2 scan run on each rank's local shards (``meshctx.local_call``), with
+placements chosen a mesh dimension: the batch over the batch axes; whole
+heads, and whole GQA groups, over ``model`` where both head counts divide
+it; under ``AttnConfig.seq_shard`` (context parallelism) the query rows over
+``model``, K / V whole, each rank attending at its rows' own ``q_offset``;
+otherwise replicated.  A one-slot cache write on a slot-sharded cache is
+made by the rank that owns the slot (:func:`write_slots`).  The MoE routes
+and dispatches on each rank's groups, runs the experts sharded over
+``expert`` and combines on the gathered expert outputs.
+
+The JAX package's query chunking (``attn_chunk``) bounds memory without
 changing any value of the forward; the flash kernel never forms the (S, T)
-logits, so they have no counterpart here.  Its remat (``jax.checkpoint``
+logits, so it has no counterpart here.  Its remat (``jax.checkpoint``
 around a layer) is ``torch.utils.checkpoint`` in ``models.lm.forward``, and
 ``chunked_scan``'s chunk checkpoints have no counterpart: the ``wkv6``
 Function saves only its inputs.  MLA's query chunking (``MLAConfig.attn_chunk``)
@@ -56,9 +70,13 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from torch.distributed.tensor import Partial, Replicate, Shard
+
 from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
 from repro_torch.kernels.flash_sdpa.ref import sdpa_mask
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import constrain
 
 PyTree = Dict[str, object]
 
@@ -147,7 +165,8 @@ def apply_mrope(x: torch.Tensor, positions_3d: torch.Tensor, sections: Tuple[int
     freqs = rope_freqs(x.shape[-1], theta, device=x.device)  # (D/2,)
     ang = positions_3d[..., None].to(torch.float32) * freqs  # (3, B, S, D/2)
     axis = torch.repeat_interleave(torch.arange(3, device=x.device),
-                                   torch.tensor(sections, device=x.device))  # (D/2,)
+                                   torch.tensor(sections, device=x.device),
+                                   output_size=sum(sections))  # (D/2,)
     angles = ang.gather(0, axis.expand(1, *ang.shape[1:]))[0]  # (B, S, D/2)
     return _rotate(x, angles)
 
@@ -167,6 +186,7 @@ class AttnConfig(NamedTuple):
     rope_theta: float = 1e6
     use_rope: bool = True
     mrope_sections: Optional[Tuple[int, int, int]] = None
+    seq_shard: bool = False  # context parallelism: query rows over `model`
 
 
 def attention_init(generator: torch.Generator, cfg: AttnConfig, dtype=torch.float32, *,
@@ -189,6 +209,17 @@ def attention_init(generator: torch.Generator, cfg: AttnConfig, dtype=torch.floa
     return p
 
 
+def split_heads(t: torch.Tensor, *shape: int) -> torch.Tensor:
+    """``t.reshape(*shape)``, its last dim split into (heads, head size).
+    Under a mesh, a head count that does not divide ``model`` gathers that
+    dim first: the rules shard a projection's columns whenever they divide
+    (4 KV heads x 128 over 8 ranks: half a head a rank), and a ``DTensor``
+    cannot split a dim into an unevenly sharded one (XLA reshards there)."""
+    if meshctx.is_sharded(t) and shape[-2] % meshctx.axis_size("model"):
+        t = meshctx.unshard(t, t.ndim - 1)
+    return t.reshape(*shape)
+
+
 def _project_qkv(params, cfg: AttnConfig, x, positions, positions_3d=None):
     B, S, _ = x.shape
     H, K, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -199,9 +230,9 @@ def _project_qkv(params, cfg: AttnConfig, x, positions, positions_3d=None):
         q = q + params["bq"].to(x.dtype)
         k = k + params["bk"].to(x.dtype)
         v = v + params["bv"].to(x.dtype)
-    q = q.reshape(B, S, H, D)
-    k = k.reshape(B, S, K, D)
-    v = v.reshape(B, S, K, D)
+    q = split_heads(q, B, S, H, D)
+    k = split_heads(k, B, S, K, D)
+    v = split_heads(v, B, S, K, D)
     if cfg.qk_norm:
         q = rmsnorm(params["q_norm"], q)
         k = rmsnorm(params["k_norm"], k)
@@ -223,14 +254,42 @@ def causal_mask(S: int, T: int, offset: int, window: int = 0, device=None) -> to
 
 
 def _sdpa(q, k, v, *, window: int, q_offset: int, plain: bool = False,
-          causal: bool = True) -> torch.Tensor:
+          causal: bool = True, seq_shard: bool = False) -> torch.Tensor:
     """GQA attention (B, S, H, D) x (B, T, K, D) -> (B, S, H * D), causal
-    unless ``causal`` is False (every key visible: ``window`` must be 0)."""
+    unless ``causal`` is False (every key visible: ``window`` must be 0).
+    ``DTensor`` inputs (a bound mesh) go to :func:`_sdpa_local`."""
     if not causal and window:
         raise ValueError(f"non-causal attention takes no window (got {window})")
     fn = flash_sdpa_ref if plain else flash_sdpa
+    if meshctx.is_sharded(q):
+        return _sdpa_local(fn, q, k, v, causal, window, q_offset, seq_shard)
+    q, k, v = (meshctx.contiguous_grad(t) for t in (q, k, v))  # as on a mesh's local shards
     out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return out.reshape(q.shape[0], q.shape[1], -1)
+
+
+def _sdpa_local(fn, q, k, v, causal: bool, window: int, q_offset: int, seq_shard: bool):
+    """Attention over each rank's shards: the batch over the batch axes;
+    over ``model`` the query rows under ``seq_shard`` (K / V whole, each
+    rank at the ``q_offset`` of its first row), else the heads where both
+    head counts divide it (whole GQA groups), else nothing."""
+    B, S, H, _ = q.shape
+    K = k.shape[2]
+    n = meshctx.axis_size("model")
+    rows = seq_shard and S % n == 0
+    heads = not rows and H % n == 0 and K % n == 0
+    row_ax, head_ax = ("model" if rows else None), ("model" if heads else None)
+    q_pl = meshctx.placements("batch", row_ax, head_ax, None, shape=q.shape)
+    kv_pl = meshctx.placements("batch", None, head_ax, None, shape=k.shape)
+    o_pl = meshctx.placements("batch", row_ax, head_ax, shape=(B, S, H * q.shape[3]))
+    off = q_offset + (meshctx.local_offset(q, 1, q_pl) if rows else 0)
+
+    def local(ql, kl, vl):
+        o = fn(ql.contiguous(), kl.contiguous(), vl.contiguous(), causal=causal, window=window,
+               q_offset=off)
+        return o.reshape(o.shape[0], o.shape[1], -1)
+
+    return meshctx.local_call(local, (q_pl, kv_pl, kv_pl), o_pl, q, k, v)
 
 
 def attention_apply(
@@ -248,10 +307,21 @@ def attention_apply(
     ``positions_3d`` (3, B, S) where the config has sections.  Causal under
     ``cfg.window``, or with ``causal=False`` bidirectional over every key and
     no window (the JAX package's all-ones ``mask``: the whisper encoder).
-    ``return_kv`` also returns the rotated (k, v) for the decode cache."""
+    ``return_kv`` also returns the rotated (k, v) for the decode cache.
+    ``cfg.seq_shard`` constrains the query rows over ``model`` and K / V
+    whole (context parallelism, the JAX package's constraints)."""
     q, k, v = _project_qkv(params, cfg, x, positions, positions_3d)
+    if cfg.seq_shard:
+        q = constrain(q, "batch", "model", None, None)
+        k = constrain(k, "batch", None, None, None)
+        v = constrain(v, "batch", None, None, None)
     out = _sdpa(q, k, v, window=cfg.window if causal else 0, q_offset=0, plain=plain,
-                causal=causal)
+                causal=causal, seq_shard=cfg.seq_shard)
+    if cfg.seq_shard:
+        out = constrain(out, "batch", "model", None)
+        # rows -> columns (an all-to-all) for the row-parallel ``wo``: a
+        # DTensor matmul flattens (B, S), which a sharded S forbids
+        out = constrain(out, "batch", None, "model")
     out = out @ params["wo"].to(x.dtype)
     if return_kv:
         return out, (k, v)
@@ -274,6 +344,30 @@ def kv_quantize(k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def kv_dequantize(q: torch.Tensor, s: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (q.float() * s[..., None].float()).to(dtype)
+
+
+def write_slots(out: torch.Tensor, arr: torch.Tensor, runs) -> torch.Tensor:
+    """``out[:, d:d + n] = arr[:, s:s + n]`` for each run ``(d, s, n)``, IN
+    PLACE (the cache's slots are dim 1 of both).  On a ``DTensor`` cache each
+    rank writes the part of a run that falls in its own shard of the slots,
+    from ``arr`` moved to the cache's placements with the slots whole: the
+    owner-rank write (``DTensor`` has no rule for an indexed write on a
+    sharded dimension)."""
+    if not meshctx.is_sharded(out):
+        for d, s, n in runs:
+            if n:
+                out[:, d:d + n] = arr[:, s:s + n]
+        return out
+    mesh, pl = out.device_mesh, tuple(out.placements)
+    src_pl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in pl)
+    src = meshctx.as_dtensor(arr, mesh).redistribute(mesh, src_pl).to_local()
+    local = out.to_local()
+    off, size = meshctx.local_offset(out, 1, pl), local.shape[1]
+    for d, s, n in runs:
+        lo, hi = max(d, off), min(d + n, off + size)
+        if lo < hi:
+            local[:, lo - off:hi - off] = src[:, s + lo - d:s + hi - d]
+    return out
 
 
 def attention_decode(
@@ -311,16 +405,17 @@ def attention_decode(
     slot = pos % C if ring else pos
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q, k, v = _project_qkv(params, cfg, x, positions, positions_3d)
+    run = [(slot, 0, 1)]
     if cache_scales is not None:
         k_s, v_s = cache_scales
-        (k_q, k_sc), (v_q, v_sc) = kv_quantize(k[:, 0]), kv_quantize(v[:, 0])
-        cache_k[:, slot], k_s[:, slot] = k_q, k_sc
-        cache_v[:, slot], v_s[:, slot] = v_q, v_sc
+        (k_q, k_sc), (v_q, v_sc) = kv_quantize(k), kv_quantize(v)
+        for dst, src in ((cache_k, k_q), (k_s, k_sc), (cache_v, v_q), (v_s, v_sc)):
+            write_slots(dst, src, run)
         k_full = kv_dequantize(cache_k, k_s, x.dtype)
         v_full = kv_dequantize(cache_v, v_s, x.dtype)
     else:
-        cache_k[:, slot] = k[:, 0]
-        cache_v[:, slot] = v[:, 0]
+        write_slots(cache_k, k, run)
+        write_slots(cache_v, v, run)
         k_full, v_full = cache_k, cache_v
     out = _sdpa(q, k_full, v_full, window=0, q_offset=min(pos, C - 1) if ring else pos)
     out = out @ params["wo"].to(x.dtype)
@@ -460,32 +555,101 @@ def _moe_experts(params: PyTree, buf: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gecf,efm->gecm", g * u, params["w_down"].to(dt))
 
 
+def _moe_dispatch(r: MoERouting, tok: torch.Tensor) -> torch.Tensor:
+    """tok (G, Tg, M) -> the experts' slots (G, E, capacity, M): each kept
+    assignment into its own slot; a dropped one into a spare slot past the
+    capacity, cut off before the experts run."""
+    G, Tg, M = tok.shape
+    K, E = r.expert_ids.shape[-1], r.probs.shape[-1]
+    flat_e = r.expert_ids.reshape(G, Tg * K)
+    g_idx = torch.arange(G, device=tok.device)[:, None].expand(G, Tg * K)
+    slot = torch.where(r.keep, r.pos, r.capacity)
+    buf = tok.new_zeros((G, E, r.capacity + 1, M)).index_put(
+        (g_idx, flat_e, slot), tok.repeat_interleave(K, dim=1))
+    return buf[:, :, :r.capacity]
+
+
+def _moe_combine(y: torch.Tensor, r: MoERouting) -> torch.Tensor:
+    """The experts' outputs y (G, E, capacity, M) -> each token's K slot
+    outputs, gated (0 where dropped), summed over K: (G * Tg, M)."""
+    G, Tg, K = r.expert_ids.shape
+    flat_e = r.expert_ids.reshape(G, Tg * K)
+    g_idx = torch.arange(G, device=y.device)[:, None].expand(G, Tg * K)
+    safe = torch.where(r.keep, r.pos, r.capacity - 1)
+    w = r.gate.reshape(G, Tg * K, 1) * r.keep[..., None].to(y.dtype)
+    return (y[g_idx, flat_e, safe] * w).reshape(G * Tg, K, -1).sum(dim=1)
+
+
 def _moe(params: PyTree, cfg: MoEConfig, x: torch.Tensor, G: int
          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Both paths of the JAX package's MoE, over G dispatch groups."""
+    if meshctx.is_sharded(x):
+        return _moe_sharded(params, cfg, x, G)
     B, S, M = x.shape
-    T, E, K = B * S, cfg.num_experts, cfg.top_k
-    Tg = T // G
+    T, E = B * S, cfg.num_experts
     tok = x.reshape(T, M)
     r = moe_routing(params, cfg, tok, G)
-    flat_e = r.expert_ids.reshape(G, Tg * K)
-    g_idx = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
-    # dispatch: each kept assignment into its own slot; a dropped one into a
-    # spare slot past the capacity, cut off before the experts run
-    slot = torch.where(r.keep, r.pos, r.capacity)
-    buf = x.new_zeros((G, E, r.capacity + 1, M)).index_put(
-        (g_idx, flat_e, slot), tok.reshape(G, Tg, M).repeat_interleave(K, dim=1))
-    y = _moe_experts(params, buf[:, :, :r.capacity])
-    # combine: each token's K slot outputs, gated (0 where dropped), summed over K
-    safe = torch.where(r.keep, r.pos, r.capacity - 1)
-    w = r.gate.reshape(G, Tg * K, 1) * r.keep[..., None].to(x.dtype)
-    out = (y[g_idx, flat_e, safe] * w).reshape(T, K, M).sum(dim=1)
+    y = _moe_experts(params, _moe_dispatch(r, tok.reshape(G, T // G, M)))
+    out = _moe_combine(y, r)
     if cfg.num_shared and "shared" in params:
         out = out + swiglu(params["shared"], tok)
     # load-balance aux loss (Switch): E * sum_e f_e * pbar_e
     f = (F.one_hot(r.expert_ids, E).sum(dim=2) > 0).float().mean(dim=(0, 1))
     aux = cfg.aux_weight * E * torch.sum(f * r.probs.mean(dim=(0, 1)))
     return out.reshape(B, S, M), aux
+
+
+def _moe_sharded(params: PyTree, cfg: MoEConfig, x, G: int):
+    """``_moe`` under a bound mesh, at the JAX package's constraints: the
+    groups over the batch axes (one group, the flat path, routes every
+    token on every rank: its capacity is global), routing and dispatch on
+    each rank's groups, the experts' slots constrained over ``expert`` (the
+    experts run on their own rank's weights), then the combine on each
+    rank's groups from the gathered expert outputs.  The load-balance
+    statistics are summed a rank and reduced (``Partial``)."""
+    B, S, M = x.shape
+    T, E = B * S, cfg.num_experts
+    Tg = T // G
+    # (B, S, M) <-> (G, Tg, M) a rank: the groups follow the batch's shards
+    # where both divide the batch axes, else every rank holds them all
+    nb = meshctx.axis_size("batch")
+    even = G % nb == 0 and B % nb == 0
+    x_pl = meshctx.placements("batch" if even else None, None, None, shape=x.shape)
+    g_pl = meshctx.placements("batch" if even else None, None, None, shape=(G, Tg, M))
+    tok = meshctx.local_call(lambda t: t.reshape(-1, Tg, M), (x_pl,), g_pl, x)
+    part = tuple(Partial() if isinstance(p, Shard) else p for p in g_pl)
+
+    def route(tl, router):
+        r = moe_routing({"router": router}, cfg, tl.reshape(-1, M), tl.shape[0])
+        f = (F.one_hot(r.expert_ids, E).sum(dim=2) > 0).float().sum(dim=(0, 1))
+        return (_moe_dispatch(r, tl), r.probs, r.gate, r.expert_ids, r.pos, r.keep, f,
+                r.probs.sum(dim=(0, 1)))
+
+    router = params["router"]
+    buf, probs, gate, ids, pos, keep, f_sum, p_sum = meshctx.local_call(
+        route, (g_pl, meshctx.placements(None, None, shape=router.shape)),
+        [g_pl] * 6 + [part, part], tok, router)
+    buf = constrain(buf, "batch", "expert", None, None)
+    w_pl = meshctx.placements("expert", None, None, shape=params["w_gate"].shape)
+    y = meshctx.local_call(
+        lambda b, wg, wu, wd: _moe_experts({"w_gate": wg, "w_up": wu, "w_down": wd}, b),
+        (buf.placements, w_pl, w_pl, w_pl), buf.placements,
+        buf, params["w_gate"], params["w_up"], params["w_down"])
+    y = constrain(y, "batch", "expert", None, None)
+    cap = buf.shape[2]
+
+    def combine(yl, pl, gl, il, ql, kl):
+        return _moe_combine(yl, MoERouting(pl, gl, il, ql, kl, cap)).reshape(il.shape[0], Tg, M)
+
+    out = meshctx.local_call(combine, (meshctx.placements("batch", None, None, None,
+                                                          shape=y.shape),) + (g_pl,) * 5,
+                             g_pl, y, probs, gate, ids, pos, keep)
+    out = meshctx.local_call(lambda t: t.reshape(-1, S, M), (g_pl,), x_pl,
+                             constrain(out, "batch", None, None))
+    if cfg.num_shared and "shared" in params:
+        out = out + swiglu(params["shared"], x)
+    aux = cfg.aux_weight * E * torch.sum((f_sum / T) * (p_sum / T))
+    return out, aux
 
 
 def moe_apply(params: PyTree, cfg: MoEConfig, x: torch.Tensor
@@ -561,7 +725,7 @@ def _mla_project(params, cfg: MLAConfig, x, positions):
     """(q_nope, q_rope (rotated), c (normed latent), k_rope (rotated, B, S, P))."""
     B, S, _ = x.shape
     H, N, P = cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
-    q = (x @ params["wq"].to(x.dtype)).reshape(B, S, H, N + P)
+    q = split_heads(x @ params["wq"].to(x.dtype), B, S, H, N + P)
     q_rope = apply_rope(q[..., N:], positions, cfg.rope_theta)
     c = rmsnorm(params["kv_norm"], x @ params["w_dkv"].to(x.dtype))
     k_rope = apply_rope((x @ params["w_kr"].to(x.dtype))[:, :, None, :], positions,
@@ -569,21 +733,40 @@ def _mla_project(params, cfg: MLAConfig, x, positions):
     return q[..., :N], q_rope, c, k_rope
 
 
+def _mla_core(q_nope, q_rope, k_nope, k_rope, v, scale: float) -> torch.Tensor:
+    """Causal MLA attention of (B, S, H, N) / (B, S, H, P) queries against
+    (B, S, H, N) keys, the (B, S, P) rope key shared by the heads and
+    (B, S, H, V) values -> (B, S, H * V)."""
+    B, S, H, V = v.shape
+    logits = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
+              + torch.einsum("bshp,btp->bhst", q_rope, k_rope)) * scale
+    probs = _mla_softmax(logits, causal_mask(S, S, 0, device=v.device)[:, None], v.dtype)
+    return torch.einsum("bhst,bthv->bshv", probs, v).reshape(B, S, H * V)
+
+
 def mla_apply(params: PyTree, cfg: MLAConfig, x: torch.Tensor, positions: torch.Tensor,
               return_kv: bool = False):
     """Training / prefill, the expanded-KV form: K and V decompressed from
     the latent a head each, the rope key shared by the heads.  Causal over
     the whole sequence.  ``return_kv`` also returns (latent (B, S, R), rope
-    key (B, S, P)) for the decode cache."""
+    key (B, S, P)) for the decode cache.  Under a mesh the attention runs on
+    each rank's heads (``model``, where H divides it) and batch shard."""
     B, S, _ = x.shape
     H, N, V = cfg.num_heads, cfg.qk_nope_dim, cfg.v_dim
     q_nope, q_rope, c, k_rope = _mla_project(params, cfg, x, positions)
-    k_nope = (c @ params["w_uk"].to(x.dtype)).reshape(B, S, H, N)
-    v = (c @ params["w_uv"].to(x.dtype)).reshape(B, S, H, V)
-    logits = (torch.einsum("bshn,bthn->bhst", q_nope, k_nope)
-              + torch.einsum("bshp,btp->bhst", q_rope, k_rope)) * _mla_scale(cfg, x.dtype)
-    probs = _mla_softmax(logits, causal_mask(S, S, 0, device=x.device)[:, None], x.dtype)
-    out = torch.einsum("bhst,bthv->bshv", probs, v).reshape(B, S, H * V)
+    k_nope = split_heads(c @ params["w_uk"].to(x.dtype), B, S, H, N)
+    v = split_heads(c @ params["w_uv"].to(x.dtype), B, S, H, V)
+    scale = _mla_scale(cfg, x.dtype)
+    args = (q_nope, q_rope, k_nope, k_rope, v)
+    if meshctx.is_sharded(v):
+        head = "model" if H % meshctx.axis_size("model") == 0 else None
+        hpl = meshctx.placements("batch", None, head, None, shape=v.shape)
+        out = meshctx.local_call(
+            lambda *a: _mla_core(*(t.contiguous() for t in a), scale),
+            (hpl, hpl, hpl, meshctx.placements("batch", None, None, shape=k_rope.shape), hpl),
+            meshctx.placements("batch", None, head, shape=(B, S, H * V)), *args)
+    else:
+        out = _mla_core(*args, scale)
     out = out @ params["wo"].to(x.dtype)
     if return_kv:
         return out, (c, k_rope)
@@ -610,16 +793,16 @@ def mla_decode(
     positions = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope, c, k_rope = _mla_project(params, cfg, x, positions)
     slot = min(max(pos, 0), C - 1)
-    cache_c[:, slot] = c[:, 0]
-    cache_kr[:, slot] = k_rope[:, 0]
-    w_uk = params["w_uk"].to(x.dtype).reshape(R, H, N)
+    write_slots(cache_c, c, [(slot, 0, 1)])
+    write_slots(cache_kr, k_rope, [(slot, 0, 1)])
+    w_uk = split_heads(params["w_uk"].to(x.dtype), R, H, N)
     q_lat = torch.einsum("bhn,rhn->bhr", q_nope[:, 0], w_uk)
     logits = (torch.einsum("bhr,bcr->bhc", q_lat, cache_c)
               + torch.einsum("bhp,bcp->bhc", q_rope[:, 0], cache_kr)) * _mla_scale(cfg, x.dtype)
     valid = (torch.arange(C, device=x.device) <= pos)[None, None, :]
     probs = _mla_softmax(logits, valid, x.dtype)
     ctx = torch.einsum("bhc,bcr->bhr", probs, cache_c)  # attend in latent space
-    w_uv = params["w_uv"].to(x.dtype).reshape(R, H, V)
+    w_uv = split_heads(params["w_uv"].to(x.dtype), R, H, V)
     out = torch.einsum("bhr,rhv->bhv", ctx, w_uv).reshape(B, 1, H * V)
     return out @ params["wo"].to(x.dtype), cache_c, cache_kr
 
@@ -702,24 +885,49 @@ def rwkv6_time_mix(
     H, Hd = cfg.num_heads, cfg.head_size
     mixed = _rwkv6_mix(params, x, _shift(x, x_last))  # (B,S,5,M)
     xr, xk, xv, xg, xw = mixed.unbind(dim=2)
-    r = (xr @ params["wr"].to(x.dtype)).reshape(B, S, H, Hd)
-    k = (xk @ params["wk"].to(x.dtype)).reshape(B, S, H, Hd)
-    v = (xv @ params["wv"].to(x.dtype)).reshape(B, S, H, Hd)
+    r = split_heads(xr @ params["wr"].to(x.dtype), B, S, H, Hd)
+    k = split_heads(xk @ params["wk"].to(x.dtype), B, S, H, Hd)
+    v = split_heads(xv @ params["wv"].to(x.dtype), B, S, H, Hd)
     g = F.silu(xg @ params["wg"].to(x.dtype))
     # data-dependent decay w_t = exp(-exp(base + lora(xw))), in float32
     dl = torch.tanh(xw @ params["decay_lora_a"].to(x.dtype))
     dl = dl @ params["decay_lora_b"].to(x.dtype)
     w = torch.exp(-torch.exp((params["decay_base"].to(x.dtype) + dl).to(torch.float32)))
-    w = w.reshape(B, S, H, Hd)
+    w = split_heads(w, B, S, H, Hd)
     u = params["bonus"].to(torch.float32)  # (H, Hd)
     if state is None:
         state = torch.zeros((B, H, Hd, Hd), dtype=torch.float32, device=x.device)
     fn = wkv6_ref if plain else wkv6
-    out, state = fn(r, k, v, w, u, state)
+    if meshctx.is_sharded(r):
+        out, state = _heads_local(fn, (r, k, v, w, u, state), (2, 2, 2, 2, 0, 1), (2, 1), H)
+    else:
+        out, state = fn(r, k, v, w, u, state)
     out = out.reshape(B, S, M).to(x.dtype)
     out = layernorm(params["ln_x"], out) * g
     out = out @ params["wo"].to(x.dtype)
     return out, state, x[:, -1, :]
+
+
+def _heads_local(fn, args, head_dims, out_head_dims, H: int):
+    """``fn(*args)`` on each rank's shards: a tensor's heads (its dim in
+    ``head_dims``, one an argument; -1: it has none) over ``model`` where
+    ``H`` divides it, and its dim 0 over the batch axes unless that is the
+    heads' dim; the outputs likewise (``out_head_dims``: 2 shaped like the
+    first argument, 1 like the last).  For ``wkv6`` and the Mamba2 scan:
+    every head runs its recurrence on its own."""
+    heads = H % meshctx.axis_size("model") == 0
+
+    def pl(t, hd):
+        spec = [None] * t.ndim
+        if hd != 0:
+            spec[0] = "batch"
+        if heads and hd >= 0:
+            spec[hd] = "model"
+        return meshctx.placements(*spec, shape=t.shape)
+
+    in_pl = tuple(pl(t, hd) for t, hd in zip(args, head_dims))
+    out_pl = [pl(args[0] if hd == 2 else args[-1], hd) for hd in out_head_dims]
+    return meshctx.local_call(lambda *a: tuple(fn(*a)), in_pl, out_pl, *args)
 
 
 def rwkv6_channel_mix(
@@ -857,13 +1065,17 @@ def mamba2_apply(
     xbc, new_conv = _causal_conv(zxbcdt[..., Di:2 * Di + 2 * N], params["conv_w"].to(x.dtype),
                                  params["conv_b"].to(x.dtype), conv_state)
     xbc = F.silu(xbc)
-    xs = xbc[..., :Di].reshape(B, S, H, P).float()
+    xs = split_heads(xbc[..., :Di], B, S, H, P).float()
     dt = F.softplus(zxbcdt[..., -H:].float() + params["dt_bias"].float())  # (B, S, H)
     A = -torch.exp(params["A_log"].float())  # (H,)
     if ssm_state is None:
         ssm_state = torch.zeros((B, H, P, N), dtype=torch.float32, device=x.device)
-    y, ssm_state = ssd_scan(xs, dt, A, xbc[..., Di:Di + N].float(), xbc[..., Di + N:].float(),
-                            ssm_state, chunk)
+    args = (xs, dt, A, xbc[..., Di:Di + N].float(), xbc[..., Di + N:].float(), ssm_state)
+    if meshctx.is_sharded(xs):
+        y, ssm_state = _heads_local(lambda *a: ssd_scan(*a, chunk), args, (2, 2, 0, -1, -1, 1),
+                                    (2, 1), H)
+    else:
+        y, ssm_state = ssd_scan(*args, chunk)
     y = y + params["D"].float()[:, None] * xs
     y = y.reshape(B, S, Di).to(x.dtype)
     y = rmsnorm(params["norm"], y) * F.silu(z)

@@ -39,6 +39,11 @@ API (all functional, as in ``repro``):
   prefill(params, cfg, batch, capacity) -> (last_logits, cache)
   decode_step(params, cfg, cache, tokens, pos) -> (logits, cache)
 
+Under a bound mesh (``launch.meshctx.bind_mesh``, parameters, batch and
+cache ``DTensor``s by ``launch.sharding``) the same code runs sharded: the
+JAX package's ``constrain`` hints sit at the same points, and the kernels
+take each rank's local shards (see ``models.layers``).
+
 ``forward`` and ``loss_fn`` are differentiable: training holds float32
 parameters (``init_params(..., dtype=torch.float32)``) and differentiates
 through the casts to ``cfg.act_dtype``; with ``cfg.remat`` each layer is
@@ -59,6 +64,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
+from repro_torch.launch import meshctx
+from repro_torch.launch.meshctx import constrain
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.models.layers import (
     AttnConfig,
@@ -88,7 +95,9 @@ from repro_torch.models.layers import (
     rwkv6_init,
     rwkv6_time_mix,
     swiglu,
+    split_heads,
     swiglu_init,
+    write_slots,
     _sdpa,
 )
 
@@ -146,8 +155,9 @@ class LMConfig:
     vision_tokens: int = 0
     use_rope: bool = True
     # numerics / execution (remat: each layer recomputed in the backward pass,
-    # torch.utils.checkpoint; scan_chunk, attn_chunk, attn_seq_shard and
-    # layer_unroll steer the JAX package's compilation and sharding only)
+    # torch.utils.checkpoint; attn_seq_shard: context-parallel attention
+    # under a bound mesh; scan_chunk, attn_chunk and layer_unroll steer the
+    # JAX package's compilation only)
     dtype: str = "bfloat16"
     remat: bool = True
     scan_chunk: int = 128
@@ -172,6 +182,7 @@ class LMConfig:
             rope_theta=self.rope_theta,
             use_rope=self.use_rope,
             mrope_sections=self.mrope_sections,
+            seq_shard=self.attn_seq_shard,
         )
 
     def moe(self) -> MoEConfig:
@@ -359,6 +370,17 @@ def layer_params(stack: PyTree, i: int) -> PyTree:
     return tree_map(lambda a: a[i], stack)
 
 
+def unstack(stack: PyTree, n: int):
+    """The ``n`` layers of a stacked parameter tree, as views: one
+    ``unbind`` a leaf, whose gradient stacks the layers' gradients once (a
+    view of each layer alone would add a zero-padded (L, ...) gradient a
+    layer, bytes quadratic in depth).  A stack sharded over its layers
+    (``fsdp`` shards a parameter's first free dim) is gathered first."""
+    parts = tree_map(lambda a: (meshctx.unshard(a, 0) if meshctx.is_sharded(a) else a).unbind(0),
+                     stack)
+    return [tree_map(lambda t, i=i: t[i], parts) for i in range(n)]
+
+
 # ===========================================================================
 # forward (prefill)
 # ===========================================================================
@@ -380,22 +402,41 @@ def _positions_3d(batch: Dict, device: torch.device) -> Optional[torch.Tensor]:
     return None if p3d is None else _as_tensor(p3d, device, torch.int64)
 
 
+def _lookup(table: torch.Tensor, tokens: torch.Tensor, dtype) -> torch.Tensor:
+    """``table`` rows at ``tokens``, in ``dtype``.  A ``DTensor`` table (a
+    bound mesh) is looked up on each rank's shard: the tokens over the batch
+    axes, the table's d_model shard as it is, its vocab whole (gathered
+    under ``fsdp``)."""
+    if not meshctx.is_sharded(table):
+        return table.to(dtype)[tokens]
+    from torch.distributed.tensor import Replicate, Shard
+
+    t_pl = meshctx.placements("batch", *(None,) * (tokens.ndim - 1), shape=tokens.shape)
+    w_pl = tuple(Replicate() if p == Shard(0) else p for p in table.placements)
+    o_pl = tuple(Shard(tokens.ndim) if p == Shard(1) else t for p, t in zip(w_pl, t_pl))
+    return meshctx.local_call(lambda w, t: w.to(dtype)[t], (w_pl, t_pl), o_pl, table, tokens)
+
+
 def _embed(params, cfg: LMConfig, batch) -> torch.Tensor:
     """Token embeddings in the activation type; for the VLM family the first
     ``vision_tokens`` positions are the batch's ``vision_embeds`` instead."""
     table = params["embed"]
-    emb = table.to(cfg.act_dtype)[_tokens(batch, table.device)]
+    emb = _lookup(table, _tokens(batch, table.device), cfg.act_dtype)
     if cfg.arch_type == "vlm" and cfg.vision_tokens:
         ve = _as_tensor(batch["vision_embeds"], table.device, cfg.act_dtype)
         emb = torch.cat([ve, emb[:, cfg.vision_tokens:]], dim=1)
-    return emb
+    return constrain(emb, "batch", None, None)
 
 
 def _logits(params, cfg: LMConfig, h) -> torch.Tensor:
     h = (layernorm(params["final_norm"], h) if cfg.arch_type in ("rwkv", "encdec")
          else rmsnorm(params["final_norm"], h))
-    w = params["embed"].to(h.dtype).T if cfg.tie_embeddings else params["unembed"].to(h.dtype)
-    return h @ w
+    if cfg.tie_embeddings:
+        # the table is d_model-sharded for the lookup; vocab-sharded here
+        w = constrain(params["embed"].to(h.dtype).T, None, "model")
+    else:
+        w = params["unembed"].to(h.dtype)
+    return constrain(h @ w, "batch", None, "model")
 
 
 def _attend(lp, cfg: LMConfig, h, positions, positions_3d, plain: bool, return_kv: bool):
@@ -410,43 +451,52 @@ def _attend(lp, cfg: LMConfig, h, positions, positions_3d, plain: bool, return_k
     return a if return_kv else (a, None)
 
 
+def _add(h, x):
+    """The residual add of a sublayer's output, constrained whole over
+    ``model`` under a mesh (the JAX package constrains the attention's;
+    ``DTensor`` chooses each operation's layout on its own, so the port
+    pins every sublayer's partial sums to one all-reduce, the
+    tensor-parallel layout XLA propagates from that constraint)."""
+    return h + constrain(x, "batch", None, None)
+
+
 def _dense_block(lp, cfg: LMConfig, h, positions, positions_3d=None, plain: bool = False,
                  return_kv: bool = False):
     """A dense layer, or the hybrid's shared block (the same keys)."""
     a, kv = _attend(lp, cfg, h, positions, positions_3d, plain, return_kv)
-    h = h + a
-    h = h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
+    h = h + constrain(a, "batch", None, None)
+    h = _add(h, swiglu(lp["mlp"], rmsnorm(lp["norm2"], h)))
     return h, kv
 
 
 def _moe_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
     """A MoE layer: (h, its aux loss, kv)."""
     a, kv = _attend(lp, cfg, h, positions, None, plain, return_kv)
-    h = h + a
+    h = h + constrain(a, "batch", None, None)
     out, aux = moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))
-    return h + out, aux, kv
+    return _add(h, out), aux, kv
 
 
 def _ffn(lp, cfg: LMConfig, h):
     """The second half of a dense or MoE layer at decode: h + MLP or MoE."""
     if "mlp" in lp:
-        return h + swiglu(lp["mlp"], rmsnorm(lp["norm2"], h))
-    return h + moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))[0]
+        return _add(h, swiglu(lp["mlp"], rmsnorm(lp["norm2"], h)))
+    return _add(h, moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))[0])
 
 
 def _rwkv_block(lp, cfg: LMConfig, h, state, x_tm, x_cm, plain: bool = False):
     a, state, x_tm = rwkv6_time_mix(lp["tm"], cfg.rwkv(), layernorm(lp["ln1"], h), state,
                                     x_tm, plain=plain)
-    h = h + a
+    h = _add(h, a)
     c, x_cm = rwkv6_channel_mix(lp["tm"], layernorm(lp["ln2"], h), x_cm)
-    return h + c, state, x_tm, x_cm
+    return _add(h, c), state, x_tm, x_cm
 
 
 def _mamba_block(lp, cfg: LMConfig, h, ssm, conv):
     """A hybrid Mamba2 layer: (h, its SSM state, its conv state)."""
     out, ssm, conv = mamba2_apply(lp["mamba"], cfg.mamba(), rmsnorm(lp["norm"], h), ssm, conv,
                                   chunk=cfg.scan_chunk)
-    return h + out, ssm, conv
+    return _add(h, out), ssm, conv
 
 
 def _positions(B: int, S: int, device) -> torch.Tensor:
@@ -469,8 +519,8 @@ def _layers(params, cfg: LMConfig):
     if any(held[key] != n for _, key, n in stacks):
         raise ValueError(f"params hold {held} layers, config {cfg.name} says "
                          f"{ {key: n for _, key, n in stacks} }")
-    return ((kind, layer_params(params[key], i)) for kind, key, _ in stacks
-            for i in range(held[key]))
+    return ((kind, lp) for kind, key, _ in stacks if held[key]
+            for lp in unstack(params[key], held[key]))
 
 
 def _groups(params, cfg: LMConfig):
@@ -481,8 +531,7 @@ def _groups(params, cfg: LMConfig):
     shape = tuple(next(tree_leaves(params["mamba_groups"])).shape[:2])
     if shape != (G, per):
         raise ValueError(f"params hold mamba groups {shape}, config {cfg.name} says {(G, per)}")
-    return [[layer_params(gp, i) for i in range(per)]
-            for gp in (layer_params(params["mamba_groups"], g) for g in range(G))]
+    return [unstack(gp, per) for gp in unstack(params["mamba_groups"], G)]
 
 
 def _remat(body, on: bool):
@@ -493,6 +542,7 @@ def _remat(body, on: bool):
     package, so no ``scan_chunk`` code is needed."""
     if not on:
         return body
+    body = meshctx.carry(body)  # the recompute may run on the autograd engine's thread
     return lambda *args: checkpoint(body, *args, use_reentrant=False)
 
 
@@ -501,7 +551,7 @@ def _stack(params, key: str, n: int):
     held = int(next(tree_leaves(params[key])).shape[0])
     if held != n:
         raise ValueError(f"params hold {held} layers in {key}, the config says {n}")
-    return [layer_params(params[key], i) for i in range(n)]
+    return unstack(params[key], n)
 
 
 def _sinusoid(n: int, d: int, dtype, device=None, *, start: int = 0) -> torch.Tensor:
@@ -528,9 +578,9 @@ def _encode(params, cfg: LMConfig, batch, plain: bool = False, remat: bool = Fal
     acfg = cfg.attn()
 
     def body(hh, lp):
-        hh = hh + attention_apply(lp["attn"], acfg, layernorm(lp["norm1"], hh), None,
-                                  causal=False, plain=plain)
-        return hh + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], hh))
+        hh = _add(hh, attention_apply(lp["attn"], acfg, layernorm(lp["norm1"], hh), None,
+                                      causal=False, plain=plain))
+        return _add(hh, gelu_mlp(lp["mlp"], layernorm(lp["norm2"], hh)))
 
     body = _remat(body, remat)
     for lp in _stack(params, "enc_layers", cfg.encoder_layers):
@@ -543,8 +593,8 @@ def _cross_kv(ap, cfg: LMConfig, enc: torch.Tensor) -> Tuple[torch.Tensor, torch
     output: its ``wk`` / ``wv`` without bias, as in the JAX package."""
     B = enc.shape[0]
     K, D = cfg.num_kv_heads, cfg.head_dim
-    k = (enc @ ap["wk"].to(enc.dtype)).reshape(B, -1, K, D)
-    v = (enc @ ap["wv"].to(enc.dtype)).reshape(B, -1, K, D)
+    k = split_heads(enc @ ap["wk"].to(enc.dtype), B, enc.shape[1], K, D)
+    v = split_heads(enc @ ap["wv"].to(enc.dtype), B, enc.shape[1], K, D)
     return k, v
 
 
@@ -555,7 +605,7 @@ def _cross_attention_cached(ap, cfg: LMConfig, x, xk, xv, plain: bool = False) -
     q = x @ ap["wq"].to(x.dtype)
     if cfg.qkv_bias:
         q = q + ap["bq"].to(x.dtype)
-    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    q = split_heads(q, B, S, cfg.num_heads, cfg.head_dim)
     out = _sdpa(q, xk, xv, window=0, q_offset=0, plain=plain, causal=False)
     return out @ ap["wo"].to(x.dtype)
 
@@ -574,10 +624,11 @@ def _dec_block(lp, cfg: LMConfig, h, enc, plain: bool = False, return_kv: bool =
     a = attention_apply(lp["self_attn"], cfg.attn(), layernorm(lp["norm1"], h), None,
                         return_kv=return_kv, plain=plain)
     a, kv = a if return_kv else (a, None)
-    h = h + a
+    h = _add(h, a)
     xk, xv = _cross_kv(lp["cross_attn"], cfg, enc)
-    h = h + _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h), xk, xv, plain)
-    h = h + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h))
+    h = _add(h, _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h), xk,
+                                        xv, plain))
+    h = _add(h, gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h)))
     return h, (kv + (xk, xv) if return_kv else None)
 
 
@@ -629,17 +680,46 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
     return _logits(params, cfg, h), aux
 
 
+class _ShardedLogSumExp(torch.autograd.Function):
+    """``torch.logsumexp`` over the last dim of vocab-sharded logits without
+    gathering them (``DTensor``'s own rule gathers the whole (B, S, V)):
+    the steps of ATen's kernel (the max, set to 0 where infinite; the sum
+    of the exponentials; its log plus the max), each a reduction ``DTensor``
+    keeps sharded, and ATen's gradient, g exp(x - lse).  On one rank every
+    value is the library call's, bit for bit."""
+
+    @staticmethod
+    def forward(ctx, x):
+        m = x.amax(dim=-1, keepdim=True)
+        m = m.masked_fill(m.abs() == float("inf"), 0.0)
+        lse = (x - m).exp().sum(dim=-1).log() + m[..., 0]
+        ctx.save_for_backward(x, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, g):
+        x, lse = ctx.saved_tensors
+        return g[..., None] * (x - lse[..., None]).exp()
+
+
 def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) -> torch.Tensor:
     """Mean cross-entropy over the tokens whose label is >= 0, plus aux (the
     MoE load-balance loss; 0 for the other families).  The logits go to
     float32 first; the gold logit is a gather (``repro`` sums an iota mask
-    over a vocab-sharded axis, which adds exact zeros to the same logit)."""
+    over a vocab-sharded axis, which adds exact zeros to the same logit; so
+    does a sharded run here, with a log-sum-exp that stays sharded)."""
     logits, aux = forward(params, cfg, batch, plain=plain)
     labels = _as_tensor(batch["labels"], logits.device, torch.int64)
     valid = labels >= 0
-    logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
+    logits = constrain(logits.float(), "batch", None, "model")
+    if meshctx.is_sharded(logits):  # vocab-sharded: repro's iota mask, exact zeros added
+        lse = _ShardedLogSumExp.apply(logits)
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = constrain(torch.where(iota == labels.clamp_min(0)[..., None], logits, 0.0),
+                         "batch", None, "model").sum(dim=-1)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels.clamp_min(0)[..., None])[..., 0]
     nll = (lse - gold) * valid
     return nll.sum() / valid.sum().clamp_min(1) + aux
 
@@ -649,6 +729,12 @@ def loss_fn(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False) 
 # ===========================================================================
 
 def init_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "cuda") -> PyTree:
+    """:func:`zero_cache`, as ``DTensor``s placed by the bound cache mode
+    under a bound mesh (``launch.meshctx.shard_cache``)."""
+    return meshctx.shard_cache(zero_cache(cfg, batch, capacity, device))
+
+
+def zero_cache(cfg: LMConfig, batch: int, capacity: int, device: DeviceLike = "cuda") -> PyTree:
     """Zeroed decode cache: ``k``/``v`` (L, B, C, K, D) in the activation type
     for dense / VLM stacks and the MoE family's attention (``capacity`` C is
     the window for a ring cache); with ``cfg.kv_quant`` ``k``/``v`` int8 and
@@ -719,7 +805,8 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
     read only)."""
     check_arch(cfg)
     table = params["embed"]
-    h = table.to(cfg.act_dtype)[_as_tensor(tokens, table.device, torch.int64)][:, None, :]
+    h = _lookup(table, _as_tensor(tokens, table.device, torch.int64), cfg.act_dtype)[:, None, :]
+    h = constrain(h, "batch", None, None)
     pos = int(pos)
     if cfg.arch_type == "rwkv":
         for i, (_, lp) in enumerate(_layers(params, cfg)):
@@ -733,11 +820,11 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
     if cfg.arch_type == "encdec":
         h = h + _sinusoid_at(pos, cfg.d_model, h.dtype, h.device)
         for i, lp in enumerate(_stack(params, "dec_layers", cfg.num_layers)):
-            h = h + attention_decode(lp["self_attn"], acfg, layernorm(lp["norm1"], h),
-                                     cache["k"][i], cache["v"][i], pos)[0]
-            h = h + _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h),
-                                            cache["xk"][i], cache["xv"][i])
-            h = h + gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h))
+            h = _add(h, attention_decode(lp["self_attn"], acfg, layernorm(lp["norm1"], h),
+                                         cache["k"][i], cache["v"][i], pos)[0])
+            h = _add(h, _cross_attention_cached(lp["cross_attn"], cfg, layernorm(lp["norm_x"], h),
+                                                cache["xk"][i], cache["xv"][i]))
+            h = _add(h, gelu_mlp(lp["mlp"], layernorm(lp["norm2"], h)))
         return _logits(params, cfg, h)[:, 0, :], cache
     if cfg.arch_type == "hybrid":
         sp = params["shared_block"]
@@ -748,7 +835,7 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
                 cache["conv"][g, i].copy_(conv)
             a = attention_decode(sp["attn"], acfg, rmsnorm(sp["norm1"], h), cache["shared_k"][g],
                                  cache["shared_v"][g], pos)[0]
-            h = _ffn(sp, cfg, h + a)
+            h = _ffn(sp, cfg, _add(h, a))
         return _logits(params, cfg, h)[:, 0, :], cache
     p3d = None if positions_3d is None else _as_tensor(positions_3d, h.device, torch.int64)
     for i, (_, lp) in enumerate(_layers(params, cfg)):
@@ -759,20 +846,20 @@ def decode_step(params: PyTree, cfg: LMConfig, cache: PyTree, tokens, pos: int,
             scales = (cache["k_s"][i], cache["v_s"][i]) if cfg.kv_quant else None
             a = attention_decode(lp["attn"], acfg, hn, cache["k"][i], cache["v"][i], pos, p3d,
                                  scales)[0]
-        h = _ffn(lp, cfg, h + a)
+        h = _ffn(lp, cfg, _add(h, a))
     return _logits(params, cfg, h)[:, 0, :], cache
 
 
 def _fill_slots(arr: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
     """(B, S, ...) sequence -> the (B, C, ...) cache slots ``out``.  When
-    S > C (a ring cache) the last C tokens land at their ring slots pos % C."""
+    S > C (a ring cache) the last C tokens land at their ring slots pos % C:
+    tokens S - C.. to slots S % C.., the last S % C tokens to slots 0...
+    (``layers.write_slots``, on the owner ranks of a sharded cache)."""
     S, C = arr.shape[1], out.shape[1]
     if S > C:
-        slots = torch.arange(S - C, S, device=arr.device) % C
-        out[:, slots] = arr[:, S - C:]
-    else:
-        out[:, :S] = arr
-    return out
+        r = S % C
+        return write_slots(out, arr, [(r, S - C, C - r), (0, S - r, r)])
+    return write_slots(out, arr, [(0, 0, S)])
 
 
 @torch.no_grad()

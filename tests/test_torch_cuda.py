@@ -4,6 +4,8 @@ Marked ``gpu``: on a host without CUDA every test here skips.  Run on the
 card with ``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_cuda.py``
 (this file imports neither ``jax`` nor ``repro``, so it runs where only the
 port is installed)."""
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1347,3 +1349,52 @@ def test_fleet_plane_over_every_card_bit_identical(dev, no_tf32):
     for a, b in zip(one.trace.steps, every.trace.steps):
         assert np.array_equal(a.estimates, b.estimates) and np.array_equal(a.offload, b.offload)
     assert one.trace.telemetry == every.trace.telemetry
+
+
+def _mesh_check(world):
+    """``chip_smoke.mesh_step_check``: qwen2-7b's prefill, 16 greedy decode
+    steps and a 2-layer train step (tp and fsdp), sharded by the rules over
+    the (1, world) mesh of NCCL ranks, held against the unbound path."""
+    import sys
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:  # the spawned ranks unpickle chip_smoke.mesh_rank by name
+        sys.path.insert(0, root)
+    import chip_smoke as smoke
+    # build the flash routes once here, not in every rank at once
+    for S in (512, 1):
+        q = torch.zeros(1, S, 28, 128, dtype=torch.bfloat16, device="cuda")
+        k = torch.zeros(1, 512, 4, 128, dtype=torch.bfloat16, device="cuda")
+        flash_sdpa(q, k, k, q_offset=512 - S)
+    report = smoke.mesh_step_check(world)
+    print("mesh_step", json.dumps(report))  # the holds and times, for the record (-s)
+    return report
+
+
+def test_sharded_step_on_card_matches_unbound(dev, no_tf32):
+    """World 1: every sharded result bit-equal to the unbound one, and the
+    sharded path launched flash_sdpa."""
+    r = _mesh_check(1)
+    assert r["world"] == 1 and r["serve"]["tokens_equal"]
+    assert r["serve"]["prefill_logits"] == {"bit_equal": True}
+    assert all(step == {"bit_equal": True} for step in r["serve"]["step_logits"])
+    assert r["train"]["tp"]["bit_equal"] and r["train"]["fsdp"]["bit_equal"]
+    assert r["launches"]["flash_sdpa"] > 0
+
+
+def test_sharded_step_over_every_card(dev, no_tf32):
+    """One NCCL rank a card on (1, world): the prefill's and each decode
+    step's logits (teacher-forced with the unbound path's tokens: a bf16
+    near-tie of seeded weights flips a free run's argmax) and the loss
+    within the lm phase's bf16 hold."""
+    world = torch.cuda.device_count()
+    if world < 2:
+        pytest.skip("needs two or more CUDA GPUs")
+    r = _mesh_check(world)
+    assert r["world"] == world and r["serve"]["teacher_forced"]
+    assert r["serve"]["prefill_logits"]["rel"] <= 0.05
+    assert all(step["rel"] <= 0.05 for step in r["serve"]["step_logits"])
+    for mode in ("tp", "fsdp"):
+        assert r["train"][mode]["loss"]["rel"] <= 0.05
+    assert r["launches"]["flash_sdpa"] > 0
