@@ -10,10 +10,11 @@ deepseek-moe-16b, deepseek-v2-lite-16b and qwen2-vl-2b at full width, in
 batches and as streams, with the ring and int8 decode caches), the hybrid
 zamba2-2.7b and the encoder-decoder whisper-base through ``generate`` at
 full width, LM training (six families at full width), the single-card
-dry run of every architecture x assigned shape, and the multi-device half:
+dry run of every architecture x assigned shape, the multi-device half:
 qwen2-7b's prefill, decode and train steps sharded over the visible cards
 (``DTensor`` placements by the sharding rules) and the dry run on the
-production mesh of a fake process group.
+production mesh of a fake process group, and the user surface: the eleven
+``repro_torch.examples`` scripts through their ``main``.
 
     python3 chip_smoke.py
 
@@ -337,7 +338,34 @@ first use.  Phases, each printing one line of its own:
                counts are set to 0 just before the sharded runs and read
                just after; flash_sdpa must launch.  Times (sharded and
                unbound) are printed beside the card's line.
-15. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
+15. ``examples`` every module of ``repro_torch.examples`` through its
+               ``main`` on the card, in process, with ``EXAMPLES_RUNS``'
+               arguments: quickstart; offload_detection ``--quick``;
+               stream_offload; train_lm ``--steps 20`` (yi-6b scaled to
+               ~100M, float32: flash_sdpa's ``simt`` route); serve_cascade
+               (serving that checkpoint); train_lm ``--arch rwkv6_1b6
+               --steps 3``; observability; netsim_congestion; video_offload;
+               online_adaptation; fleet_scale (the plane over four shards of
+               the card); mobility_handover.  Artifacts and output files go
+               to a temporary directory, the scripts' printing to stderr;
+               every launch count set to 0 first, each script's launches a
+               ``kernel_stats`` delta.  Fails unless every script returns,
+               the engine's save / load round trip is exact, the stream's
+               seeded rerun is equal record for record, the LM loss falls
+               over 20 steps, serve_cascade served the checkpoint and
+               decided identically after save / load, observability
+               processed its 512 frames, the four-shard plane is bit-identical
+               to the engine, the waypoint rollout equals ``rollout_ref``
+               exactly and the random walk within 1e-3 (both repeat bit for
+               bit), every reported number is finite, and iou_matrix_batch,
+               estimator_mlp, score_pipeline, flash_sdpa and wkv6 each
+               launched (no script matches or suppresses a single image, so
+               iou_matrix's one-image counter stays 0 here).  Prints one
+               ``{"examples": ...}`` line: each script's arguments, seconds,
+               launches and the numbers its ``run`` returned, the card's
+               line.  The reward-head shapes the scripts launched are then
+               timed as ``time_head`` rows (outside the count).
+16. ``{"kernels": [...]}`` each kernel's launches on its paths (and, for
                flash_sdpa and wkv6, by route and shape and by LM family), its error against
                the plain version, its times and its bound (and the same at
                the decode step; for the reward head's two kernels, at each
@@ -346,7 +374,7 @@ first use.  Phases, each printing one line of its own:
                source, launches and timed shapes, and the video and fleet
                paths' launches by shape).  The paths: detection, train, stream
                (the detection stream and both LM streams), repro, video,
-               fleet, mobility, lm, lm_train and mesh; the run fails if score_pipeline,
+               fleet, mobility, lm, lm_train, mesh and examples; the run fails if score_pipeline,
                estimator_mlp or iou_matrix_batch never launched on the train,
                stream, repro or fleet path, estimator_mlp or iou_matrix_batch
                on the video path, estimator_mlp on the mobility path, or
@@ -364,8 +392,11 @@ plumbing; the train phase's mAPs are those of detectors trained on the card.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import importlib
 import json
+import os
 import re
 import shutil
 import statistics
@@ -514,6 +545,16 @@ def seeded_mlp(torch, rng, F, H, dev):
     ]
 
 
+def seeded_head_params(torch, rng, dev):
+    """The reward head as ``score_pipeline`` takes it (F 387, H 128): the
+    MLP's seeded weights, then the standardizer's mu and sigma."""
+    F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+    w1, b1, w2, b2 = seeded_mlp(torch, rng, F, HIDDEN, dev)
+    return dict(w1=w1, b1=b1, w2=w2, b2=b2,
+                mu=torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev),
+                sigma=torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev))
+
+
 def seeded_detector_params(cfg, seed, objectness_bias=3.0, class_scale=8.0):
     """Detector weights in the JAX package's layout (HWIO), He-normal from
     numpy, with the objectness bias raised and the class logits sharpened so
@@ -620,6 +661,113 @@ def build():
                    "head_sass_opcodes": sass})
 
 
+def after(timer, op, kernel):
+    """Device ms of ``kernel(op())`` less ``op`` alone: the kernel as the path
+    launches it, right after the op that writes its input."""
+    return timer(lambda: kernel(op())) - timer(op)
+
+
+def held_err(what, got, want, tol):
+    """The max abs error of ``got`` against ``want``; fails above ``tol``."""
+    e = float((got.float() - want.float()).abs().max()) if got.numel() else 0.0
+    if got.shape != want.shape or not np.isfinite(e) or e > tol:
+        fail(f"{what}: max abs error {e} against tolerance {tol}")
+    return e
+
+
+def shards_on_plan(torch, what, call, plan, padded, rows, per):
+    """A batch of ``rows`` launched as FleetPlane launches it: ``padded``
+    (its tensors padded to whole shards) cut into shards of ``per`` rows,
+    each launched as ``call(tensors, plan)`` on the whole batch's ``plan``.
+    Fails unless the shards give one launch of the whole batch (``call``
+    with no plan) bit for bit."""
+    got = torch.cat([call([t[lo:lo + per] for t in padded], plan)
+                     for lo in range(0, padded[0].shape[0], per)])[:rows]
+    if not torch.equal(got, call([t[:rows] for t in padded], None)):
+        fail(f"{what}: the shards on the whole batch's plan differ from its one launch")
+    return got
+
+
+def head_row(torch, timer, dev, rng, B, f, h, where, whole=None):
+    """``time_head``'s row of ``estimator_mlp`` at (B, F ``f``, H ``h``) on
+    seeded inputs, held against the plain version (1e-5, as in
+    ``check_kernels``).  A shard row (B rows of a batch of ``whole``):
+    the whole batch is launched in shards of B on its plan, held against
+    the plain version and against its one launch, and the first shard is
+    timed on that plan."""
+    from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
+    from repro_torch.kernels.estimator_mlp.ops import head_plan
+
+    f32 = 4
+    rows = whole or B
+    key = f"B={B} F={f} H={h}" + (f" of={whole}" if whole else "")
+    x = torch.tensor(rng.normal(0, 1, (rows, f)).astype(np.float32), device=dev)
+    mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
+    sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
+    w = seeded_mlp(torch, rng, f, h, dev)
+    plan = head_plan(whole, f, h, dev) if whole else None
+    if whole:
+        n = -(-whole // B)
+        got = shards_on_plan(torch, f"estimator_mlp {key}",
+                             lambda t, p: estimator_mlp(t[0], *w, plan=p), plan,
+                             [torch.cat([x, x.new_zeros((n * B - whole, f))])], whole, B)
+        x0 = x[:B].contiguous()
+    else:
+        got, x0 = estimator_mlp(x, *w), x
+    err = held_err(f"estimator_mlp {key}", got, estimator_mlp_ref(x, *w), 1e-5)
+    path_ms = after(timer, lambda: (x0 - mu) / sigma, lambda x: estimator_mlp(x, *w, plan=plan))
+    ms = timer(lambda: estimator_mlp(x0, *w, plan=plan))
+    return dict(
+        key=key, where=where, B=B, of=whole, F=f, H=h, max_abs_err=err, tol=1e-5, ms=ms,
+        path_ms=path_ms, host_us=timer.host_us, plain_ms=timer(lambda: estimator_mlp_ref(x0, *w)),
+        bytes=f32 * (B * f + f * h + 2 * h + 1 + B), ops=2 * B * f * h + 12 * B * h + 4 * B,
+    )
+
+
+def pipeline_row(torch, timer, dev, rng, params, B, K, where, whole=None):
+    """``time_head``'s row of ``score_pipeline`` at a seeded (B, K) block
+    with the reward head ``params`` (F 387, H 128), held against the plain
+    version (2e-6, as in ``check_kernels``); a shard row as ``head_row``'s."""
+    from repro_torch.detection.batch import DetectionsBatch
+    from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
+    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
+
+    f32 = 4
+    F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+    kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
+    rows = whole or B
+    key = f"B={B} K={K}" + (f" of={whole}" if whole else "")
+    block = seeded_block(torch, rng, rows, K, dev, empty_rows=rows // 16)
+    plan = pipeline_plan(whole, K, TOP_K, F, HIDDEN, dev) if whole else None
+    want = score_pipeline_ref(*block, *params.values(), IMAGE_SIZE, NUM_CLASSES, TOP_K)
+    if whole:
+        n = -(-whole // B)
+        db = DetectionsBatch(**dict(zip(("boxes", "scores", "classes", "mask"), block)))
+        padded = [getattr(db.pad_images(n * B), a) for a in ("boxes", "scores", "classes", "mask")]
+        got = shards_on_plan(torch, f"score_pipeline {key}",
+                             lambda t, p: score_pipeline(tuple(t), params, **kw, plan=p), plan,
+                             padded, whole, B)
+        block = tuple(t[:B].clone() for t in padded)
+    else:
+        got = score_pipeline(block, params, **kw)
+    err = held_err(f"score_pipeline {key}", got, want, 2e-6)
+    scores0 = block[1].clone()
+    path_ms = after(timer, lambda: torch.mul(scores0, 1.0, out=block[1]),
+                    lambda _: score_pipeline(block, params, **kw, plan=plan))
+    ms = timer(lambda: score_pipeline(block, params, **kw, plan=plan))
+    return dict(
+        key=key, where=where, B=B, of=whole, K=K, max_abs_err=err, tol=2e-6, ms=ms,
+        path_ms=path_ms, host_us=timer.host_us,
+        plain_ms=timer(lambda: score_pipeline_ref(*block, *params.values(), IMAGE_SIZE,
+                                                  NUM_CLASSES, TOP_K)),
+        bytes=B * K * (16 + 4 + 4 + 1) + f32 * (F * HIDDEN + 2 * HIDDEN + 1 + 2 * F + B),
+        # per image: a comparison sort's K log2 K for the stable top-k, the
+        # feature row, the standardize step, the MLP, gelu and sigmoid
+        ops=B * (K * int(np.ceil(np.log2(K))) + 30 * TOP_K + 3 * F + 2 * F * HIDDEN
+                 + 12 * HIDDEN + 4),
+    )
+
+
 def time_head(torch, timer, dev):
     """``estimator_mlp`` and ``score_pipeline`` at each shape the main paths
     launch them.  ``ms``: device ms a call, calls back to back; ``path_ms``:
@@ -630,17 +778,7 @@ def time_head(torch, timer, dev):
     ``host_us``: the wrapper's host time a call; ``plain_ms``: the plain
     version back to back.  Returns {kernel: [row, ...]}, each row with the
     bytes and operations of its bound."""
-    from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
-    from repro_torch.kernels.estimator_mlp.ops import head_plan
-    from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
-    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
-
     rng = np.random.default_rng(7)
-    f32 = 4
-
-    def after(op, kernel):
-        return timer(lambda: kernel(op())) - timer(op)
-
     F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
     shapes = {"estimator_mlp": [], "score_pipeline": []}
     # a row that ends in a batch size is a shard of that batch, launched (and
@@ -677,24 +815,8 @@ def time_head(torch, timer, dev):
                             "the mobile engine's calibration estimates (mobility)"),
                            (1, MOBILE_F, MOBILE_HIDDEN,
                             "a client's frame, micro_batch 1 (mobility)")):
-        x0 = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
-        mu = torch.tensor(rng.normal(0, 0.1, f).astype(np.float32), device=dev)
-        sigma = torch.tensor(rng.uniform(0.5, 2.0, f).astype(np.float32), device=dev)
-        w = seeded_mlp(torch, rng, f, h, dev)
-        plan = head_plan(whole[0], f, h, dev) if whole else None
-        path_ms = after(lambda: (x0 - mu) / sigma, lambda x: estimator_mlp(x, *w, plan=plan))
-        ms = timer(lambda: estimator_mlp(x0, *w, plan=plan))
-        shapes["estimator_mlp"].append(dict(
-            key=f"B={B} F={f} H={h}" + (f" of={whole[0]}" if whole else ""), where=where, B=B,
-            of=whole[0] if whole else None, F=f, H=h, ms=ms, path_ms=path_ms,
-            host_us=timer.host_us, plain_ms=timer(lambda: estimator_mlp_ref(x0, *w)),
-            bytes=f32 * (B * f + f * h + 2 * h + 1 + B), ops=2 * B * f * h + 12 * B * h + 4 * B,
-        ))
-    w1, b1, w2, b2 = seeded_mlp(torch, rng, F, HIDDEN, dev)
-    params = dict(w1=w1, b1=b1, w2=w2, b2=b2,
-                  mu=torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev),
-                  sigma=torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev))
-    kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
+        shapes["estimator_mlp"].append(head_row(torch, timer, dev, rng, B, f, h, where, *whole))
+    params = seeded_head_params(torch, rng, dev)
     for B, K, where, *whole in (
             (REQUEST, 64, "a request"), (1, 64, "a single frame"),
             (N_VAL % REQUEST, 64, "the val split's last request (train)"),
@@ -702,25 +824,25 @@ def time_head(torch, timer, dev):
             (4, FLEET_K, "FleetPlane.score_detections' shard of B 13 (fleet)", 13),
             (250, FLEET_K, "engine.score_device at B 250 (fleet)"),
             (63, FLEET_K, "FleetPlane.score_detections' shard of B 250 (fleet)", 250)):
-        block = seeded_block(torch, rng, B, K, dev, empty_rows=B // 16)
-        scores0 = block[1].clone()
-        plan = pipeline_plan(whole[0], K, TOP_K, F, HIDDEN, dev) if whole else None
-        path_ms = after(lambda: torch.mul(scores0, 1.0, out=block[1]),
-                        lambda _: score_pipeline(block, params, **kw, plan=plan))
-        ms = timer(lambda: score_pipeline(block, params, **kw, plan=plan))
-        shapes["score_pipeline"].append(dict(
-            key=f"B={B} K={K}" + (f" of={whole[0]}" if whole else ""), where=where, B=B,
-            of=whole[0] if whole else None, K=K, ms=ms, path_ms=path_ms,
-            host_us=timer.host_us,
-            plain_ms=timer(lambda: score_pipeline_ref(*block, *params.values(), IMAGE_SIZE,
-                                                      NUM_CLASSES, TOP_K)),
-            bytes=B * K * (16 + 4 + 4 + 1) + f32 * (F * HIDDEN + 2 * HIDDEN + 1 + 2 * F + B),
-            # per image: a comparison sort's K log2 K for the stable top-k, the
-            # feature row, the standardize step, the MLP, gelu and sigmoid
-            ops=B * (K * int(np.ceil(np.log2(K))) + 30 * TOP_K + 3 * F + 2 * F * HIDDEN
-                     + 12 * HIDDEN + 4),
-        ))
+        shapes["score_pipeline"].append(pipeline_row(torch, timer, dev, rng, params, B, K,
+                                                    where, *whole))
     return shapes
+
+
+def finish_head_rows(name, rows, dev):
+    """Each ``time_head`` row of kernel ``name`` gets the plan it launched
+    (a shard's: cut from its batch's) and its bound."""
+    from repro_torch.kernels.estimator_mlp.ops import head_plan, shard_plan
+    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
+
+    F = TOP_K * (7 + NUM_CLASSES) + 4 + NUM_CLASSES
+    for row in rows:
+        plan = (head_plan(row["of"] or row["B"], row["F"], row["H"], dev)
+                if name == "estimator_mlp" else
+                pipeline_plan(row["of"] or row["B"], row["K"], TOP_K, F, HIDDEN, dev))
+        plan = shard_plan(plan, row["B"]) if row["of"] else plan
+        row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
+        row["bound_ms"], row["bound_by"] = bound(row.pop("bytes"), row.pop("ops"))
 
 
 def times_only(src: Path, kernels, time_fn) -> None:
@@ -748,11 +870,8 @@ def times_only(src: Path, kernels, time_fn) -> None:
 def check_kernels(torch, timer, dev):
     """Every kernel against its plain version on the card.  Returns per-kernel
     records with max error, times and bound at the main-path shape."""
-    from repro_torch.detection.batch import DetectionsBatch
     from repro_torch.kernels.estimator_mlp import estimator_mlp, estimator_mlp_ref
-    from repro_torch.kernels.estimator_mlp.ops import head_plan, shard_plan
     from repro_torch.kernels.score_pipeline import score_pipeline, score_pipeline_ref
-    from repro_torch.kernels.score_pipeline.ops import pipeline_plan
 
     sync = _sync(torch, dev)
     rng = np.random.default_rng(1234)
@@ -772,10 +891,7 @@ def check_kernels(torch, timer, dev):
         w = seeded_mlp(torch, rng, f, h, dev)
         hold("estimator_mlp", f"B={B} F={f} H={h}", estimator_mlp(x, *w), estimator_mlp_ref(x, *w), 1e-5)
 
-    w1, b1, w2, b2 = seeded_mlp(torch, rng, F, HIDDEN, dev)
-    mu = torch.tensor(rng.normal(0, 0.1, F).astype(np.float32), device=dev)
-    sigma = torch.tensor(rng.uniform(0.5, 2.0, F).astype(np.float32), device=dev)
-    params = dict(w1=w1, b1=b1, w2=w2, b2=b2, mu=mu, sigma=sigma)
+    params = seeded_head_params(torch, rng, dev)
     kw = dict(num_classes=NUM_CLASSES, top_k=TOP_K, image_size=IMAGE_SIZE)
 
     def ref(block):
@@ -810,64 +926,21 @@ def check_kernels(torch, timer, dev):
         cases.append({"kernel": "score_pipeline", "case": f"B={B} K=64 NaN box coordinates",
                       "max_abs_err": e, "tol": "NaN pattern exact, finite rows 2e-6"})
 
-    # FleetPlane's launches: FLEET_SHARDS shards of ceil(B / FLEET_SHARDS)
-    # rows (the last padded), each on the whole batch's plan, so a shard may
-    # start in the middle of one of the whole launch's tiles; each against
-    # the plain version, and bit for bit the whole batch's launch
-    def sharded(B, call, pad):
-        per = -(-B // FLEET_SHARDS)
-        padded = pad(per * FLEET_SHARDS)
-        return per, torch.cat([call([t[lo:lo + per] for t in padded])
-                               for lo in range(0, per * FLEET_SHARDS, per)])[:B]
-
-    for B, f, h in [(B, F, HIDDEN) for B in FLEET_SCORE_B] + [(CITY_STREAMS, CITY_F, CITY_HIDDEN)]:
-        x = torch.tensor(rng.normal(0, 1, (B, f)).astype(np.float32), device=dev)
-        w = seeded_mlp(torch, rng, f, h, dev)
-        whole, want = estimator_mlp(x, *w), estimator_mlp_ref(x, *w)
-        hold("estimator_mlp", f"B={B} F={f} H={h}", whole, want, 1e-5)
-        g = head_plan(B, f, h, dev)
-        per, got = sharded(B, lambda t: estimator_mlp(t[0], *w, plan=g),
-                           lambda n: [torch.cat([x, x.new_zeros((n - B, f))])])
-        hold("estimator_mlp", f"B={per} F={f} H={h} of={B} (shards on the whole batch's plan)",
-             got, want, 1e-5)
-        if not torch.equal(got, whole):
-            fail(f"estimator_mlp: shards of {per} on B {B}'s plan differ from the whole launch")
-    for B in FLEET_DETECT_B:
-        db = DetectionsBatch(**dict(zip(("boxes", "scores", "classes", "mask"), seeded_block(
-            torch, rng, B, FLEET_K, dev, empty_rows=B // 16))))
-        block = (db.boxes, db.scores, db.classes, db.mask)
-        whole, want = score_pipeline(block, params, **kw), ref(block)
-        hold("score_pipeline", f"B={B} K={FLEET_K}", whole, want, 2e-6)
-        g = pipeline_plan(B, FLEET_K, TOP_K, F, HIDDEN, dev)
-        per, got = sharded(B, lambda t: score_pipeline(tuple(t), params, **kw, plan=g),
-                           lambda n: [getattr(db.pad_images(n), a)
-                                      for a in ("boxes", "scores", "classes", "mask")])
-        hold("score_pipeline", f"B={per} K={FLEET_K} of={B} (shards on the whole batch's plan)",
-             got, want, 2e-6)
-        if not torch.equal(got, whole):
-            fail(f"score_pipeline: shards of {per} on B {B}'s plan differ from the whole launch")
-
     # times and bounds at the main-path shapes
     records = {}
     # estimator_mlp and score_pipeline at every shape the main paths launch
-    # them; the first of each is the kernel's record in the kernels line
+    # them, each held against its plain version (FleetPlane's shards launched
+    # as it launches them); the first of each is the kernel's record in the
+    # kernels line
     shapes = time_head(torch, timer, dev)
-    for name, rows in shapes.items():  # the plan each row launched (a shard's: cut from its batch's)
-        for row in rows:
-            plan = (head_plan(row["of"] or row["B"], row["F"], row["H"], dev)
-                    if name == "estimator_mlp" else
-                    pipeline_plan(row["of"] or row["B"], row["K"], TOP_K, F, HIDDEN, dev))
-            plan = shard_plan(plan, row["B"]) if row["of"] else plan
-            row["plan"] = dict(cs=plan.cs, tb=plan.tb, grid=plan.grid, smem=plan.smem)
     for name, rows in shapes.items():
-        for r in rows:
-            r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("ops"))
+        finish_head_rows(name, rows, dev)
         first = rows[0]
         records[name] = dict(shape=f"{first['key']} ({first['where']})", shapes=rows,
                              **{k: first[k] for k in ("ms", "path_ms", "host_us", "plain_ms",
                                                       "bound_ms", "bound_by")})
     for name, r in records.items():
-        r["max_abs_err"] = err[name]
+        r["max_abs_err"] = max(err[name], *(row["max_abs_err"] for row in r["shapes"]))
     times = {k: {kk: r[kk] for kk in ("shape", "ms", "plain_ms", "bound_ms")}
              for k, r in records.items()}
     emit("check", {"cases": len(cases), "max_abs_err": err, "times": times,
@@ -3265,6 +3338,34 @@ def check_lm_kernels(torch, timer, dev):
 LM_GRAD_TOL = 1e-6
 
 
+def grad_case(torch, kernel, case, fn, ref, ins, upstream):
+    """The gradients of ``fn`` (a kernel's autograd Function) against the
+    plain version ``ref``'s autograd on the same inputs and upstream
+    gradient, within LM_GRAD_TOL of the largest; fails outside.  Returns
+    the case's record."""
+    ins = [t.detach().requires_grad_() for t in ins]
+    got_out = fn(*ins)
+    got_out = got_out if isinstance(got_out, tuple) else (got_out,)
+    got = torch.autograd.grad(got_out, ins, upstream, allow_unused=True)
+    want_out = ref(*ins)
+    want_out = want_out if isinstance(want_out, tuple) else (want_out,)
+    want = torch.autograd.grad(want_out, ins, upstream, allow_unused=True)
+    errs = []
+    for g, w in zip(got, want):
+        if (g is None) != (w is None):
+            fail(f"{kernel} {case}: a gradient is None on one side only")
+        if g is None:
+            continue
+        e = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        if g.dtype != w.dtype or not np.isfinite(e) or e > LM_GRAD_TOL * scale:
+            fail(f"{kernel} {case}: Function vs plain autograd gradient differs by {e} "
+                 f"(tolerance {LM_GRAD_TOL} x {scale})")
+        errs.append(e)
+    return {"kernel": kernel, "case": case, "max_abs_err": max(errs),
+            "tol_rel_to_max_g": LM_GRAD_TOL}
+
+
 def check_lm_grads(torch, timer, dev, normal, wkv_inputs):
     """flash_sdpa's and wkv6's autograd Functions against the plain versions'
     autograd on the card: flash_sdpa on the wgmma route (bf16, D 128, GQA 7)
@@ -3279,29 +3380,8 @@ def check_lm_grads(torch, timer, dev, normal, wkv_inputs):
     bf = torch.bfloat16
     cases = []
 
-    def hold_grads(kernel, case, fn, ref, ins, upstream):
-        ins = [t.detach().requires_grad_() for t in ins]
-        got_out = fn(*ins)
-        got_out = got_out if isinstance(got_out, tuple) else (got_out,)
-        got = torch.autograd.grad(got_out, ins, upstream, allow_unused=True)
-        want_out = ref(*ins)
-        want_out = want_out if isinstance(want_out, tuple) else (want_out,)
-        want = torch.autograd.grad(want_out, ins, upstream, allow_unused=True)
-        _sync(torch, dev)()
-        errs = []
-        for g, w in zip(got, want):
-            if (g is None) != (w is None):
-                fail(f"{kernel} {case}: a gradient is None on one side only")
-            if g is None:
-                continue
-            e = float((g.float() - w.float()).abs().max())
-            scale = float(w.float().abs().max())
-            if g.dtype != w.dtype or not np.isfinite(e) or e > LM_GRAD_TOL * scale:
-                fail(f"{kernel} {case}: Function vs plain autograd gradient differs by {e} "
-                     f"(tolerance {LM_GRAD_TOL} x {scale})")
-            errs.append(e)
-        cases.append({"kernel": kernel, "case": case, "max_abs_err": max(errs),
-                      "tol_rel_to_max_g": LM_GRAD_TOL})
+    def hold_grads(*case):
+        cases.append(grad_case(torch, *case))
 
     for route, dt, (B, S, H, K, D) in (("wgmma", bf, (2, 512, 28, 4, 128)),
                                        ("simt", torch.float32, (2, 128, 4, 2, 32))):
@@ -4670,8 +4750,6 @@ def mesh_step_check(world=None):
 def mesh_dry_run_start():
     """The dry-run cells on the production mesh, one subprocess each, all
     started at once (meta tensors and a fake process group: no card)."""
-    import os
-
     env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES="")
     procs = []
     for arch, shape in MESH_DRYRUN_CELLS:
@@ -4736,6 +4814,248 @@ def mesh(torch, smi):
     return report["launches"], split
 
 
+# the examples phase: each module of repro_torch.examples through its main()
+# on the card, in this order (serve_cascade serves the checkpoint the first
+# train_lm run writes, before the RWKV run writes its own to the same path)
+EXAMPLES_RUNS = (
+    ("quickstart", []),
+    ("offload_detection", ["--quick"]),
+    ("stream_offload", []),
+    ("train_lm", ["--steps", "20"]),
+    ("serve_cascade", []),
+    ("train_lm", ["--arch", "rwkv6_1b6", "--steps", "3"]),
+    ("observability", []),
+    ("netsim_congestion", []),
+    ("video_offload", []),
+    ("online_adaptation", []),
+    ("fleet_scale", []),
+    ("mobility_handover", []),
+)
+# the kernels the scripts reach.  No script matches or suppresses one image,
+# so iou_matrix's one-image counter is not among them (the IoU routes launch
+# under iou_matrix_batch); score_pipeline neither: the scripts decide lists
+# of detections, as the JAX package's do, and the fused pipeline runs only on
+# a padded DetectionsBatch (it launches on the serve, train, stream, repro
+# and fleet paths)
+EXAMPLES_PATH_KERNELS = ("iou_matrix_batch", "estimator_mlp", "flash_sdpa", "wkv6")
+EXAMPLES_OBS_FRAMES = 512  # observability's stream
+
+
+def _bulk(value) -> bool:
+    """A path, or an array or tensor of one or more dimensions."""
+    return getattr(value, "ndim", 0) > 0 or (isinstance(value, str) and os.sep in value)
+
+
+def headline(obj):
+    """What a script's ``run`` returned, as JSON, without its paths and
+    arrays: numpy scalars and 0-d tensors as Python numbers, keys as str."""
+    if isinstance(obj, dict):
+        return {k if isinstance(k, str) else str(k): headline(v) for k, v in obj.items()
+                if not _bulk(v)}
+    if isinstance(obj, (list, tuple)):
+        return [headline(v) for v in obj if not _bulk(v)]
+    if hasattr(obj, "item"):
+        return obj.item()
+    return obj if obj is None or isinstance(obj, (bool, int, float, str)) else str(obj)
+
+
+def finite_numbers(what, obj):
+    """Fail unless every number in ``obj`` (nested dicts and lists) is
+    finite, but for the two values the package gives as undefined, as
+    ``repro`` does: a coverage sample's ``time_to_loss`` = inf (the client
+    never leaves coverage) and the NaN numbers of an empty subset (a dict
+    with ``pct`` 0: table II's)."""
+    if isinstance(obj, dict):
+        empty = obj.get("pct") == 0.0
+        for k, v in obj.items():
+            if not ((k == "time_to_loss" and v == float("inf"))
+                    or (empty and isinstance(v, float) and np.isnan(v))):
+                finite_numbers(f"{what}.{k}", v)
+    elif isinstance(obj, (list, tuple)):
+        for i, v in enumerate(obj):
+            finite_numbers(f"{what}[{i}]", v)
+    elif isinstance(obj, float) and not np.isfinite(obj):
+        fail(f"{what} is {obj}")
+
+
+def check_example(name, args, out):
+    """Each script's own invariants on the card, and finite numbers in what
+    its ``run`` returned (``headline``, which the examples line prints)."""
+    head = headline(out)
+    finite_numbers(name, head)
+    if name == "offload_detection" and not out["round_trip_exact"]:
+        fail("offload_detection: the engine's save / load round trip is not exact")
+    if name == "stream_offload" and not out["rerun_equal"]:
+        fail("stream_offload: the seeded rerun's records differ")
+    if name == "train_lm" and "--arch" not in args and not out["last10"] < out["first10"]:
+        fail(f"train_lm: the loss did not fall ({out['first10']} -> {out['last10']})")
+    if name == "serve_cascade" and not (out["loaded"] and out["decisions_identical"]):
+        fail(f"serve_cascade: checkpoint loaded {out['loaded']}, decisions identical after "
+             f"save / load {out['decisions_identical']}")
+    if name == "observability" and out["processed"] != EXAMPLES_OBS_FRAMES:
+        fail(f"observability: {out['processed']} frames processed of {EXAMPLES_OBS_FRAMES}")
+    if name == "fleet_scale" and not (out["plane"]["bit_identical"]
+                                      and out["plane"]["devices"] == FLEET_SHARDS):
+        fail(f"fleet_scale: the plane is not bit-identical to the engine: {out['plane']}")
+    if name == "mobility_handover":
+        m = out["motion"]
+        if not (m["waypoint"]["max_abs"] == 0.0 and m["random_walk"]["max_abs"] <= MOBILE_WALK_TOL
+                and all(v["rerun_identical"] for v in m.values())):
+            fail(f"mobility_handover: rollout against rollout_ref / rerun: {m}")
+    return head
+
+
+def examples(torch, smi, dev):
+    """The examples phase: every module of ``repro_torch.examples`` through
+    its ``main`` on the card (``EXAMPLES_RUNS``), its artifacts and output
+    files in a temporary directory, the scripts' printing sent to stderr;
+    every launch count set to 0 first and each script's launches taken as a
+    ``kernel_stats`` delta.  Fails unless every script returns, its
+    invariants hold (``check_example``) and every kernel of
+    ``EXAMPLES_PATH_KERNELS`` launched.  Returns the phase's launches, their
+    split, and the scripts that launched each reward-head shape."""
+    import repro_torch.examples as ex
+    import repro_torch.experiments.detection_repro as tdr
+    from repro_torch.kernels.estimator_mlp import estimator_mlp
+    from repro_torch.kernels.flash_sdpa import flash_sdpa
+    from repro_torch.kernels.iou_matrix import iou_matrix, iou_matrix_batch
+    from repro_torch.kernels.score_pipeline import score_pipeline
+    from repro_torch.kernels.wkv6 import wkv6
+    from repro_torch.obs import kernel_stats
+
+    counters = (iou_matrix, iou_matrix_batch, estimator_mlp, score_pipeline, flash_sdpa, wkv6)
+    t_phase = time.perf_counter()
+    reset_counts(counters)
+    rows, head_where = [], {}
+    cwd, saved = os.getcwd(), (ex.ARTIFACTS, tdr.ARTIFACTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ex.ARTIFACTS = tdr.ARTIFACTS = tmp
+        os.chdir(tmp)
+        try:
+            for name, args in EXAMPLES_RUNS:
+                mod = importlib.import_module(f"repro_torch.examples.{name}")
+                before, shapes_before = kernel_stats.snapshot(), split_counts(counters)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stdout(sys.stderr):
+                    out = mod.main(args)
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+                launches = kernel_stats.delta(before, kernel_stats.snapshot())["launches"]
+                for kernel, parts in split_counts(counters).items():
+                    for key, n in parts.get("by_shape", {}).items():
+                        if n > shapes_before.get(kernel, {}).get("by_shape", {}).get(key, 0):
+                            head_where.setdefault((kernel, key), []).append(name)
+                rows.append({"script": name, "args": args, "seconds": seconds,
+                             "launches": {k: n for k, n in launches.items() if n},
+                             "result": check_example(name, args, out)})
+        finally:
+            os.chdir(cwd)
+            ex.ARTIFACTS, tdr.ARTIFACTS = saved
+    phase_s = time.perf_counter() - t_phase
+    launches = {c.__name__: c.launches for c in counters}
+    split = split_counts(counters)
+    for c in split.values():
+        c["by_shape"] = {k: n for k, n in c.get("by_shape", {}).items() if n}
+    missing = [k for k in EXAMPLES_PATH_KERNELS if launches[k] == 0]
+    print(json.dumps({"examples": {"scripts": rows, "phase_s": phase_s, "launches": launches,
+                                   "launches_split": split, "card": smi}}), flush=True)
+    if missing:
+        fail(f"kernels never launched on the examples path: {missing}")
+    return launches, split, head_where
+
+
+def add_head_rows(torch, timer, dev, records, head_where):
+    """``time_head`` rows for the reward-head shapes the examples launched
+    that no row times yet, each ``where`` naming its scripts and each held
+    against the plain version, so that the timed and held shapes account
+    for every launch of the main paths."""
+    rng = np.random.default_rng(11)
+    params = None
+    for (name, key), scripts in sorted(head_where.items()):
+        if name not in HEAD_KERNELS or key in {r["key"] for r in records[name]["shapes"]}:
+            continue
+        dims = {k: int(v) for k, v in (kv.split("=") for kv in key.split())}
+        where = f"{', '.join(sorted(set(scripts)))} (examples)"
+        if name == "estimator_mlp":
+            row = head_row(torch, timer, dev, rng, dims["B"], dims["F"], dims["H"], where,
+                           dims.get("of"))
+        else:
+            params = params or seeded_head_params(torch, rng, dev)
+            row = pipeline_row(torch, timer, dev, rng, params, dims["B"], dims["K"], where,
+                               dims.get("of"))
+        finish_head_rows(name, [row], dev)
+        records[name]["shapes"].append(row)
+        records[name]["max_abs_err"] = max(records[name]["max_abs_err"], row["max_abs_err"])
+
+
+def check_example_lm_kernels(torch, dev, records):
+    """flash_sdpa and wkv6 against their plain versions at the shapes the
+    examples launch them: the ~100M models of ``train_lm.scaled_100m``
+    (float32, head dim 64, so flash_sdpa takes its simt route) at
+    train_lm's batch (the forward, and the Function's gradients against the
+    plain version's autograd, as the train step's backward takes them) and
+    at serve_cascade's (the forward); wkv6 at the RWKV model's heads from a
+    zero state, as the layer runs it (the forward, and the gradients of
+    out).  The shapes are read from the modules (``scaled_100m`` and the
+    defaults of ``run``).  Each case joins its kernel's record as
+    ``examples_holds``; the forward errors also its ``max_abs_err``."""
+    import inspect
+
+    from repro_torch.examples import serve_cascade, train_lm
+    from repro_torch.kernels.flash_sdpa import flash_sdpa, flash_sdpa_ref
+    from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
+
+    rng = np.random.default_rng(2626)
+    holds = {"flash_sdpa": [], "wkv6": []}
+
+    def normal(shape, scale=1.0):
+        return torch.tensor(rng.normal(0, scale, shape).astype(np.float32), device=dev)
+
+    def hold(kernel, case, got, want, tol):
+        e = held_err(f"{kernel} {case}", got, want, tol)
+        holds[kernel].append({"case": case, "max_abs_err": e, "tol": tol})
+        records[kernel]["max_abs_err"] = max(records[kernel]["max_abs_err"], e)
+
+    def defaults(mod):
+        params = inspect.signature(mod.run).parameters
+        return params["batch"].default, params["seq"].default
+
+    dense = train_lm.scaled_100m("yi_6b")
+    H, K, D, win = dense.num_heads, dense.num_kv_heads, dense.head_dim, dense.window
+    for mod in (train_lm, serve_cascade):
+        B, S = defaults(mod)
+        q, k, v = normal((B, S, H, D)), normal((B, S, K, D)), normal((B, S, K, D))
+        case = f"{mod.__name__.rsplit('.', 1)[1]}: B={B} S=T={S} H={H} K={K} D={D} f32 window={win}"
+        before = flash_sdpa.launches_by_route["simt"]
+        hold("flash_sdpa", case, flash_sdpa(q, k, v, window=win),
+             flash_sdpa_ref(q, k, v, window=win), 2e-6)
+        if flash_sdpa.launches_by_route["simt"] != before + 1:
+            fail(f"flash_sdpa at {case} did not take the simt route")
+        if mod is train_lm:
+            holds["flash_sdpa"].append(grad_case(
+                torch, "flash_sdpa", f"{case}, gradients",
+                lambda q, k, v: flash_sdpa(q, k, v, window=win),
+                lambda q, k, v: flash_sdpa_ref(q, k, v, window=win), (q, k, v),
+                (normal((B, S, H, D)),)))
+    rwkv = train_lm.scaled_100m("rwkv6_1b6").rwkv()
+    B, T = defaults(train_lm)
+    H, K = rwkv.num_heads, rwkv.head_size
+    w = torch.tensor(rng.uniform(0.5, 0.99, (B, T, H, K)).astype(np.float32), device=dev)
+    ins = (normal((B, T, H, K)), normal((B, T, H, K)), normal((B, T, H, K)), w,
+           normal((H, K), scale=0.2), torch.zeros((B, H, K, K), device=dev))
+    case = f"train_lm --arch rwkv6_1b6: B={B} T={T} H={H} K=V={K} f32, zero state"
+    # the LM prefill's rule (check_lm_kernels): 1e-5 of the largest |out| / |state|
+    for part, got, want in zip(("out", "state"), wkv6(*ins), wkv6_ref(*ins)):
+        hold("wkv6", f"{case} {part}", got, want, 1e-5 * float(want.abs().max()))
+    holds["wkv6"].append(grad_case(torch, "wkv6", f"{case}, gradients of out",
+                                   lambda *a: wkv6(*a)[0], lambda *a: wkv6_ref(*a)[0], ins,
+                                   (normal((B, T, H, K)),)))
+    for kernel, cases in holds.items():
+        records[kernel]["examples_holds"] = cases
+    emit("check_examples_lm", holds)
+
+
 KERNELS = {  # the IoU kernels' source: the route of their record (nms; IOU_SOURCES has all three)
     "iou_matrix": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:27"),
     "iou_matrix_batch": ("src/repro_torch/kernels/csrc/iou_nms.cu", "src/repro/kernels/iou_matrix/kernel.py:46"),
@@ -4778,6 +5098,7 @@ def main() -> None:
     records = check_kernels(torch, timer, dev)
     records.update(check_iou_routes(torch, timer, dev))
     records.update(check_lm_kernels(torch, timer, dev))
+    check_example_lm_kernels(torch, dev, records)
     detection, detection_split = serve(torch, smi, dev)
     train_launches, train_split, trained = train(torch, smi, dev)
     stream_launches, stream_split = stream(torch, smi, dev, trained)
@@ -4790,17 +5111,20 @@ def main() -> None:
     lm_train_launches, lm_train_split, lm_train_by_family = lm_train(torch, smi, dev)
     dry_run(smi)
     mesh_launches, mesh_split = mesh(torch, smi)
+    examples_launches, examples_split, head_where = examples(torch, smi, dev)
+    add_head_rows(torch, timer, dev, records, head_where)
     # the stream path: the detection stream and the two LM streams
     stream_launches = {k: n + lm_stream[k] for k, n in stream_launches.items()}
     merge_split(stream_split, lm_stream_split)
     paths = {"detection": detection, "train": train_launches, "stream": stream_launches,
              "repro": repro_launches, "video": video_launches, "fleet": fleet_launches,
              "mobility": mobility_launches, "lm": lm_launches, "lm_train": lm_train_launches,
-             "mesh": {k: mesh_launches.get(k, 0) for k in lm_launches}}
+             "mesh": {k: mesh_launches.get(k, 0) for k in lm_launches},
+             "examples": examples_launches}
     splits = {"detection": detection_split, "train": train_split, "stream": stream_split,
               "repro": repro_split, "video": video_split, "fleet": fleet_split,
               "mobility": mobility_split, "lm": lm_split, "lm_train": lm_train_split,
-              "mesh": mesh_split}
+              "mesh": mesh_split, "examples": examples_split}
     for name in HEAD_KERNELS:  # each timed shape's launches on the main paths
         for row in records[name]["shapes"]:
             row["launches"] = sum(sp.get(name, {}).get("by_shape", {}).get(row["key"], 0)
@@ -4828,6 +5152,7 @@ def main() -> None:
                if "train" in r else {}),
             **({k: r[k] for k in ("path_ms", "host_us", "shapes")} if name in HEAD_KERNELS else {}),
             **({"sources_by_route": FLASH_SOURCES} if name == "flash_sdpa" else {}),
+            **({"examples_holds": r["examples_holds"]} if "examples_holds" in r else {}),
             **({"sources_by_route": IOU_SOURCES,
                 "launches_by_route": {p: sp[name]["by_route"] for p, sp in splits.items()
                                       if p != "lm"},

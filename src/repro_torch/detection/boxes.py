@@ -47,3 +47,15 @@ def box_iou_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
     np.divide(inter, union, out=out, where=union > 0)
     return out
 
+
+def cxcywh_to_xyxy(boxes: torch.Tensor) -> torch.Tensor:
+    """``(..., 4)`` centre / size boxes -> ``[x1, y1, x2, y2]``."""
+    cx, cy, w, h = boxes.unbind(-1)
+    return torch.stack([cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2], dim=-1)
+
+
+def xyxy_to_cxcywh(boxes: torch.Tensor) -> torch.Tensor:
+    """``(..., 4)`` ``[x1, y1, x2, y2]`` boxes -> centre / size."""
+    x1, y1, x2, y2 = boxes.unbind(-1)
+    return torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1], dim=-1)
+

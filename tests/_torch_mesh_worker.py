@@ -2,8 +2,9 @@
 meshes of four ranks that run side by side (ranks 0-3 the (1, 4) mesh,
 4-7 the (2, 2) one).  Every rank builds the same seeded float32 parameters
 and batches of reduced configs, runs each step unbound (the reference) and
-under its bound mesh, and the first rank of each mesh writes what it
-compared to a JSON file.  Imports no JAX."""
+under its bound mesh, gathers the replicated loss and one replicated AdamW
+leaf from the mesh's four ranks, and the first rank of each mesh writes
+what it compared to a JSON file.  Imports no JAX."""
 from __future__ import annotations
 
 import datetime
@@ -63,7 +64,16 @@ def greedy(params, cfg, batch, mode=None):
     return out, placements
 
 
-def run_case(arch: str, shape, mesh_obj, mapping) -> Dict:
+def ranks_equal(value, group) -> bool:
+    """Whether every rank of ``group`` holds the same bits of a replicated
+    ``DTensor``'s local value."""
+    local = value.to_local().contiguous()
+    gathered = [torch.empty_like(local) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(gathered, local, group=group)
+    return all(torch.equal(g, gathered[0]) for g in gathered)
+
+
+def run_case(arch: str, shape, mesh_obj, mapping, group) -> Dict:
     cfg = config(arch)
     params = lm.init_params(cfg, torch.Generator().manual_seed(0), "cpu", dtype=torch.float32)
     batch = batch_of(cfg)
@@ -87,6 +97,10 @@ def run_case(arch: str, shape, mesh_obj, mapping) -> Dict:
         # after one step mu = (1 - b1) * clipped gradient: the gradients' hold
         res["grads"] = max(rel_err(g, w) for g, w in zip(tree_leaves(o1.mu), tree_leaves(opt_ref.mu)))
         res["grads_are_dtensors"] = all(hasattr(g, "placements") for g in tree_leaves(o1.mu))
+        # the replicated loss and a replicated AdamW leaf: the same bits on every rank
+        res["loss_ranks_equal"] = ranks_equal(loss, group)
+        mu = next(g for g in tree_leaves(o1.mu) if all(x.is_replicate() for x in g.placements))
+        res["mu_ranks_equal"] = ranks_equal(mu, group)
     for mode in tsh.CACHE_MODES:
         with bind_mesh(mesh_obj, mapping, cache_mode=mode):
             toks, placements = greedy(p, cfg, b, mode)
@@ -114,13 +128,14 @@ def worker(rank: int, store: str, out: str) -> None:
         # every rank makes every mesh (subgroups are made collectively)
         meshes = [DeviceMesh("cpu", torch.arange(4 * i, 4 * i + 4).reshape(shape),
                              mesh_dim_names=("data", "model")) for i, shape in enumerate(MESHES)]
+        groups = [dist.new_group(list(range(4 * i, 4 * i + 4))) for i in range(len(MESHES))]
         i = rank // 4
         shape, mesh_obj, mapping = MESHES[i], meshes[i], tmesh.logical_axes()
         results = {}
         for arch in ARCHS:
             key = f"{arch}@{shape[0]}x{shape[1]}"
             try:
-                results[key] = run_case(arch, shape, mesh_obj, mapping)
+                results[key] = run_case(arch, shape, mesh_obj, mapping, groups[i])
             except Exception as e:  # noqa: BLE001  (reported per case by the test)
                 results[key] = {"error": f"{type(e).__name__}: {e}"}
         if rank % 4 == 0:

@@ -9,7 +9,8 @@ batch distributed by ``launch.sharding``'s rules (``tp``).
 Held: the forward's logits, and the train step's loss and gradients (its
 AdamW ``mu`` after one step: 0.1 x the clipped gradient), each within 1e-5 of the largest value of the unbound result
 (tensor parallelism sums partial products in another order), the loss
-replicated; 8 greedy decode tokens a row equal to the unbound ones on each
+replicated and the same bits on every rank of the mesh (as is one
+replicated AdamW ``mu`` leaf); 8 greedy decode tokens a row equal to the unbound ones on each
 of the four cache modes, the cache placed as ``cache_shardings`` says; the
 logits ``DTensor``s placed by ``constrain`` (batch over ``data``, vocab
 over ``model``)."""
@@ -57,6 +58,16 @@ def test_sharded_loss_and_gradients_match_unbound(results, arch, mesh):
     assert res["loss"] <= TOL and res["grads"] <= TOL
     assert res["grads_are_dtensors"]
     assert res["loss_placements"] == ["R", "R"]
+
+
+@pytest.mark.parametrize("arch,mesh", CASES)
+def test_replicated_values_bit_equal_across_ranks(results, arch, mesh):
+    """``DTensor`` warns that redistributing the loss (Partial, Partial) ->
+    Replicate over two mesh dims "may give inconsistent results between
+    ranks"; the loss and a replicated AdamW ``mu`` leaf after the step hold
+    the same bits on every rank of the mesh."""
+    res = case(results, arch, mesh)
+    assert res["loss_ranks_equal"] and res["mu_ranks_equal"]
 
 
 @pytest.mark.parametrize("mode", ["seq", "heads", "batch", "headdim"])
