@@ -11,6 +11,11 @@ round-trips through ``save``/``load`` as the ``.npz`` artifact whose layout
 both packages share (an engine either package fitted loads in the other).
 Estimates stay on the device from the detections to the policy boundary,
 where ``decide`` copies them to the host once.
+
+Given a tracer (``tracer=``), or while ``torch.profiler`` records, scoring
+opens the stages ``engine.features`` (the adapter, where one runs),
+``engine.estimator`` (the launch and, for host estimates, the copy that
+waits for it) and ``engine.policy`` (:func:`repro_torch.obs.trace.stage`).
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from repro_torch.core.reward import CdfTransform
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.kernels.score_pipeline import score_pipeline
+from repro_torch.obs.trace import Tracer, stage
 from repro_torch.train.checkpoint import load_flat, save_flat
 
 
@@ -95,18 +101,23 @@ class OffloadEngine:
 
     # ------------------------------------------------------------ features
 
-    def features(self, weak_outputs: Any = None, *, features=None) -> torch.Tensor:
+    def features(self, weak_outputs: Any = None, *, features=None,
+                 tracer: Optional[Tracer] = None) -> torch.Tensor:
         """Resolve weak outputs (or ready-made ``features``) to the (B, F)
         float32 feature tensor the reward model consumes, on the engine's
-        device."""
+        device.  Weak outputs go through the ``engine.features`` stage."""
         if features is None:
             if weak_outputs is None:
                 raise ValueError("pass weak_outputs or features=")
-            # no adapter: weak outputs ARE the features
-            features = (
-                weak_outputs if self.feature_extractor is None
-                else self.feature_extractor(weak_outputs)
-            )
+            with stage(tracer, "engine.features", device=self.device):
+                # no adapter: weak outputs ARE the features
+                return self._as_features(
+                    weak_outputs if self.feature_extractor is None
+                    else self.feature_extractor(weak_outputs)
+                )
+        return self._as_features(features)
+
+    def _as_features(self, features) -> torch.Tensor:
         if isinstance(features, torch.Tensor):
             return features.to(self.device, torch.float32)
         return torch.tensor(np.asarray(features), dtype=torch.float32, device=self.device)
@@ -156,33 +167,43 @@ class OffloadEngine:
             and getattr(self.reward_model, "fused", False)
         )
 
-    def score_device(self, weak_outputs: Any = None, *, features=None) -> torch.Tensor:
-        """(B,) estimates on the engine's device.  A :class:`DetectionsBatch`
-        under the box extractor + fused MLP runs the whole boxes->estimates
-        pipeline as one ``score_pipeline`` launch; anything else goes through
-        feature extraction and the model's ``predict_device``."""
+    def score_device(self, weak_outputs: Any = None, *, features=None,
+                     tracer: Optional[Tracer] = None, host: bool = False):
+        """(B,) estimates on the engine's device (with ``host``, copied to a
+        host array inside the ``engine.estimator`` stage).  A
+        :class:`DetectionsBatch` under the box extractor + fused MLP runs the
+        whole boxes->estimates pipeline as one ``score_pipeline`` launch;
+        anything else goes through feature extraction and the model's
+        ``predict_device``."""
         if self._fused_pipeline_ready(weak_outputs, features):
             fx = self.feature_extractor
-            return score_pipeline(
-                weak_outputs.to(self.device),
-                self.reward_model.pipeline_params(),
-                num_classes=fx.num_classes,
-                top_k=fx.top_k,
-                image_size=fx.image_size,
-            )
-        x = self.features(weak_outputs, features=features)
+            with stage(tracer, "engine.estimator", device=self.device, fused=True):
+                est = score_pipeline(
+                    weak_outputs.to(self.device),
+                    self.reward_model.pipeline_params(),
+                    num_classes=fx.num_classes,
+                    top_k=fx.top_k,
+                    image_size=fx.image_size,
+                )
+                return est.cpu().numpy() if host else est
+        x = self.features(weak_outputs, features=features, tracer=tracer)
         model = self.reward_model
-        if hasattr(model, "predict_device"):
-            return model.predict_device(x)
-        return torch.as_tensor(model.predict(x), device=self.device)
+        with stage(tracer, "engine.estimator", device=self.device):
+            if hasattr(model, "predict_device"):
+                est = model.predict_device(x)
+            else:
+                est = torch.as_tensor(model.predict(x), device=self.device)
+            return est.cpu().numpy() if host else est
 
-    def decide(self, weak_outputs: Any = None, *, features=None) -> DecisionBatch:
+    def decide(self, weak_outputs: Any = None, *, features=None,
+               tracer: Optional[Tracer] = None) -> DecisionBatch:
         """Estimates (copied to the host here, once) and the policy's offload
         mask."""
         if self.policy is None:
             raise RuntimeError("decide() before fit()/load()")
-        est = self.score_device(weak_outputs, features=features).cpu().numpy()
-        mask = np.asarray(self.policy.decide_batch(est), bool)
+        est = self.score_device(weak_outputs, features=features, tracer=tracer, host=True)
+        with stage(tracer, "engine.policy"):
+            mask = np.asarray(self.policy.decide_batch(est), bool)
         return DecisionBatch(estimates=est, offload=mask)
 
     def set_ratio(self, ratio: float) -> None:

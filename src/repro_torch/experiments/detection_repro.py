@@ -77,7 +77,7 @@ from repro_torch.models.detector import (
     decode_detections,
     detector_forward,
 )
-from repro_torch.serving import timing
+from repro_torch.obs.trace import stage
 from repro_torch.train.checkpoint import load_pytree, save_pytree
 from repro_torch.train.trainer import train_detector
 
@@ -121,7 +121,7 @@ def build_pipeline(
     *,
     device: DeviceLike = "cuda",
     cache_dir: Optional[str] = None,
-    stage_ms: timing.StageMs = None,
+    stage_ms: Optional[Dict[str, float]] = None,
 ) -> PipelineState:
     """Train, run and match both detectors (``repro``'s stages, seeds and
     defaults) on ``device``; cached unless ``force``.  ``stage_ms``
@@ -134,50 +134,53 @@ def build_pipeline(
         with open(cache, "rb") as f:  # written by this function
             return pickle.load(f)
 
-    t0 = timing.now(stage_ms, dev)
-    if verbose:
-        print("[pipeline] generating data ...")
-    train = ShapesDataset.generate(n_train, seed=seed)
-    val = ShapesDataset.generate(n_val, seed=seed + 1)
-    pool = ShapesDataset.generate(n_pool, seed=seed + 2)
-    t0 = timing.add(stage_ms, "data_ms", t0, dev)
+    def timed(key: str):
+        return stage(None, f"pipeline.{key[:-3]}", stage_ms=stage_ms, key=key, device=dev)
+
+    with timed("data_ms"):
+        if verbose:
+            print("[pipeline] generating data ...")
+        train = ShapesDataset.generate(n_train, seed=seed)
+        val = ShapesDataset.generate(n_val, seed=seed + 1)
+        pool = ShapesDataset.generate(n_pool, seed=seed + 2)
 
     detectors, losses = {}, {}
     for cfg, steps in ((WEAK, steps_weak), (STRONG, steps_strong)):
-        if verbose:
-            print(f"[pipeline] training {cfg.name} detector ({steps} steps) ...")
-        det, losses[cfg.name] = train_detector(cfg, train, steps=steps, seed=seed + 10, device=dev)
-        save_pytree(os.path.join(root, f"torch_detector_{cfg.name}.npz"),
-                    detector_params_to_jax(det.state_dict()))
-        detectors[cfg.name] = det
-        t0 = timing.add(stage_ms, f"train_{cfg.name}_ms", t0, dev)
+        with timed(f"train_{cfg.name}_ms"):
+            if verbose:
+                print(f"[pipeline] training {cfg.name} detector ({steps} steps) ...")
+            det, losses[cfg.name] = train_detector(cfg, train, steps=steps, seed=seed + 10,
+                                                   device=dev)
+            save_pytree(os.path.join(root, f"torch_detector_{cfg.name}.npz"),
+                        detector_params_to_jax(det.state_dict()))
+            detectors[cfg.name] = det
 
-    if verbose:
-        print("[pipeline] running inference on val + pool ...")
-    weak_val = decode_detections(detectors["weak"], val.images)
-    strong_val = decode_detections(detectors["strong"], val.images)
-    weak_pool = decode_detections(detectors["weak"], pool.images)
-    t0 = timing.add(stage_ms, "decode_ms", t0, dev)
+    with timed("decode_ms"):
+        if verbose:
+            print("[pipeline] running inference on val + pool ...")
+        weak_val = decode_detections(detectors["weak"], val.images)
+        strong_val = decode_detections(detectors["strong"], val.images)
+        weak_pool = decode_detections(detectors["weak"], pool.images)
 
     # the batched data plane: pad once, match on the device (one launch of
     # the IoU family's match route a call), then the per-image evals
-    weak_val_batch = DetectionsBatch.from_list(weak_val, device=dev)
-    val_pairs = match_pairs_batched(weak_val_batch, strong_val, val.gts, device=dev)
-    pool_batch = DetectionsBatch.from_list(weak_pool, device=dev)
-    pool_gt_batch = GroundTruthBatch.from_list(pool.gts, device=dev)
-    pool_weak_evals = to_image_evals(
-        pool_batch, pool_gt_batch, match_batch(pool_batch, pool_gt_batch, (0.5,))
-    )
-    t0 = timing.add(stage_ms, "match_ms", t0, dev)
-    weak_map = dataset_map(weak_val, val.gts)
-    strong_map = dataset_map(strong_val, val.gts)
-    t0 = timing.add(stage_ms, "map_ms", t0, dev)
+    with timed("match_ms"):
+        weak_val_batch = DetectionsBatch.from_list(weak_val, device=dev)
+        val_pairs = match_pairs_batched(weak_val_batch, strong_val, val.gts, device=dev)
+        pool_batch = DetectionsBatch.from_list(weak_pool, device=dev)
+        pool_gt_batch = GroundTruthBatch.from_list(pool.gts, device=dev)
+        pool_weak_evals = to_image_evals(
+            pool_batch, pool_gt_batch, match_batch(pool_batch, pool_gt_batch, (0.5,))
+        )
+    with timed("map_ms"):
+        weak_map = dataset_map(weak_val, val.gts)
+        strong_map = dataset_map(strong_val, val.gts)
     if verbose:
         print(f"[pipeline] weak mAP={weak_map:.4f} strong mAP={strong_map:.4f}")
-    feats = extract_features_batch(
-        weak_val_batch, NUM_CLASSES, image_size=float(WEAK.image_size)
-    ).cpu().numpy()
-    timing.add(stage_ms, "features_ms", t0, dev)
+    with timed("features_ms"):
+        feats = extract_features_batch(
+            weak_val_batch, NUM_CLASSES, image_size=float(WEAK.image_size)
+        ).cpu().numpy()
     state = PipelineState(
         val_pairs=val_pairs,
         pool_weak_evals=pool_weak_evals,
@@ -652,7 +655,7 @@ def run_all(
     *,
     device: DeviceLike = "cuda",
     cache_dir: Optional[str] = None,
-    stage_ms: timing.StageMs = None,
+    stage_ms: Optional[Dict[str, float]] = None,
 ) -> Dict:
     """Full repro on ``device``; writes ``torch_repro_results.json`` to the
     cache dir.  ``quick`` cuts the splits and the training as ``repro``'s
@@ -668,31 +671,30 @@ def run_all(
         "strong_map": state.strong_map,
     }
     ctx = 400 if quick else 800
-    t0 = timing.now(stage_ms, dev)
 
-    def stage(name: str, value: Any) -> Any:
-        nonlocal t0
-        t0 = timing.add(stage_ms, name, t0, dev)
-        return value
+    def timed(key: str, fn, *args, **kwargs) -> Any:
+        with stage(None, f"repro.{key[:-3]}", stage_ms=stage_ms, key=key, device=dev):
+            return fn(*args, **kwargs)
 
-    results["figure5"] = stage("figure5_ms", figure5_context_size(
-        state,
+    results["figure5"] = timed(
+        "figure5_ms", figure5_context_size, state,
         context_sizes=(0, 25, 100, ctx // 2, ctx) if quick else (0, 25, 50, 100, 200, 400, 800),
         n_draws=3 if quick else 5,
-    ))
-    results["table2"] = stage("table2_ms", table2_conservatism(state, context_size=ctx))
-    results["figure6"] = stage("figure6_ms", figure6_error_types(state, context_size=ctx))
-    results["figure8"] = stage("figure8_ms", figure8_reward_cdf(state, context_size=ctx))
-    bundle = stage("train_estimators_ms", train_estimators(
-        state, context_size=ctx, epochs=20 if quick else 40, device=dev))
-    results["figure9_10"] = stage("figure9_10_ms", evaluate_policies(state, bundle, device=dev))
-    results["streaming_multi_edge"] = stage("streaming_ms", streaming_multi_edge_study(
-        state, context_size=ctx, epochs=10 if quick else 40, device=dev
-    ))
+    )
+    results["table2"] = timed("table2_ms", table2_conservatism, state, context_size=ctx)
+    results["figure6"] = timed("figure6_ms", figure6_error_types, state, context_size=ctx)
+    results["figure8"] = timed("figure8_ms", figure8_reward_cdf, state, context_size=ctx)
+    bundle = timed("train_estimators_ms", train_estimators, state, context_size=ctx,
+                   epochs=20 if quick else 40, device=dev)
+    results["figure9_10"] = timed("figure9_10_ms", evaluate_policies, state, bundle, device=dev)
+    results["streaming_multi_edge"] = timed(
+        "streaming_ms", streaming_multi_edge_study, state, context_size=ctx,
+        epochs=10 if quick else 40, device=dev,
+    )
     if not quick:
-        results["figure7"] = stage("figure7_ms", figure7_input_study(
-            state, context_size=ctx, device=dev, cache_dir=cache_dir))
-        results["token_bucket"] = stage("token_bucket_ms", token_bucket_study(state, bundle))
+        results["figure7"] = timed("figure7_ms", figure7_input_study, state, context_size=ctx,
+                                   device=dev, cache_dir=cache_dir)
+        results["token_bucket"] = timed("token_bucket_ms", token_bucket_study, state, bundle)
     results = _plain(results)
     path = os.path.join(_cache_root(cache_dir), "torch_repro_results.json")
     with open(path, "w") as f:

@@ -77,6 +77,7 @@ from repro_torch.kernels.flash_sdpa.ref import sdpa_mask
 from repro_torch.kernels.wkv6 import wkv6, wkv6_ref
 from repro_torch.launch import meshctx
 from repro_torch.launch.meshctx import constrain
+from repro_torch.obs.trace import stage
 
 PyTree = Dict[str, object]
 
@@ -264,7 +265,8 @@ def _sdpa(q, k, v, *, window: int, q_offset: int, plain: bool = False,
     if meshctx.is_sharded(q):
         return _sdpa_local(fn, q, k, v, causal, window, q_offset, seq_shard)
     q, k, v = (meshctx.contiguous_grad(t) for t in (q, k, v))  # as on a mesh's local shards
-    out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    with stage(None, "lm.attention.core"):  # a profiler range: the kernel's host path
+        out = fn(q, k, v, causal=causal, window=window, q_offset=q_offset)
     return out.reshape(q.shape[0], q.shape[1], -1)
 
 

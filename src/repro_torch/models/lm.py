@@ -66,6 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.kernels.dispatch import DeviceLike, resolve_device
 from repro_torch.launch import meshctx
 from repro_torch.launch.meshctx import constrain
+from repro_torch.obs.trace import Tracer, stage
 from repro_torch.tree import tree_leaves, tree_map
 from repro_torch.models.layers import (
     AttnConfig,
@@ -460,21 +461,29 @@ def _add(h, x):
     return h + constrain(x, "batch", None, None)
 
 
+# A block's halves are host ranges of the profiler's trace while it records
+# (``stage`` with no tracer): a layer launches more host operations than a
+# device trace's reader looks back over to find the range a gap lies in.
+
 def _dense_block(lp, cfg: LMConfig, h, positions, positions_3d=None, plain: bool = False,
                  return_kv: bool = False):
     """A dense layer, or the hybrid's shared block (the same keys)."""
-    a, kv = _attend(lp, cfg, h, positions, positions_3d, plain, return_kv)
-    h = h + constrain(a, "batch", None, None)
-    h = _add(h, swiglu(lp["mlp"], rmsnorm(lp["norm2"], h)))
+    with stage(None, "lm.attention"):
+        a, kv = _attend(lp, cfg, h, positions, positions_3d, plain, return_kv)
+        h = h + constrain(a, "batch", None, None)
+    with stage(None, "lm.mlp"):
+        h = _add(h, swiglu(lp["mlp"], rmsnorm(lp["norm2"], h)))
     return h, kv
 
 
 def _moe_block(lp, cfg: LMConfig, h, positions, plain: bool = False, return_kv: bool = False):
     """A MoE layer: (h, its aux loss, kv)."""
-    a, kv = _attend(lp, cfg, h, positions, None, plain, return_kv)
-    h = h + constrain(a, "batch", None, None)
-    out, aux = moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))
-    return _add(h, out), aux, kv
+    with stage(None, "lm.attention"):
+        a, kv = _attend(lp, cfg, h, positions, None, plain, return_kv)
+        h = h + constrain(a, "batch", None, None)
+    with stage(None, "lm.moe"):
+        out, aux = moe_apply(lp["moe"], cfg.moe(), rmsnorm(lp["norm2"], h))
+        return _add(h, out), aux, kv
 
 
 def _ffn(lp, cfg: LMConfig, h):
@@ -485,11 +494,13 @@ def _ffn(lp, cfg: LMConfig, h):
 
 
 def _rwkv_block(lp, cfg: LMConfig, h, state, x_tm, x_cm, plain: bool = False):
-    a, state, x_tm = rwkv6_time_mix(lp["tm"], cfg.rwkv(), layernorm(lp["ln1"], h), state,
-                                    x_tm, plain=plain)
-    h = _add(h, a)
-    c, x_cm = rwkv6_channel_mix(lp["tm"], layernorm(lp["ln2"], h), x_cm)
-    return _add(h, c), state, x_tm, x_cm
+    with stage(None, "lm.time_mix"):
+        a, state, x_tm = rwkv6_time_mix(lp["tm"], cfg.rwkv(), layernorm(lp["ln1"], h), state,
+                                        x_tm, plain=plain)
+        h = _add(h, a)
+    with stage(None, "lm.channel_mix"):
+        c, x_cm = rwkv6_channel_mix(lp["tm"], layernorm(lp["ln2"], h), x_cm)
+        return _add(h, c), state, x_tm, x_cm
 
 
 def _mamba_block(lp, cfg: LMConfig, h, ssm, conv):
@@ -632,14 +643,16 @@ def _dec_block(lp, cfg: LMConfig, h, enc, plain: bool = False, return_kv: bool =
     return h, (kv + (xk, xv) if return_kv else None)
 
 
-def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False,
+            tracer: Optional[Tracer] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward.  Returns (logits (B, S, V), aux): the MoE
     layers' load-balance losses summed in float32 (0 for the other
     families).  Differentiable; with ``cfg.remat``, each layer (a hybrid:
     each group; an encoder-decoder: each encoder and each decoder layer) is
     checkpointed when a parameter requires grad under grad mode (serving
-    builds no graph)."""
+    builds no graph).  Given a ``tracer``, or while ``torch.profiler``
+    records, each layer of the dense, MoE and RWKV stacks is an
+    ``lm.layer`` stage (arg ``i``)."""
     check_arch(cfg)
     h = _embed(params, cfg, batch)
     B, S, _ = h.shape
@@ -671,12 +684,15 @@ def forward(params: PyTree, cfg: LMConfig, batch: Dict, *, plain: bool = False
         "moe": _remat(lambda hh, lp: _moe_block(lp, cfg, hh, positions, plain)[:2], remat),
         "rwkv": _remat(lambda hh, lp: _rwkv_block(lp, cfg, hh, None, None, None, plain)[0], remat),
     }
-    for kind, lp in _layers(params, cfg):
-        if kind == "moe":
-            h, aux_l = body[kind](h, lp)
-            aux = aux + aux_l
-        else:
-            h = body[kind](h, lp)
+    with stage(None, "lm.unstack"):  # the layers' views: host work the card waits on
+        layers = list(_layers(params, cfg))
+    for i, (kind, lp) in enumerate(layers):
+        with stage(tracer, "lm.layer", i=i):
+            if kind == "moe":
+                h, aux_l = body[kind](h, lp)
+                aux = aux + aux_l
+            else:
+                h = body[kind](h, lp)
     return _logits(params, cfg, h), aux
 
 

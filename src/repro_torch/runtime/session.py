@@ -36,6 +36,7 @@ from repro_torch.api.engine import OffloadEngine
 from repro_torch.api.policies import make_policy, policy_context_params
 from repro_torch.detection.batch import DetectionsBatch
 from repro_torch.obs.metrics import DEFAULT_TIME_BUCKETS, Counter, Gauge, Histogram
+from repro_torch.obs.trace import stage
 
 #: initial pending-buffer capacity (rows); grows geometrically — the hot
 #: loop never allocates per frame after warmup
@@ -215,7 +216,10 @@ class OffloadSession:
         (default) the instruments are standalone objects and nothing else
         changes: ``telemetry.as_dict()`` payloads are byte-identical
         either way.  The tracer plane (when on) receives one
-        ``session.flush`` span per scoring drain on track ``tid``.
+        ``session.flush`` span per scoring drain on track ``tid``; on the
+        wall clock (no bound simulation clock) also the engine's stages
+        (``engine.features`` / ``engine.estimator`` / ``engine.policy``),
+        the same on the device fast path and the buffered one.
     name : str or None
         Stream label used for this session's metric series; auto-numbered
         within the registry when omitted.
@@ -425,7 +429,7 @@ class OffloadSession:
             if weak_output is None:
                 raise ValueError("pass weak_output or features=")
             frame = weak_output if isinstance(weak_output, DetectionsBatch) else [weak_output]
-            block = self.engine.features(frame)
+            block = self.engine.features(frame, tracer=self._work_tracer())
             if block.shape[0] != 1:
                 raise ValueError(
                     f"submit() takes one frame; the weak output holds {block.shape[0]}"
@@ -462,15 +466,21 @@ class OffloadSession:
         ``estimator_mlp`` over micro-batches) sum in different orders, so
         their estimates agree to float32 rounding and only a row that close
         to the threshold can decide differently."""
+        tracer = self._work_tracer()
         if flush and self._pending_rows == 0 and (
             features is None or np.ndim(features) == 2  # a tensor's .ndim, no copy
         ):
-            est = _host(self.engine.score_device(weak_outputs, features=features))
+            if self._tracer is not None:
+                # the flush span covers the scoring and the policy
+                self._flush_t0 = self._tracer.clock()
+            est = _host(self.engine.score_device(weak_outputs, features=features,
+                                                 tracer=tracer, host=True))
             if est.size == 0:
+                self._flush_t0 = None
                 return []
             self._next_step += est.size
             return self._decide(est)
-        self._enqueue(self.engine.features(weak_outputs, features=features))
+        self._enqueue(self.engine.features(weak_outputs, features=features, tracer=tracer))
         out: List[StepDecision] = []
         if flush:
             out.extend(self.flush())
@@ -520,11 +530,12 @@ class OffloadSession:
         prof = self._profiler
         # device scoring; one host copy at the policy boundary, which waits
         # for the kernel, so the ``session.score`` phase ends after the work
+        tracer = self._work_tracer()
         if prof is None:
-            estimates = _host(self.engine.score_device(features=head))
+            estimates = _host(self.engine.score_device(features=head, tracer=tracer, host=True))
         else:
             t0 = prof.begin()
-            estimates = _host(self.engine.score_device(features=head))
+            estimates = _host(self.engine.score_device(features=head, tracer=tracer, host=True))
             prof.add("session.score", t0)
         rem = self._pending_rows - rows
         if rem:
@@ -553,22 +564,29 @@ class OffloadSession:
         self._next_step += est.size
         return self._decide(est)
 
+    def _work_tracer(self):
+        """The tracer for the engine's stages: the session's, while it runs
+        on the wall clock (a simulation's trace keeps only its own spans)."""
+        tr = self._tracer
+        return tr if tr is not None and tr.wall else None
+
     def _decide(self, estimates: np.ndarray) -> List[StepDecision]:
         """Run already-scored estimates through the session policy in
         arrival order and account them in the telemetry."""
-        if getattr(self.policy, "batch_budget", False):
-            # a per-batch budget (topk) would make streaming decisions
-            # depend on micro-batch/flush boundaries (and offload nothing
-            # at micro_batch=1) — such policies keep the per-item
-            # semantics of decide()
-            offload = np.fromiter(
-                (self.policy.decide(float(e)) for e in estimates),
-                dtype=bool, count=len(estimates),
-            )
-        else:
-            # decide_batch is buffer-invariant here: vectorized for
-            # threshold, internally sequential for token_bucket
-            offload = np.asarray(self.policy.decide_batch(estimates), bool)
+        with stage(self._work_tracer(), "engine.policy"):
+            if getattr(self.policy, "batch_budget", False):
+                # a per-batch budget (topk) would make streaming decisions
+                # depend on micro-batch/flush boundaries (and offload nothing
+                # at micro_batch=1) — such policies keep the per-item
+                # semantics of decide()
+                offload = np.fromiter(
+                    (self.policy.decide(float(e)) for e in estimates),
+                    dtype=bool, count=len(estimates),
+                )
+            else:
+                # decide_batch is buffer-invariant here: vectorized for
+                # threshold, internally sequential for token_bucket
+                offload = np.asarray(self.policy.decide_batch(estimates), bool)
         # the queue held exactly the arrivals not yet decided, so the drained
         # rows are the arrival indices trailing the still-pending ones
         first = self._next_step - self._pending_rows - len(estimates)

@@ -18,11 +18,21 @@ stacks, with or without MLA), as ``repro`` does.  A VLM batch's
 tokens.  The hybrid and encoder-decoder families have no early-exit
 cascade in ``repro`` (its ``truncate_params`` knows only these stacks), and
 none here: they are served through ``decode_loop.generate``.
+
+Spans: with an ``Obs`` attached (``LMCascade.obs``), or while
+``torch.profiler`` records, each batch is a ``cascade.serve_batch`` tree
+(:func:`repro_torch.obs.trace.stage`): ``cascade.weak_forward``,
+``cascade.decide`` (the engine's ``engine.features`` / ``engine.estimator``
+/ ``engine.policy`` inside), ``cascade.nll``, ``cascade.strong_forward``,
+``cascade.nll``; every forward's layers are ``lm.layer`` spans.  The end of
+``cascade.decide`` is the batch's decision instant: the offload mask is on
+the host.  A profiled batch with no ``Obs`` attached attaches a tracer-only
+one, so a profiled run carries the spans by itself.
 """
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 import numpy as np
@@ -33,8 +43,9 @@ from repro_torch.api.features import logits_features  # re-export, as in repro
 from repro_torch.core.estimator import EstimatorConfig
 from repro_torch.kernels.dispatch import DeviceLike
 from repro_torch.models.lm import LMConfig, check_arch, forward, tree_map
+from repro_torch.obs import Obs
+from repro_torch.obs.trace import profiler_active, stage
 from repro_torch.runtime.session import OffloadSession
-from repro_torch.serving import timing
 
 PyTree = dict
 
@@ -109,6 +120,8 @@ class LMCascade:
     cfg: LMConfig
     exit_layer: int
     engine: OffloadEngine
+    #: where the spans go (an operator attaches one; see the module docstring)
+    obs: Optional[Obs] = field(default=None, repr=False, compare=False)
 
     # -- views of the engine's stack --------------------------------------
     @property
@@ -164,6 +177,39 @@ class LMCascade:
         engine.fit(features=torch.cat(feats), rewards=np.concatenate(rewards))
         return cls(cfg=cfg, exit_layer=exit_layer, engine=engine)
 
+    def _tracer(self):
+        """The attached ``Obs``'s tracer; while ``torch.profiler`` records and
+        none is attached, a tracer-only ``Obs`` of the cascade's own."""
+        if self.obs is None and profiler_active():
+            self.obs = Obs(metrics=False, profiling=False)
+        return self.obs.tracer if self.obs is not None else None
+
+    def _stages(self, params: PyTree, batch: Dict, decide, tr, stage_ms=None):
+        """One batch's stages: the weak pass, ``decide(weak outputs)`` ->
+        (decisions, the offload mask on the host), the weak NLLs, the strong
+        pass and its NLLs.  Returns (decisions, mask, nll_weak, nll_strong)."""
+        dev = params["embed"].device
+        with stage(tr, "cascade.serve_batch", device=dev) as root:
+            with stage(tr, "cascade.weak_forward", stage_ms=stage_ms, key="weak_forward_ms",
+                       device=dev):
+                wparams = truncate_params(params, self.cfg, self.exit_layer)
+                wlogits, _ = forward(wparams, truncated_config(self.cfg, self.exit_layer), batch,
+                                     tracer=tr)
+            with stage(tr, "cascade.decide", stage_ms=stage_ms, key="decide_ms", device=dev):
+                decisions, offload = decide((wlogits, batch["labels"]))
+            with stage(tr, "cascade.nll", stage_ms=stage_ms, key="nll_ms", device=dev):
+                nll_w = sequence_nll(wlogits, batch["labels"]).cpu().numpy()
+                del wlogits
+            with stage(tr, "cascade.strong_forward", stage_ms=stage_ms, key="strong_forward_ms",
+                       device=dev):
+                slogits, _ = forward(params, self.cfg, batch, tracer=tr)
+            with stage(tr, "cascade.nll", stage_ms=stage_ms, key="nll_ms", device=dev):
+                nll_s = sequence_nll(slogits, batch["labels"]).cpu().numpy()
+                del slogits
+            if tr is not None:
+                root.set(**_batch_args(batch, offload))
+        return decisions, offload, nll_w, nll_s
+
     @torch.no_grad()
     def serve_batch(self, params: PyTree, batch: Dict, *,
                     stage_ms: Optional[Dict[str, float]] = None) -> Dict:
@@ -173,23 +219,15 @@ class LMCascade:
         cross to the strong model).  Returns per-request NLLs (host numpy),
         decisions and the blended quality.  ``stage_ms`` accumulates
         ``weak_forward_ms``, ``decide_ms``, ``strong_forward_ms`` and
-        ``nll_ms`` when given."""
-        dev = params["embed"].device
-        t0 = timing.now(stage_ms, dev)
-        wparams = truncate_params(params, self.cfg, self.exit_layer)
-        wlogits, _ = forward(wparams, truncated_config(self.cfg, self.exit_layer), batch)
-        t0 = timing.add(stage_ms, "weak_forward_ms", t0, dev)
-        decision = self.engine.decide((wlogits, batch["labels"]))
-        offload = decision.offload
-        t0 = timing.add(stage_ms, "decide_ms", t0, dev)
-        nll_w = sequence_nll(wlogits, batch["labels"]).cpu().numpy()
-        del wlogits
-        t0 = timing.add(stage_ms, "nll_ms", t0, dev)
-        slogits, _ = forward(params, self.cfg, batch)
-        t0 = timing.add(stage_ms, "strong_forward_ms", t0, dev)
-        nll_s = sequence_nll(slogits, batch["labels"]).cpu().numpy()
-        del slogits
-        timing.add(stage_ms, "nll_ms", t0, dev)
+        ``nll_ms`` when given, waiting for the device at each stage's open
+        and close."""
+        tr = self._tracer()
+
+        def decide(weak_out):
+            decision = self.engine.decide(weak_out, tracer=tr)
+            return decision, decision.offload
+
+        decision, offload, nll_w, nll_s = self._stages(params, batch, decide, tr, stage_ms)
         return {
             "estimates": decision.estimates,
             "offload": offload,
@@ -224,11 +262,16 @@ class LMCascade:
         its request.  Each batch's weak logits stay on the device through
         the decision (one ``estimator_mlp`` launch a batch); returns the
         concatenated per-request results (host numpy) plus the telemetry."""
+        tr = self._tracer()
         if session is None:
-            session = OffloadSession(self.engine, ratio=ratio, micro_batch=micro_batch)
+            session = OffloadSession(self.engine, ratio=ratio, micro_batch=micro_batch,
+                                     obs=self.obs)
         rebudget = dict(set_ratio_at or {})
-        wcfg = truncated_config(self.cfg, self.exit_layer)
-        wparams = truncate_params(params, self.cfg, self.exit_layer)
+
+        def decide(weak_out):
+            decisions = session.submit_batch(weak_out)
+            return decisions, np.array([d.offload for d in decisions], bool)
+
         served = 0
         est, off, nw, ns = [], [], [], []
         for batch in batches:
@@ -236,14 +279,7 @@ class LMCascade:
             for step in sorted(rebudget):
                 if step < served + int(batch["tokens"].shape[0]):
                     session.set_ratio(rebudget.pop(step))
-            wlogits, _ = forward(wparams, wcfg, batch)
-            decisions = session.submit_batch((wlogits, batch["labels"]))
-            mask = np.array([d.offload for d in decisions], bool)
-            nll_w = sequence_nll(wlogits, batch["labels"]).cpu().numpy()
-            del wlogits
-            slogits, _ = forward(params, self.cfg, batch)
-            nll_s = sequence_nll(slogits, batch["labels"]).cpu().numpy()
-            del slogits
+            decisions, mask, nll_w, nll_s = self._stages(params, batch, decide, tr)
             for r in (nll_w - nll_s)[mask]:
                 session.record_reward(float(r))
             est.append(np.array([d.estimate for d in decisions]))
@@ -275,8 +311,21 @@ class LMCascade:
         )
 
     @classmethod
-    def load(cls, path: str, cfg: LMConfig, *, device: DeviceLike = "cuda") -> "LMCascade":
+    def load(cls, path: str, cfg: LMConfig, *, device: DeviceLike = "cuda",
+             obs: Optional[Obs] = None) -> "LMCascade":
         """Rebuild from a saved engine on ``device``; the LM config and params
-        are the caller's (the artifact carries only the decision stack)."""
+        are the caller's (the artifact carries only the decision stack).
+        ``obs`` receives the spans of every batch."""
         engine = OffloadEngine.load(path, device=device)
-        return cls(cfg=cfg, exit_layer=int(engine.extra_meta["exit_layer"]), engine=engine)
+        return cls(cfg=cfg, exit_layer=int(engine.extra_meta["exit_layer"]), engine=engine,
+                   obs=obs)
+
+
+def _batch_args(batch: Dict, offload: np.ndarray) -> Dict[str, int]:
+    """The root span's args: rows, padded length, positions with a label
+    (read once the batch is done) and rows offloaded."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    scored = (labels >= 0).sum() if isinstance(labels, torch.Tensor) else \
+        np.count_nonzero(np.asarray(labels) >= 0)
+    return {"rows": int(tokens.shape[0]), "pad": int(tokens.shape[1]), "scored": int(scored),
+            "offloaded": int(np.count_nonzero(offload))}

@@ -8,8 +8,8 @@ import numpy as np
 import torch
 
 from repro_torch.models.lm import LMConfig, decode_step, forward, prefill
+from repro_torch.obs.trace import stage
 from repro_torch.runtime.session import OffloadSession
-from repro_torch.serving import timing
 
 
 @torch.no_grad()
@@ -30,10 +30,8 @@ def generate(
     ``stage_ms``, when given, accumulates the ``prefill_ms`` and
     ``decode_ms`` of the call (waiting for the device at each boundary)."""
     dev = params["embed"].device
-    t0 = timing.now(stage_ms, dev)
     S = int(batch["tokens"].shape[1])
     capacity = capacity or (S + steps)
-    logits, cache = prefill(params, cfg, batch, capacity=capacity)
 
     def pick(lg):
         if greedy:
@@ -41,12 +39,13 @@ def generate(
         probs = torch.softmax(lg.float(), dim=-1)
         return torch.multinomial(probs, 1, generator=generator)[:, 0].to(torch.int32)
 
-    toks = [pick(logits)]
-    t0 = timing.add(stage_ms, "prefill_ms", t0, dev)
-    for t in range(steps - 1):
-        logits, cache = decode_step(params, cfg, cache, toks[-1], S + t)
-        toks.append(pick(logits))
-    timing.add(stage_ms, "decode_ms", t0, dev)
+    with stage(None, "generate.prefill", stage_ms=stage_ms, key="prefill_ms", device=dev):
+        logits, cache = prefill(params, cfg, batch, capacity=capacity)
+        toks = [pick(logits)]
+    with stage(None, "generate.decode", stage_ms=stage_ms, key="decode_ms", device=dev):
+        for t in range(steps - 1):
+            logits, cache = decode_step(params, cfg, cache, toks[-1], S + t)
+            toks.append(pick(logits))
     return torch.stack(toks, dim=1)
 
 
